@@ -1,20 +1,24 @@
-"""The port's CUDA attention kernel and its timers on the card (marked
-``cuda``).
+"""The port's CUDA attention kernels, a train step and the timers on the
+card (marked ``cuda``).
 
 These tests need an NVIDIA GPU and nvcc; without a card each skips with
 its reason. Run them on the card without the JAX test configuration:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerance: bf16 kernel vs the plain version computing in f32 from the
+Tolerances: bf16 kernel vs the plain version computing in f32 from the
 same bf16 inputs, max abs error < 0.05 (bf16 output rounding plus the
-bf16 probabilities of the PV product).
+bf16 probabilities of the PV product); LSE within 1e-3 on rows with a valid
+key (f32 sums in another order); backward max |dqkv − plain| < 0.05 ·
+max(1, max |plain|), the gradient rule of scripts/check_tpu_kernels.py
+(bf16 p and ds in the products); dqkv exactly 0 in an all-padding window.
 """
 
 import pytest
 import torch
 
 from tpu3dssf_torch.kernels import flash_attention as fa
+from tpu3dssf_torch.kernels import window_attention as wa
 from tpu3dssf_torch.kernels import window_attention_packed
 
 pytestmark = pytest.mark.cuda
@@ -95,3 +99,104 @@ def test_profile_kernels_counts_the_kernel_launches(cuda):
     assert sum(n for _, n in k1) == 2
     assert sum(us for us, _ in k1) > 0
     assert cuda_ms(two_calls, reps=3, warmup=1) > 0
+
+
+# ragged N and up to 32 heads, all at the PTv3 head dim D = 16
+GRAD_SHAPES = [(3, 1, 32, 2), (2, 77, 64, 4), (3, 130, 128, 8),
+               (4, 1024, 32, 2), (2, 1024, 512, 32)]
+
+
+@pytest.mark.parametrize("B,N,C,H", GRAD_SHAPES)
+def test_lse_kernel_matches_plain_version(cuda, B, N, C, H):
+    qkv, bias = _inputs(cuda, B, N, C, masked=N > 1)
+    out, lse = fa._launch_lse(qkv, bias, H, (C // H) ** -0.5)
+    torch.cuda.synchronize()
+    ref, ref_lse = fa.flash_attention_packed_lse_reference(
+        qkv, bias, H, (C // H) ** -0.5)
+    assert lse.shape == (B, H, N) and lse.dtype == torch.float32
+    assert (out.float() - ref.float()).abs().max().item() < TOL
+    live = (bias[:, 0] == 0).any(-1)          # rows with a valid key
+    assert (lse - ref_lse)[live].abs().max().item() < 1e-3
+
+
+@pytest.mark.parametrize("B,N,C,H", GRAD_SHAPES)
+def test_backward_kernel_matches_plain_version(cuda, B, N, C, H):
+    q_scale = (C // H) ** -0.5
+    qkv, bias = _inputs(cuda, B, N, C, masked=N > 1)
+    keep = bias[:, 0] == 0
+    gen = torch.Generator().manual_seed(1)
+    dout = torch.randn(B, N, C, generator=gen).to(cuda)
+    dout = (dout * keep[..., None]).to(torch.bfloat16)  # masked queries: 0
+    out, lse = fa.flash_attention_packed_lse_reference(qkv, bias, H, q_scale)
+    delta = fa.row_delta(dout, out * keep[..., None], H)
+    got = fa._launch_bwd(qkv, bias, dout, lse, delta, H, q_scale)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_packed_bwd_reference(qkv, bias, dout, lse,
+                                                  delta, H, q_scale)
+    assert got.shape == qkv.shape and torch.isfinite(got.float()).all()
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err < TOL * max(1.0, ref.float().abs().max().item())
+    if N > 1:   # the last row is an all-padding window
+        assert got[-1].abs().max().item() == 0.0
+
+
+def test_training_rules_launch_their_kernels(cuda):
+    qkv, bias = _inputs(cuda, 3, 1024, 128, True)
+    mask = bias[:, 0] == 0
+    counts = (fa.LAUNCHES, fa.LSE_LAUNCHES, fa.BWD_LAUNCHES,
+              wa.LSE_LAUNCHES, wa.BWD_LAUNCHES)
+    x = qkv.detach().requires_grad_()
+    fa.flash_attention_packed(x, bias, 8, 0.25).float().sum().backward()
+    y = qkv[..., :96].contiguous().requires_grad_()
+    window_attention_packed(y, mask, 2).float().sum().backward()
+    torch.cuda.synchronize()
+    after = (fa.LAUNCHES, fa.LSE_LAUNCHES, fa.BWD_LAUNCHES,
+             wa.LSE_LAUNCHES, wa.BWD_LAUNCHES)
+    assert [a - b for a, b in zip(after, counts)] == [0, 1, 1, 1, 1]
+    assert torch.isfinite(x.grad.float()).all()
+    assert y.grad[~mask].abs().max().item() == 0.0   # masked slots
+    with pytest.raises(ValueError, match="head dim"):   # D = 64: no bwd
+        z = qkv[..., :384].contiguous().requires_grad_()
+        fa.flash_attention_packed(z, bias, 2, 0.125).sum().backward()
+
+
+def test_small_model_train_step_on_the_card(cuda):
+    from tpu3dssf_torch.cli.common import (HostDataPipeline,
+                                           SyntheticNuScenes, batch_to_device)
+    from tpu3dssf_torch.losses import CELSLoss
+    from tpu3dssf_torch.models import fusion, ptv3
+    from tpu3dssf_torch.models.layers import init_weights
+    from tpu3dssf_torch.train import (TrainState, create_optimizer,
+                                      make_train_step)
+
+    bf16 = torch.bfloat16
+    cfg = fusion.PipelineConfig(
+        fusion=fusion.FusionConfig(point_feat_dim=32, patch_tok_dim=16,
+                                   patch_size=8, encoder_size=(48, 80),
+                                   dtype=bf16),
+        ptv3=ptv3.PTv3Config(
+            enc_depths=(1, 1), enc_channels=(32, 128), enc_heads=(2, 8),
+            enc_window=(64, 64), dec_depths=(1,), dec_channels=(32,),
+            dec_heads=(2,), dec_window=(64,), dtype=bf16),
+        voxel_size=0.4, voxel_capacity=1024)
+    data = SyntheticNuScenes(num_samples=2, num_points=3000,
+                             image_hw=(90, 160), seed=3)
+    host = next(iter(HostDataPipeline(data, batch_size=2,
+                                      point_capacity=3072)))
+    host.pop("images")
+    batch = batch_to_device(host, cuda)
+    tokens = torch.randn(2, 6, 60, 16, device=cuda).to(bf16)
+    model = init_weights(fusion.SegmentationPipeline(cfg), 6).to(cuda)
+    state = TrainState(model, create_optimizer(
+        model.parameters(), "AdamW", 1e-3, grad_clip=1.0))
+    step = make_train_step(CELSLoss(weight=[1.0] * 16))
+    before = (fa.LSE_LAUNCHES, fa.BWD_LAUNCHES, wa.LSE_LAUNCHES,
+              wa.BWD_LAUNCHES)
+    m = step(state, batch, tokens)
+    torch.cuda.synchronize()
+    after = (fa.LSE_LAUNCHES, fa.BWD_LAUNCHES, wa.LSE_LAUNCHES,
+             wa.BWD_LAUNCHES)
+    assert all(a > b for a, b in zip(after, before))
+    assert torch.isfinite(m["loss"]).item()
+    for p in state.model.parameters():
+        assert torch.isfinite(p).all()

@@ -276,6 +276,9 @@ def test_port_imports_no_jax():
         " ('jax', 'jaxlib', 'flax', 'optax'))\n"
         "n = sum(m.startswith('tpu3dssf_torch.') for m in sys.modules)\n"
         "assert n >= 20, n\n"
+        "new = {'tpu3dssf_torch.cli.main_train', 'tpu3dssf_torch.train.state',"
+        " 'tpu3dssf_torch.train.checkpoint'}\n"
+        "assert new <= set(sys.modules), new - set(sys.modules)\n"
         "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

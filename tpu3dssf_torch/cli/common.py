@@ -1,10 +1,11 @@
-"""Shared CLI wiring for the port: config → data, models, loss.
+"""Shared CLI wiring for the port: config → data, models, loss, state.
 
 The host-side pieces (config loading, the synthetic dataset and its
-loader, the dataset and loader builders, one example batch) are the JAX
-package's own, which import no JAX, re-exported here. The model build functions
-here make the port's modules on an explicit ``device`` with seeded
-random weights (no checkpoint loading yet).
+loader, the dataset and loader builders, one example batch, the metric
+logger, stdout tee and history plot) are the JAX package's own, which
+import no JAX, re-exported here. The model build functions here make the
+port's modules on an explicit ``device`` with seeded random weights (no
+pretrained weights are loaded yet).
 """
 
 from __future__ import annotations
@@ -19,9 +20,22 @@ from tpu3dssf.cli.common import (  # noqa: F401  (re-exported)
 )
 from tpu3dssf.config import Config, load_config  # noqa: F401
 from tpu3dssf.data import HostDataPipeline, SyntheticNuScenes  # noqa: F401
+from tpu3dssf.utils.logging import create_logger, tee_stdout  # noqa: F401
+from tpu3dssf.utils.viz import plot_training_history  # noqa: F401
 from tpu3dssf_torch.models.ptv3 import _round_up
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def resolve_device(name: str) -> torch.device:
+    """``--device`` → a torch device; raises for CUDA without a card (the
+    CLIs never drop to the CPU on their own)."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"--device {name}: no CUDA device is available (pass "
+            "--device cpu to run the plain PyTorch versions on the CPU)")
+    return device
 
 
 def compute_dtype(cfg: Config) -> torch.dtype:
@@ -76,7 +90,9 @@ def build_pipeline(cfg: Config, vit_cfg=None, device="cpu", seed: int = 1):
     pipe = PipelineConfig(
         fusion=fusion,
         ptv3=PTv3Config(enc_window=(w,) * 5, dec_window=(w,) * 4,
-                        use_pallas=cfg.tpu.use_pallas, dtype=dtype),
+                        use_pallas=cfg.tpu.use_pallas, remat=cfg.tpu.remat,
+                        remat_attention=cfg.tpu.remat_attention,
+                        drop_path=cfg.drop_path, dtype=dtype),
         voxel_size=cfg.voxel_size,
         voxel_capacity=_round_up(cfg.tpu.voxel_capacity, w),
         intensity_mode=cfg.tpu.intensity_mode,
@@ -84,6 +100,19 @@ def build_pipeline(cfg: Config, vit_cfg=None, device="cpu", seed: int = 1):
     )
     model = init_weights(SegmentationPipeline(pipe), seed)
     return model.to(device).eval(), pipe
+
+
+def init_state(cfg: Config, model, steps_per_epoch: int = 1):
+    """The train state over ``model``'s parameters with the config's
+    optimizer, schedule, clip and non-finite guard."""
+    from tpu3dssf_torch.train.state import TrainState, create_optimizer
+    opt = create_optimizer(
+        model.parameters(), cfg.optimizer, cfg.learning_rate,
+        weight_decay=cfg.weight_decay, momentum=cfg.momentum,
+        nesterov=cfg.nesterov, lr_scheduler=cfg.lr_scheduler,
+        steps_per_epoch=steps_per_epoch, num_epochs=cfg.max_num_epochs,
+        grad_clip=cfg.grad_clip, skip_nonfinite=cfg.skip_nonfinite)
+    return TrainState(model, opt)
 
 
 def build_loss(cfg: Config):

@@ -26,15 +26,6 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 
-def resolve_device(name: str) -> torch.device:
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"--device {name}: no CUDA device is available (pass "
-            "--device cpu to run the plain PyTorch versions on the CPU)")
-    return device
-
-
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--config", type=str,
@@ -49,7 +40,7 @@ def main(argv=None):
     from tpu3dssf_torch.train.loop import MetricAccumulator, make_eval_step
 
     cfg = common.load_config(args.config)
-    device = resolve_device(args.device)
+    device = common.resolve_device(args.device)
     if int(np.prod(cfg.tpu.mesh_shape)) > 1:
         raise NotImplementedError(
             "data-parallel meshes are not ported yet (ROADMAP.md, H100 "

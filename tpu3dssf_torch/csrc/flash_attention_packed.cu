@@ -1,7 +1,11 @@
 // Packed-layout flash attention forward for Hopper (sm_90a), bf16 in/out.
 //
-// Replaces the TPU kernel tpu3dssf/kernels/flash_attention.py::_packed_kernel
-// (its with_lse=False forward). Computes, for every (batch row b, head h):
+// Replaces the TPU kernel tpu3dssf/kernels/flash_attention.py::_packed_kernel:
+// its with_lse=False forward (K1, fap_forward_bf16) and, with the kLse flag,
+// its with_lse=True training forward (K2, fap_forward_lse_bf16), which is
+// also the port of window_attention.py::_attn_kernel_lse (K4): the two TPU
+// kernels compute the same function and differ only in Mosaic block rules.
+// Computes, for every (batch row b, head h):
 //
 //     out[b, :, hD:(h+1)D] = softmax(q_s k^T + bias[b]) v
 //
@@ -22,6 +26,10 @@
 // PV product, so probabilities never touch shared memory. Ragged edges are
 // masked in the kernel (keys past N score -inf, query rows past N are not
 // stored), so N need not be a multiple of any tile.
+//
+// With kLse the kernel also writes the per-(b, h, query row) log-sum-exp in
+// natural-log units, lse[b, h, n] = m + log(max(l, 1e-20)) as f32 (B, H, N),
+// converted once per row on the store from the running max m and sum l.
 //
 // What bounds it. At D = 16 (the PTv3 stages) each key brings 2 x 16 x 2
 // bytes of K and V for 2 x 16 multiply-adds per query row: arithmetic
@@ -65,12 +73,12 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int D>
+template <int D, bool kLse>
 __global__ void __launch_bounds__(kThreads)
     fap_fwd_kernel(const __nv_bfloat16* __restrict__ qkv,
                    const float* __restrict__ bias,
-                   __nv_bfloat16* __restrict__ out, int N, int C,
-                   float q_scale) {
+                   __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                   int N, int C, float q_scale) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
   constexpr int kStride = D + 8;          // Q/K smem row stride (elements)
   constexpr int kVtStride = kBlockK + 8;  // V^T smem row stride (elements)
@@ -246,17 +254,18 @@ __global__ void __launch_bounds__(kThreads)
       *reinterpret_cast<uint32_t*>(ob + r1 * C + col) =
           pack_bf16(acc[n][2] / d1, acc[n][3] / d1);
   }
+  if constexpr (kLse) {
+    // a row whose every score was -inf (only with -inf biases) gets +inf,
+    // so the backward's exp(s - lse) is 0 there and not NaN
+    float* lb = lse + ((int64_t)b * gridDim.y + h) * N;
+    if (t == 0 && r0 < N) lb[r0] = m0 == -INFINITY ? INFINITY : m0 + logf(d0);
+    if (t == 0 && r1 < N) lb[r1] = m1 == -INFINITY ? INFINITY : m1 + logf(d1);
+  }
 }
 
-}  // namespace
-
-// C entry point (bound with ctypes). qkv (B, N, 3C) bf16, bias (B, 1, N) f32,
-// out (B, N, C) bf16, all contiguous and 16-byte aligned. Returns the
-// cudaError_t of the launch; cudaErrorInvalidValue for an unsupported head
-// dimension D = C / H (16 and 64 are built).
-extern "C" int fap_forward_bf16(const void* qkv, const void* bias, void* out,
-                                int B, int N, int C, int H, float q_scale,
-                                void* stream) {
+template <bool kLse>
+int launch_fwd(const void* qkv, const void* bias, void* out, void* lse, int B,
+               int N, int C, int H, float q_scale, void* stream) {
   if (B <= 0 || N <= 0 || H <= 0 || C % H != 0) return (int)cudaErrorInvalidValue;
   const int D = C / H;
   const dim3 grid((N + kBlockQ - 1) / kBlockQ, H, B);
@@ -264,15 +273,37 @@ extern "C" int fap_forward_bf16(const void* qkv, const void* bias, void* out,
   const auto* q = static_cast<const __nv_bfloat16*>(qkv);
   const auto* bs = static_cast<const float*>(bias);
   auto* o = static_cast<__nv_bfloat16*>(out);
+  auto* l = static_cast<float*>(lse);
   switch (D) {
     case 16:
-      fap_fwd_kernel<16><<<grid, kThreads, 0, s>>>(q, bs, o, N, C, q_scale);
+      fap_fwd_kernel<16, kLse><<<grid, kThreads, 0, s>>>(q, bs, o, l, N, C,
+                                                         q_scale);
       break;
     case 64:
-      fap_fwd_kernel<64><<<grid, kThreads, 0, s>>>(q, bs, o, N, C, q_scale);
+      fap_fwd_kernel<64, kLse><<<grid, kThreads, 0, s>>>(q, bs, o, l, N, C,
+                                                         q_scale);
       break;
     default:
       return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// C entry points (bound with ctypes). qkv (B, N, 3C) bf16, bias (B, 1, N)
+// f32, out (B, N, C) bf16, lse (B, H, N) f32, all contiguous and 16-byte
+// aligned. Each returns the cudaError_t of the launch; cudaErrorInvalidValue
+// for an unsupported head dimension D = C / H (16 and 64 are built).
+extern "C" int fap_forward_bf16(const void* qkv, const void* bias, void* out,
+                                int B, int N, int C, int H, float q_scale,
+                                void* stream) {
+  return launch_fwd<false>(qkv, bias, out, nullptr, B, N, C, H, q_scale,
+                           stream);
+}
+
+extern "C" int fap_forward_lse_bf16(const void* qkv, const void* bias,
+                                    void* out, void* lse, int B, int N, int C,
+                                    int H, float q_scale, void* stream) {
+  return launch_fwd<true>(qkv, bias, out, lse, B, N, C, H, q_scale, stream);
 }

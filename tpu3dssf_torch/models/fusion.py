@@ -1,6 +1,6 @@
 """Cross-modal fusion head + the full segmentation pipeline, in PyTorch.
 
-Port of ``tpu3dssf.models.fusion`` (inference): project voxel centroids
+Port of ``tpu3dssf.models.fusion``: project voxel centroids
 into all cameras, gather one ViT token per (camera, voxel), masked mean
 over valid cameras, concat with the PTv3 voxel feature, MLP to class
 logits, devoxelize to points. Submodules are named as in flax
@@ -116,7 +116,13 @@ class PipelineConfig:
 
 class SegmentationPipeline(nn.Module):
     """LiDAR points + camera patch tokens → per-point class logits:
-    voxelize → PTv3 → fusion head → devoxelize."""
+    voxelize → PTv3 → fusion head → devoxelize.
+
+    ``generator`` drives PTv3's DropPath; None (the default) is JAX's
+    ``deterministic=True``. The patch tokens come from the frozen encoder
+    (under ``torch.inference_mode``): no learnable op may touch them before
+    they are gathered, since autograd cannot save inference tensors.
+    """
 
     def __init__(self, config: PipelineConfig):
         super().__init__()
@@ -125,12 +131,12 @@ class SegmentationPipeline(nn.Module):
         self.fusion = FeatureFusionModel(config.fusion)
 
     def forward(self, points, point_mask, patch_tokens, cam_intrinsics,
-                lidar2cam):
+                lidar2cam, generator=None):
         cfg = self.config
         vox = voxelize(points, point_mask, cfg.voxel_size,
                        cfg.voxel_capacity, intensity_mode=cfg.intensity_mode)
         voxel_feats, voxel_mask = self.ptv3(vox.voxel_raw, vox.voxel_coords,
-                                            vox.voxel_mask)
+                                            vox.voxel_mask, generator)
         voxel_scores = self.fusion(patch_tokens, voxel_feats, vox.voxel_raw,
                                    voxel_mask, cam_intrinsics, lidar2cam)
         if cfg.devoxelize_mode == "own":

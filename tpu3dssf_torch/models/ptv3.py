@@ -1,21 +1,25 @@
 """PointTransformerV3 over fixed-capacity masked point sets, in PyTorch.
 
-Port of ``tpu3dssf.models.ptv3`` (inference). Same architecture, the same
+Port of ``tpu3dssf.models.ptv3``. Same architecture, the same
 serialization, pooling and windowing rules, and submodule names that
 follow the flax names (``enc0_blk0.attn.qkv``, ``pool1.norm``,
 ``unpool0.proj_skip``), so :mod:`tpu3dssf_torch.convert` maps a flax
 parameter tree mechanically. Batched helpers take the batch dimension
 written out where the JAX package vmaps.
 
-Every block's windowed attention goes through
-:func:`tpu3dssf_torch.kernels.window_attention_packed`, i.e. the Hopper
-attention kernel on a CUDA tensor, whatever the stage's (C, heads).
+Every block's windowed attention routes as in JAX: stages with
+C % 128 == 0 take :func:`tpu3dssf_torch.kernels.flash_attention_packed`,
+the others :func:`tpu3dssf_torch.kernels.window_attention_packed`. Without
+a gradient both launch the Hopper inference kernel (K1) on a CUDA tensor;
+in training they are the custom-VJP rules that launch K2/K3 and K4/K5.
 ``PTv3Config.use_pallas`` is kept for config compatibility and selects
-nothing: a CPU tensor takes the plain version and a CUDA tensor the
-kernel. Not ported here: ``scan_blocks`` (a TPU compile workaround; the
-unrolled model computes the same function), and with training
-``remat``, ``remat_attention`` and DropPath; nor ``_pool_structure``,
-the pooling by a fresh sort that ``PointTransformerV3`` never takes.
+nothing: a CPU tensor takes the plain versions and a CUDA tensor the
+kernels. DropPath draws from an explicit ``torch.Generator`` passed to the
+forward (None, like JAX's ``deterministic=True``, disables it). Not ported
+here: ``scan_blocks`` (a TPU compile workaround; the unrolled model
+computes the same function), ``remat`` and ``remat_attention`` (they
+raise), and ``_pool_structure``, the pooling by a fresh sort that
+``PointTransformerV3`` never takes.
 """
 
 from __future__ import annotations
@@ -27,7 +31,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tpu3dssf_torch.kernels.window_attention import window_attention_packed
+from tpu3dssf_torch.kernels.flash_attention import flash_attention_packed
+from tpu3dssf_torch.kernels.window_attention import (key_bias,
+                                                     window_attention_packed)
 from tpu3dssf_torch.models.layers import Dense, LayerNorm, lecun_normal
 from tpu3dssf_torch.serialization import (
     SERIALIZATION_ORDERS,
@@ -41,8 +47,9 @@ from tpu3dssf_torch.serialization import (
 @dataclasses.dataclass(frozen=True)
 class PTv3Config:
     """Mirrors ``tpu3dssf.models.ptv3.PTv3Config`` (same defaults) minus
-    the training and TPU-compile fields. ``use_pallas`` is kept for config
-    compatibility and selects nothing."""
+    the TPU-compile field ``scan_blocks``. ``use_pallas`` is kept for
+    config compatibility and selects nothing; ``remat`` and
+    ``remat_attention`` must stay False (not ported yet)."""
 
     in_channels: int = 4
     orders: Tuple[str, ...] = SERIALIZATION_ORDERS
@@ -58,7 +65,10 @@ class PTv3Config:
     pool_ratio: int = 2
     unique_cells: bool = True
     collapse_pooled_orders: bool = True
+    drop_path: float = 0.0
     use_pallas: bool = True
+    remat: bool = False
+    remat_attention: bool = False
     dtype: torch.dtype = torch.float32
 
     @property
@@ -233,12 +243,45 @@ class SerializedAttention(nn.Module):
         else:
             mask_s = mask
         W = N // K
-        out = window_attention_packed(qkv.reshape(B * W, K, 3 * C),
-                                      mask_s.reshape(B * W, K), self.heads)
+        qkvw = qkv.reshape(B * W, K, 3 * C)
+        key_mask = mask_s.reshape(B * W, K)
+        if C % 128 == 0:
+            # the JAX packed route (K1, or K2/K3 in training); JAX's extra
+            # K % 128 and head-group conditions were Mosaic's
+            D = C // self.heads
+            out = flash_attention_packed(qkvw, key_bias(key_mask), self.heads,
+                                         1.0 / (D ** 0.5))
+            out = out * key_mask[..., None].to(out.dtype)
+        else:
+            # small C (32/64): the window route (K1, or K4/K5 in training)
+            out = window_attention_packed(qkvw, key_mask, self.heads)
         out = out.reshape(B, N, C)
         if inv is not None:
             out = permutation_gather(out, inv, perm)
         return self.proj(out)
+
+
+class DropPath(nn.Module):
+    """Per-sample stochastic depth on a residual branch.
+
+    One Bernoulli(1 − rate) draw per sample (leading dim) from
+    ``generator``; kept samples are scaled by 1/keep. With rate 0 or no
+    generator it is the identity (JAX's ``deterministic=True``). The masks
+    are drawn on the generator's device and moved to ``x``'s.
+    """
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x, generator=None):
+        if self.rate == 0.0 or generator is None:
+            return x
+        keep = 1.0 - self.rate
+        u = torch.rand((x.shape[0],), generator=generator,
+                       device=generator.device)
+        mask = (u < keep).to(x.device).reshape((-1,) + (1,) * (x.dim() - 1))
+        return torch.where(mask, x / keep, 0.0)
 
 
 class PTv3Block(nn.Module):
@@ -246,25 +289,28 @@ class PTv3Block(nn.Module):
 
     The residual stream is in the CPE curve's sorted space; ``perm``/``inv``
     are the attention order's RELATIVE permutations, None when the block
-    attends along the CPE order itself.
+    attends along the CPE order itself. ``generator`` drives DropPath.
     """
 
-    def __init__(self, channels, heads, window, mlp_ratio,
+    def __init__(self, channels, heads, window, mlp_ratio, drop_path=0.0,
                  dtype=torch.float32):
         super().__init__()
         hidden = int(channels * mlp_ratio)
         self.cpe = SerializedCPE(channels, dtype)
         self.norm1 = LayerNorm(channels, dtype=dtype)
         self.attn = SerializedAttention(channels, heads, window, dtype)
+        self.dp1 = DropPath(drop_path)
         self.norm2 = LayerNorm(channels, dtype=dtype)
         self.mlp_in = Dense(channels, hidden, dtype)
         self.mlp_out = Dense(hidden, channels, dtype)
+        self.dp2 = DropPath(drop_path)
 
-    def forward(self, x, perm, inv, mask):
+    def forward(self, x, perm, inv, mask, generator=None):
         x = self.cpe(x, None, None, mask)
-        x = x + self.attn(self.norm1(x), perm, inv, mask)
+        h = self.attn(self.norm1(x), perm, inv, mask)
+        x = x + self.dp1(h, generator)
         h = F.gelu(self.mlp_in(self.norm2(x)), approximate="tanh")
-        x = x + self.mlp_out(h)
+        x = x + self.dp2(self.mlp_out(h), generator)
         return x * mask[..., None]
 
 
@@ -330,6 +376,11 @@ class PointTransformerV3(nn.Module):
 
     def __init__(self, config: PTv3Config):
         super().__init__()
+        if config.remat or config.remat_attention:
+            raise NotImplementedError(
+                "PTv3 remat / remat_attention are not ported yet "
+                "(ROADMAP.md §1, H100 port: DropPath masks must be drawn "
+                "outside the checkpointed region first)")
         cfg = self.config = config
         dt = cfg.dtype
         self.embed = Dense(cfg.in_channels, cfg.enc_channels[0], dt)
@@ -343,7 +394,7 @@ class PointTransformerV3(nn.Module):
             for b in range(cfg.enc_depths[s]):
                 self.add_module(f"enc{s}_blk{b}", PTv3Block(
                     cfg.enc_channels[s], cfg.enc_heads[s],
-                    cfg.enc_window[s], cfg.mlp_ratio, dt))
+                    cfg.enc_window[s], cfg.mlp_ratio, cfg.drop_path, dt))
         for d in reversed(range(cfg.num_stages - 1)):
             coarse = (cfg.enc_channels[-1] if d == cfg.num_stages - 2
                       else cfg.dec_channels[d + 1])
@@ -352,16 +403,16 @@ class PointTransformerV3(nn.Module):
             for b in range(cfg.dec_depths[d]):
                 self.add_module(f"dec{d}_blk{b}", PTv3Block(
                     cfg.dec_channels[d], cfg.dec_heads[d],
-                    cfg.dec_window[d], cfg.mlp_ratio, dt))
+                    cfg.dec_window[d], cfg.mlp_ratio, cfg.drop_path, dt))
 
-    def _run_blocks(self, x, perms, msk, depth, name):
+    def _run_blocks(self, x, perms, msk, depth, name, generator):
         orders = self.config.orders
         for b in range(depth):
             perm, inv = perms[orders[b % len(orders)]]
-            x = getattr(self, f"{name}_blk{b}")(x, perm, inv, msk)
+            x = getattr(self, f"{name}_blk{b}")(x, perm, inv, msk, generator)
         return x
 
-    def forward(self, feat, grid_coord, mask):
+    def forward(self, feat, grid_coord, mask, generator=None):
         cfg = self.config
         caps = cfg.capacities(feat.shape[1])
         orders = cfg.orders
@@ -406,7 +457,8 @@ class PointTransformerV3(nn.Module):
                 grid = _rows(grid, perm_c)
                 msk = torch.gather(msk, 1, perm_c)
                 cpe_sorts.append((perm_c, inv_c))
-            x = self._run_blocks(x, perms, msk, cfg.enc_depths[s], f"enc{s}")
+            x = self._run_blocks(x, perms, msk, cfg.enc_depths[s], f"enc{s}",
+                                 generator)
             skips.append((x, grid, msk, perms))
 
         # ---- decoder ----
@@ -423,7 +475,8 @@ class PointTransformerV3(nn.Module):
             perms = dict(skip_perms)
             if missing:
                 perms.update(_serialize_perms(grid, msk, missing))
-            x = self._run_blocks(x, perms, msk, cfg.dec_depths[d], f"dec{d}")
+            x = self._run_blocks(x, perms, msk, cfg.dec_depths[d], f"dec{d}",
+                                 generator)
 
         perm0, inv0 = cpe_sorts[0]
         return permutation_gather(x, inv0, perm0), mask

@@ -1,4 +1,4 @@
-"""Sorting / permutation helpers for serialized point sets (forward only).
+"""Sorting / permutation helpers for serialized point sets.
 
 Port of ``tpu3dssf.serialization.partition``. The JAX package sorts two
 signed int32 keys with ``lax.sort(num_keys=2)``; here both go into one
@@ -40,11 +40,33 @@ def inverse_permutation(perm):
     return torch.empty_like(perm).scatter_(-1, perm, ar)
 
 
-def permutation_gather(x, perm, inv=None):
+def _gather_rows(x, idx):
+    return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
+
+
+class _PermutationGather(torch.autograd.Function):
+    """Gather by a permutation whose backward gathers by its inverse (the
+    JAX custom VJP): no scatter-add."""
+
+    @staticmethod
+    def forward(ctx, x, perm, inv):
+        ctx.save_for_backward(inv)
+        return _gather_rows(x, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        (inv,) = ctx.saved_tensors
+        return _gather_rows(g, inv), None, None
+
+
+def permutation_gather(x, perm, inv):
     """``x[b, perm[b, t]]`` for x (B, N, C) and perm (B, N).
 
-    ``inv`` is accepted for call-site parity with the JAX version, whose
-    backward gathers with it; the forward does not need it.
+    ``inv`` (B, N) must be the inverse of ``perm``: a permutation's
+    transpose is the inverse gather, so the backward gathers the incoming
+    gradient with ``inv`` instead of scatter-adding it (port of the JAX
+    custom VJP). Without a gradient this is one gather.
     """
-    del inv
-    return torch.gather(x, 1, perm[..., None].expand(-1, -1, x.shape[-1]))
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _PermutationGather.apply(x, perm, inv)
+    return _gather_rows(x, perm)

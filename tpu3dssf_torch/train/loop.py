@@ -1,25 +1,40 @@
-"""Evaluation-side loop pieces: image encode, eval step, metric sums.
+"""Train and eval loops: image encode, train/eval steps, metric sums, the
+epoch loop.
 
-Port of the inference parts of ``tpu3dssf.train.loop``
-(``make_image_encode_fn``, ``make_eval_step``, ``MetricAccumulator``).
-Training comes later.
+Port of ``tpu3dssf.train.loop``. One eager step per batch (forward, loss,
+backward, optimizer update) on the model's device; the frozen ViT encodes
+all views of a batch as one forward under ``torch.inference_mode``; eval
+metrics are confusion matrices summed on the device; checkpoints keep the
+best-by-val-accuracy state and, every epoch, the full train state under
+``last/``.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import json
+import os
+import time
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
+from tpu3dssf.utils.logging import MetricLogger, NullLogger
 from tpu3dssf_torch.losses import CELSLoss
-from tpu3dssf_torch.metrics import confusion_matrix, evaluate_from_confusion
+from tpu3dssf_torch.metrics import (confusion_matrix, evaluate_from_confusion,
+                                    format_metrics)
 from tpu3dssf_torch.models.vit import preprocess_images
+from tpu3dssf_torch.train.checkpoint import save_checkpoint
 
 
 def make_image_encode_fn(vit_model, encoder_hw, compute_dtype=torch.float32):
     """Encode fn: raw images (B, N_cam, H, W, 3) uint8 → patch tokens
-    (B, N_cam, M, D). The ViT is frozen, so all views run as one batch."""
+    (B, N_cam, M, D). The ViT is frozen, so all views run as one batch.
+
+    The tokens are inference tensors: autograd cannot save them, so the
+    model must gather them before any learnable op touches them (the
+    fusion head does).
+    """
 
     @torch.inference_mode()
     def encode(images):
@@ -30,6 +45,67 @@ def make_image_encode_fn(vit_model, encoder_hw, compute_dtype=torch.float32):
         return tokens.reshape(B, n_cam, tokens.shape[1], tokens.shape[2])
 
     return encode
+
+
+def _fold_seed(seed: int, i: int) -> int:
+    """A generator seed per (base seed, counter), JAX's ``fold_in`` role
+    (the bits differ from JAX's)."""
+    return (seed * 0x9E3779B97F4A7C15 + i) % (2 ** 63)
+
+
+def make_train_step(loss_fn: CELSLoss, dropout_seed: Optional[int] = None,
+                    grad_accum: int = 1):
+    """``train_step(state, batch, patch_tokens)`` → metrics dict; updates
+    ``state`` (a :class:`~tpu3dssf_torch.train.state.TrainState`) in place.
+
+    ``dropout_seed`` enables DropPath: microbatch ``i`` of update ``step``
+    draws from a CPU generator seeded from (seed, step·grad_accum + i), as
+    JAX folds its key; None is deterministic. ``grad_accum > 1`` splits the
+    batch's leading dim into that many sequential microbatches and applies
+    the mean of their gradients in one update; the metrics are the mean
+    loss and the summed counts, as in the JAX step. Metrics stay on the
+    device.
+    """
+
+    def split(x):
+        if x.shape[0] % grad_accum:
+            raise ValueError(f"batch dim {x.shape[0]} not divisible by "
+                             f"grad_accum={grad_accum}")
+        return x.chunk(grad_accum, dim=0)
+
+    def train_step(state, batch, patch_tokens):
+        model = state.model
+        micro = {k: split(v) for k, v in batch.items()}
+        tokens = (split(patch_tokens) if patch_tokens is not None
+                  else (None,) * grad_accum)
+        state.optimizer.zero_grad()
+        sums = None
+        for i in range(grad_accum):
+            b = {k: v[i] for k, v in micro.items()}
+            gen = None
+            if dropout_seed is not None:
+                gen = torch.Generator().manual_seed(
+                    _fold_seed(dropout_seed, state.step * grad_accum + i))
+            logits = model(b["points"], b["point_valid"], tokens[i],
+                           b["cam_intrinsics"], b["lidar2cam"],
+                           generator=gen)
+            out = loss_fn(logits, b["labels"], b["mask"])
+            out.total.backward()  # accumulates the sum into .grad
+            m = {"loss": out.total.detach(), "ce": out.ce.detach(),
+                 "lovasz": out.lovasz.detach(), "correct": out.num_correct,
+                 "valid": out.num_valid}
+            sums = m if sums is None else {k: sums[k] + m[k] for k in m}
+        if grad_accum > 1:
+            inv = 1.0 / grad_accum
+            for p in model.parameters():
+                if p.grad is not None:
+                    p.grad.mul_(inv)
+            for k in ("loss", "ce", "lovasz"):
+                sums[k] = sums[k] * inv
+        state.apply_gradients(value=sums["loss"])
+        return sums
+
+    return train_step
 
 
 def make_eval_step(loss_fn: CELSLoss, num_classes: int):
@@ -98,3 +174,166 @@ class MetricAccumulator:
             torch.from_numpy(self._cm_h.astype(np.float32)), self._loss_h,
             float(self._correct_h), float(self._valid_h), max(self.it, 1))
         return {k: v.numpy() for k, v in out.items()}
+
+
+def _device_batch(batch, encode_fn, zero_tokens_fn, device):
+    """Host batch → (model inputs on ``device``, patch tokens)."""
+    images = batch.pop("images", None)
+    out = {k: torch.as_tensor(np.asarray(v)).to(device)
+           for k, v in batch.items()}
+    if encode_fn is not None and images is not None:
+        tokens = encode_fn(torch.as_tensor(images).to(device))
+    elif zero_tokens_fn is not None:
+        tokens = zero_tokens_fn(out)
+    else:
+        tokens = None
+    return out, tokens
+
+
+def evaluate_model(model, pipeline_iter, eval_step, encode_fn,
+                   num_classes: int, zero_tokens_fn=None,
+                   logger: Optional[MetricLogger] = None,
+                   verbose: bool = True):
+    """Full-split evaluation → the reference ``evaluate`` metrics dict."""
+    device = next(model.parameters()).device
+    acc = MetricAccumulator(num_classes)
+    for batch in pipeline_iter:
+        batch, tokens = _device_batch(batch, encode_fn, zero_tokens_fn,
+                                      device)
+        acc.add(eval_step(model, batch, tokens))
+    metrics = acc.metrics()
+    if verbose:
+        print(format_metrics(metrics))
+    if logger is not None and not isinstance(logger, NullLogger):
+        logger.log({f"eval/{k}": v for k, v in metrics.items()
+                    if np.ndim(v) == 0})
+    return metrics
+
+
+def train_model(state, dataloaders: Dict, loss_fn: CELSLoss, encode_fn,
+                num_classes: int, num_epochs: int,
+                save_dir: Optional[str] = None,
+                logger: Optional[MetricLogger] = None,
+                zero_tokens_fn: Optional[Callable] = None,
+                log_every: int = 10,
+                profile_dir: Optional[str] = None,
+                profile_steps: tuple = (10, 13),
+                start_epoch: int = 0,
+                best_acc: float = -1.0,
+                dropout_seed: Optional[int] = None,
+                grad_accum: int = 1):
+    """Epoch loop with best-val-acc checkpointing (port of JAX's).
+
+    Returns (train_acc_history, val_acc_history) and leaves ``state``
+    holding the final weights. Per-step metrics stay on the device and are
+    read at ``log_every`` boundaries. ``profile_dir`` captures a
+    ``torch.profiler`` trace of the steps in ``profile_steps`` (from, to)
+    into ``<profile_dir>/train_trace.json``.
+    """
+    logger = logger or NullLogger()
+    device = next(state.model.parameters()).device
+    train_step = make_train_step(loss_fn, dropout_seed, grad_accum)
+    eval_step = make_eval_step(loss_fn, num_classes)
+
+    tr_hist, val_hist, history = [], [], []
+    global_step = 0
+    prof = None
+    for epoch in range(start_epoch, num_epochs):
+        print(f"Epoch {epoch}/{num_epochs - 1}\n" + "-" * 20)
+        run_loss, run_correct, run_valid, it = 0.0, 0, 0, 0
+        win = None
+        t0 = time.perf_counter()
+
+        def fold_window():
+            nonlocal run_loss, run_correct, run_valid, win
+            if win is not None:
+                run_loss += float(win["loss"])
+                run_correct += int(win["correct"])
+                run_valid += int(win["valid"])
+                win = None
+
+        for batch in dataloaders["train"]:
+            if profile_dir and global_step == profile_steps[0]:
+                from torch.profiler import ProfilerActivity, profile
+                acts = [ProfilerActivity.CPU] + (
+                    [ProfilerActivity.CUDA] if device.type == "cuda" else [])
+                prof = profile(activities=acts)
+                prof.__enter__()
+            if prof is not None and global_step == profile_steps[1]:
+                prof.__exit__(None, None, None)
+                os.makedirs(profile_dir, exist_ok=True)
+                path = os.path.join(profile_dir, "train_trace.json")
+                prof.export_chrome_trace(path)
+                prof = None
+                print(f"[profiler] trace written to {path}")
+            batch, tokens = _device_batch(batch, encode_fn, zero_tokens_fn,
+                                          device)
+            m = train_step(state, batch, tokens)
+            m = {"loss": m["loss"].float(),
+                 "correct": m["correct"].to(torch.int64),
+                 "valid": m["valid"].to(torch.int64)}
+            win = m if win is None else {k: win[k] + m[k] for k in m}
+            it += 1
+            global_step += 1
+            if it % log_every == 0:
+                fold_window()
+                dt = (time.perf_counter() - t0) / it
+                print(f"  [train {it}] loss={run_loss/it:.4f} "
+                      f"acc={run_correct/max(run_valid,1):.4f} "
+                      f"({dt*1000:.0f} ms/step)")
+                logger.log({"train/loss": run_loss / it,
+                            "train/acc": run_correct / max(run_valid, 1),
+                            "step": global_step})
+        fold_window()
+        if prof is not None:  # the epoch ended inside the profiled window
+            prof.__exit__(None, None, None)
+            prof = None
+        tr_acc = run_correct / max(run_valid, 1)
+        tr_hist.append(tr_acc)
+
+        metrics = evaluate_model(state.model, dataloaders["val"], eval_step,
+                                 encode_fn, num_classes,
+                                 zero_tokens_fn=zero_tokens_fn)
+        val_acc = float(metrics["overall_acc"])
+        val_hist.append(val_acc)
+        # peak allocated device memory since the last reset (0.0 off CUDA)
+        mem_mb = (torch.cuda.max_memory_allocated(device) / 2 ** 20
+                  if device.type == "cuda" else 0.0)
+        if mem_mb:
+            print(f"  peak device memory: {mem_mb:,.0f} MiB")
+        history.append({
+            "epoch": epoch,
+            "train_loss": run_loss / max(it, 1),
+            "train_acc": tr_acc,
+            "peak_hbm_mb": mem_mb,
+            **{k: (v.tolist() if np.ndim(v) else float(v))
+               for k, v in metrics.items()},
+        })
+        logger.log({
+            "val/loss": float(metrics["loss"]),
+            "val/acc": val_acc,
+            "val/mean_IoU": float(metrics["mean_iou"]),
+            "val/mean_per_class_acc": float(metrics["mean_per_class_acc"]),
+            "val/precision": float(metrics["precision"]),
+            "val/recall": float(metrics["recall"]),
+            "val/f1": float(metrics["f1"]),
+            "epoch": epoch,
+            "peak_hbm_mb": mem_mb,
+        })
+        extra = {"best_acc": max(best_acc, val_acc), "epoch": epoch}
+        if val_acc > best_acc:
+            best_acc = val_acc
+            if save_dir:
+                save_checkpoint(save_dir, epoch, state, extra=extra)
+        if save_dir:
+            # the full train state every epoch, for --resume
+            save_checkpoint(os.path.join(save_dir, "last"), epoch, state,
+                            extra=extra)
+
+    if save_dir:
+        os.makedirs(save_dir, exist_ok=True)
+        with open(os.path.join(save_dir, "training_history.json"), "w") as f:
+            json.dump({"best_val_acc": float(best_acc), "epochs": history},
+                      f, indent=1)
+    print(f"Best val Acc: {best_acc:.4f}")
+    return tr_hist, val_hist

@@ -33,7 +33,9 @@ def profile_kernels(fn, reps: int = 3):
     ``torch.profiler``.
 
     Returns ``(prof, kernels)``: the profiler, and for every CUDA kernel
-    ``{name: (device µs per call of fn, launches per call of fn)}``.
+    ``{name: (device µs per call of fn, launches per call of fn)}``. User
+    annotations (``record_function`` ranges), which the profiler also puts
+    on the device timeline, are left out.
     """
     from torch.profiler import ProfilerActivity, profile
 
@@ -46,5 +48,5 @@ def profile_kernels(fn, reps: int = 3):
         torch.cuda.synchronize()
     kernels = {e.key: (e.self_device_time_total / reps, e.count / reps)
                for e in prof.key_averages()
-               if e.device_type.name == "CUDA"}
+               if e.device_type.name == "CUDA" and not e.is_user_annotation}
     return prof, kernels
