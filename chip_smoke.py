@@ -2,38 +2,47 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths over ``configs/synthetic_convergence_fusion_r3.
-yaml`` at full width (DINOv3 ViT-S/16 over 6 cameras → voxelize → PTv3 →
-fusion head → devoxelize, seeded random weights, bf16): streaming fused
-inference (``tpu3dssf_torch.cli.main_infer``) and training
-(``tpu3dssf_torch.cli.main_train``). It checks, in order (any failure
-raises, exit code ≠ 0):
+Drives the port's three paths at full width with seeded random weights:
+streaming fused inference (``tpu3dssf_torch.cli.main_infer``) and training
+(``tpu3dssf_torch.cli.main_train``) over ``configs/synthetic_convergence_
+fusion_r3.yaml`` (DINOv3 ViT-S/16 over 6 cameras → voxelize → PTv3 →
+fusion head → devoxelize, bf16, batch 2), and the LiDAR-only reference-
+parity path (``main_infer``, ``main_test``, ``main_sample``) over
+``configs/synthetic_convergence_lidar_parity.yaml`` (knn5 voxelize → PTv3
+→ linear head → nearest devoxelize, bf16, batch 4). It checks, in order
+(any failure raises, exit code ≠ 0):
 
 1. a CUDA device is present; prints the card's name and power limit;
-2. the attention kernel builds from ``tpu3dssf_torch/csrc`` with nvcc;
-3. the kernel agrees with its plain PyTorch version (max abs error < 0.05,
-   bf16) at every attention shape of the slice, and both are timed with
-   CUDA events (median of 20 after warm-up);
+2. (with 6 and 12) every kernel source builds from ``tpu3dssf_torch/csrc``,
+   all three nvcc processes started together (one thread each); build
+   times and ptxas registers, shared memory and spills;
+3. the attention kernel agrees with its plain PyTorch version (max abs
+   error < 0.05, bf16) at every attention shape of the slice; kernel,
+   plain version and ``scaled_dot_product_attention`` (the library call
+   computing the same function) timed with CUDA events (median of 20
+   after warm-up), beside the bound of each call;
 4. the slice runs through the CLI's own entry point with the kernel's
    launch count up by exactly 34 per batch (12 ViT layers + 22 PTv3
-   blocks) and finite metrics; then one batch is timed end to end, and
-   the kernel inside that batch: its device time from the profiler, and
-   the plain version's time and the kernel's error on the very inputs
-   the batch gave the kernel;
+   blocks), no k-NN launch and finite metrics; then one batch is timed end
+   to end, and the kernel inside that batch: its device time and exactly
+   34 launches per batch from the profiler, and the plain version's time
+   and the kernel's error on the very inputs the batch gave the kernel;
 5. a small model gives the same logits on the card (bf16, kernels) as on
    the CPU (f32, plain versions), within 5% of the logit scale;
-6. the backward kernel builds (nvcc time, ptxas registers and spills);
+6. (the backward kernel's build, in 2);
 7. the training kernels agree with their plain versions at every training
    shape (random bf16, 30% padding keys, one all-padding window): the
    forward-with-LSE (K2 at C ≥ 128, K4 at C ∈ {32, 64}) within 0.05 and its
    LSE within 1e-3 on rows with a valid key; the backward (K3, K5) within
    0.05 · max(1, max |plain|), and exactly 0 in the all-padding window;
-   kernel and plain version timed with CUDA events;
+   kernel, plain version and the library pair (SDPA's forward with a
+   gradient pending, and its autograd backward) timed with CUDA events,
+   beside the bound of each call;
 8. one epoch of training through the CLI's own entry point (24 steps, 6
    val batches) on a temporary copy of the config with exact launch counts
-   (per step K1 12, K2 14, K3 14, K4 8, K5 8; K1 34 per val batch), finite
-   metrics and a checkpoint; then ``--resume`` to a second epoch, which
-   must start at epoch 1 with the optimizer state restored;
+   (per step K1 12, K2 14, K3 14, K4 8, K5 8; K1 34 per val batch; no
+   K7), finite metrics and a checkpoint; then ``--resume`` to a second
+   epoch, which must start at epoch 1 with the optimizer state restored;
 9. one train step (encode + forward + loss + backward + update) timed with
    CUDA events, its peak memory, K2–K5's device time inside it from the
    profiler, and their plain versions' time and the kernels' error on the
@@ -42,14 +51,40 @@ raises, exit code ≠ 0):
 10. 10 steps on one fixed batch lower its loss;
 11. the small model's loss and gradient on the card (bf16, kernels) agree
     with the CPU's (f32, plain versions): loss within 5%, cosine of the
-    whole gradient ≥ 0.98.
+    whole gradient ≥ 0.98;
+12. (the k-NN kernel's build, in 2);
+13. K1 against its plain version at every attention shape of the parity
+    config (22 PTv3 blocks at batch 4), as in 3; then the k-NN kernel K7
+    is bit-identical to its plain version (distances
+    and indices) on both calls of a parity batch at full size (B = 4,
+    Q = R = 34,816; knn5 k = 5, nearest k = 1), a ragged case (k = 8) and
+    a case with fewer than k valid refs (slots (1e30, 0)); at full size
+    K7 (median of 20 after 3), the plain version (5 after 1) and
+    ``torch.cdist(q, r).topk(k, largest=False)`` (5 after 1, TF32 off)
+    are timed, beside the bound;
+14. ``main_infer``, ``main_test`` and ``main_sample`` run the parity
+    config through their own entry points on a temporary copy (its
+    checkpoint directory in a temporary directory, never the committed
+    one), with the counts set to 0 before each: exactly 22 K1 and 2 K7
+    launches per batch (3 test batches; main_sample 1) and no other
+    kernel, finite metrics, the chart and the 3D view written;
+15. one parity batch timed end to end with CUDA events and its peak
+    memory; K1 and K7 inside it as K1 in 4: device time and exactly 22 and
+    2 launches per batch from the profiler, and on the inputs that batch
+    gave them the plain versions' time and the kernels' error (K1 within
+    0.05, K7 bit for bit), for K7 also cdist + topk's time and the bound.
 
 The last two lines are a JSON record of the kernels and the device line.
-In the kernel records, K1's ``launches`` are those of the inference run
-(step 4, 6 batches) and its ``ms`` and ``plain_ms`` per inference batch;
-K2–K5's ``launches`` are those of the one-epoch training run (step 8, 24
-steps) and their ``ms`` and ``plain_ms`` per train step (step 9);
-``max_abs_err`` is the largest error of the kernel's checks.
+Every kernel record has ``launches`` (from its path's run), ``max_abs_err``
+(the largest error of its checks), ``ms`` (device time inside the path),
+``plain_ms``, ``bound_ms`` and ``bound_by`` (the least time the card could
+take: bytes at 3.35 TB/s or operations at 989 TFLOP/s bf16 / 67 TFLOP/s
+f32) and ``library_ms`` (the PyTorch call named in ``library``). K1's
+numbers are per inference batch (step 4, 6 batches; ``parity`` holds its
+time per parity batch, step 15); K2–K5's per train step (step 9; launches
+from the one-epoch run of step 8); K7's per parity batch (step 15;
+launches from step 14's main_infer run). Every ``ms`` is device time from
+the profiler.
 Needs the repository checkout around it; JAX is never imported.
 """
 
@@ -61,6 +96,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = "configs/synthetic_convergence_fusion_r3.yaml"
@@ -69,6 +105,13 @@ LSE_TOL = 1e-3               # f32 LSE, kernel vs plain, rows with a key
 SMALL_MODEL_TOL = 0.05       # bf16 card vs f32 CPU, relative to max |logit|
 GRAD_COSINE = 0.98           # bf16 card vs f32 CPU, the whole gradient
 LAUNCHES_PER_BATCH = 12 + 22
+PARITY_CONFIG = "configs/synthetic_convergence_lidar_parity.yaml"
+# per batch of the LiDAR-only parity model: 22 PTv3 blocks (K1), the knn5
+# intensity transfer and the nearest devoxelization (K7)
+PARITY_LAUNCHES = {"K1": 22, "K7": 2}
+# H100 SXM peaks from NVIDIA's datasheet: bf16 tensor cores, f32
+# outside the tensor cores, HBM
+BF16_FLOPS, F32_FLOPS, HBM_BYTES = 989e12, 67e12, 3.35e12
 # per train step: K1 (frozen ViT), K2/K3 (14 blocks at C >= 128), K4/K5
 # (8 blocks at C in {32, 64})
 TRAIN_LAUNCHES = {"K1": 12, "K2": 14, "K3": 14, "K4": 8, "K5": 8}
@@ -83,7 +126,9 @@ KERNELS = {  # name, source, the TPU kernel it replaces
            "tpu3dssf/kernels/window_attention.py:89"),
     "K5": ("window_attention_bwd", "flash_attention_packed_bwd.cu",
            "tpu3dssf/kernels/window_attention.py:155"),
+    "K7": ("knn", "knn.cu", "tpu3dssf/kernels/knn.py:40"),
 }
+SOURCES = sorted({source for _, source, _ in KERNELS.values()})
 
 
 def card_line():
@@ -93,17 +138,59 @@ def card_line():
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
+def bound(flops, f32_ops, nbytes):
+    """(least ms, "operations" or "bytes"): bf16 tensor-core FLOPs and f32
+    operations at their peaks (whichever takes longer), bytes at the HBM
+    rate; the larger of the two sets the bound."""
+    ops_s = max(flops / BF16_FLOPS, f32_ops / F32_FLOPS)
+    bytes_s = nbytes / HBM_BYTES
+    return (max(ops_s, bytes_s) * 1e3,
+            "operations" if ops_s >= bytes_s else "bytes")
+
+
+def attention_bound(B, N, C, H, kind):
+    """Bound of one packed-attention call on (B, N, 3C) bf16 qkv. kind
+    "fwd" (K1), "lse" (K2/K4) or "bwd" (K3/K5). Operations: the products
+    (QKᵀ and PV, 4·N²·C per row block; the backward recomputes QKᵀ and
+    takes four more, 10·N²·C) and 4 f32 operations per score (max, subtract,
+    exp, sum; backward: exp(s − lse), subtract, multiply, scale). Bytes:
+    each input read once, each output written once."""
+    rows = B * N
+    mm = (10 if kind == "bwd" else 4) * B * N * N * C
+    if kind == "bwd":   # qkv, bias, dout, lse, delta → dqkv
+        nbytes = rows * (6 * C + 4 + 2 * C + 8 * H + 6 * C)
+    else:               # qkv, bias → out (+ lse)
+        nbytes = rows * (6 * C + 4 + 2 * C + (4 * H if kind == "lse" else 0))
+    return bound(mm, 4 * B * H * N * N, nbytes)
+
+
+def sdpa_inputs(qkv, key_bias, heads, masked, grad=False):
+    """(q, k, v, attn_mask) for ``scaled_dot_product_attention`` as views of
+    ``qkv`` (a leaf that requires grad when ``grad``); the additive bias in
+    the inputs' dtype where keys are masked, else None."""
+    import torch
+    B, N, C3 = qkv.shape
+    C = C3 // 3
+    leaf = qkv.detach().requires_grad_(grad)
+    q, k, v = (x.view(B, N, heads, C // heads).transpose(1, 2)
+               for x in leaf.split(C, dim=-1))
+    mask = key_bias[:, None].to(qkv.dtype) if masked else None
+    return leaf, q, k, v, mask
+
+
 def slice_attention_shapes(cfg):
     """(name, B, N, C, H, q_scale, masked, launches per batch) of every
-    attention call of one batch of the slice."""
+    attention call of one test batch of ``cfg`` (the ViT's only where it
+    has one)."""
     from tpu3dssf_torch.models.ptv3 import PTv3Config, _round_up
     from tpu3dssf_torch.models.vit import dinov3_small
 
     vit = dinov3_small()
     batch = cfg.test_loader.batch_size
     n_tok = vit.num_prefix_tokens + vit.num_patches
-    shapes = [("vit", 6 * batch, n_tok, vit.hidden_size, vit.num_heads,
-               None, False, vit.num_layers)]
+    shapes = [] if cfg.image_encoder == "none" else [
+        ("vit", 6 * batch, n_tok, vit.hidden_size, vit.num_heads, None,
+         False, vit.num_layers)]
     w = cfg.tpu.window_size
     p = PTv3Config(enc_window=(w,) * 5, dec_window=(w,) * 4)
     caps = p.capacities(_round_up(cfg.tpu.voxel_capacity, w))
@@ -122,7 +209,11 @@ def slice_attention_shapes(cfg):
 
 
 def check_kernel(shapes):
+    """Phase 3: K1 vs its plain version at every inference shape; per call
+    its time, the plain version's, ``scaled_dot_product_attention``'s (the
+    library call computing the same function) and the bound."""
     import torch
+    import torch.nn.functional as F
     from tpu3dssf_torch.kernels import flash_attention as fa
     from tpu3dssf_torch.utils import cuda_ms
 
@@ -148,14 +239,21 @@ def check_kernel(shapes):
                                                        q_scale))
         plain_ms = cuda_ms(lambda: fa.flash_attention_packed_reference(
             qkv, bias, H, q_scale))
+        _, q, k, v, mask = sdpa_inputs(qkv, bias, H, masked)
+        scale = 1.0 if q_scale is None else q_scale
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=scale))
+        bound_ms, bound_by = attention_bound(B, N, C, H, "fwd")
         row = dict(shape=name, B=B, N=N, C=C, H=H, launches_per_batch=n,
-                   max_abs_err=err, ms=ms, plain_ms=plain_ms)
+                   max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   library_ms=library_ms, bound_ms=bound_ms,
+                   bound_by=bound_by)
         print("kernel " + json.dumps(row), flush=True)
         if not err < KERNEL_TOL:
             raise AssertionError(f"{name}: max abs error {err} ≥ "
                                  f"{KERNEL_TOL}")
         rows.append(row)
-        del qkv, bias, out, ref
+        del qkv, bias, out, ref, q, k, v, mask
         torch.cuda.empty_cache()
     return rows
 
@@ -168,9 +266,11 @@ def run_slice(card):
     from tpu3dssf_torch.train.loop import make_eval_step
     from tpu3dssf_torch.utils import cuda_ms
 
-    fa.LAUNCHES = 0
+    reset_counters()
     metrics = main_infer.main(["--config", CONFIG, "--split", "test"])
     launches = fa.LAUNCHES
+    if counters()["K7"]:
+        raise AssertionError("the fusion config's modes launched K7")
     cfg = common.load_config(CONFIG)
     n_batches = len(common.build_dataloaders(cfg)["test"])
     print(f"slice: {launches} kernel launches over {n_batches} batches")
@@ -213,59 +313,126 @@ def run_slice(card):
           f"valid points): {frame_ms:.3f} ms -> "
           f"{points / frame_ms * 1e3:,.0f} points/s; peak allocated "
           f"{peak / 2**30:.3f} GiB [{card}]")
-    k1 = time_kernel_in_path(frame)
-    return launches, k1, dict(frame_ms=frame_ms, points=points,
-                              points_per_s=points / frame_ms * 1e3,
-                              peak_bytes=peak)
+    inside, _ = time_kernels_in_path(frame,
+                                     {"K1": k1_spec(LAUNCHES_PER_BATCH)})
+    return launches, inside["K1"], dict(frame_ms=frame_ms, points=points,
+                                        points_per_s=points / frame_ms * 1e3,
+                                        peak_bytes=peak)
 
 
-def time_kernel_in_path(frame):
-    """The attention kernel inside one batch of the main path: its device
-    time per batch from the profiler (3 batches), then the plain version's
-    time per batch (Σ of CUDA-event medians) and the kernel's max abs
-    error, both on the inputs that batch gave the kernel."""
+def k1_spec(launches):
+    """K1 inside a batch: its launcher, its plain version and its tolerance
+    (see :func:`time_kernels_in_path`)."""
     from tpu3dssf_torch.kernels import flash_attention as fa
-    from tpu3dssf_torch.utils import cuda_ms, profile_kernels
+    return dict(pattern="fap_fwd_kernel", module=fa, attr="_launch",
+                plain=fa.flash_attention_packed_reference,
+                error=lambda got, want: (got.float() - want.float()).abs()
+                .max().item(),
+                ok=lambda err: err < KERNEL_TOL, launches=launches)
 
-    _, kernels = profile_kernels(frame, reps=3)
-    k1 = [v for k, v in kernels.items() if "fap_fwd_kernel" in k]
-    ms = sum(us for us, _ in k1) / 1e3
-    n = sum(c for _, c in k1)
-    print(f"profiler: attention kernel {ms:.3f} ms of "
-          f"{sum(us for us, _ in kernels.values()) / 1e3:.3f} ms device "
-          f"kernel time per batch, {n:g} of "
-          f"{sum(c for _, c in kernels.values()):g} kernel launches")
-    if not (ms > 0 and n == LAUNCHES_PER_BATCH):
-        raise AssertionError(f"profiler saw {n} attention launches and "
-                             f"{ms} ms per batch, expected "
-                             f"{LAUNCHES_PER_BATCH} and > 0")
 
-    launch, calls = fa._launch, []
+def k7_spec():
+    """K7 inside a parity batch: bit-identical to its plain version, timed
+    beside cdist + topk and its bound."""
+    from tpu3dssf_torch.kernels import knn
 
-    def capture(qkv, key_bias, heads, q_scale):
-        out = launch(qkv, key_bias, heads, q_scale)
-        calls.append((qkv.clone(), key_bias.clone(), heads, q_scale,
-                      out.clone()))
+    def error(got, want):
+        d, mismatches = knn_mismatch(got, want)
+        return d if mismatches == 0 else float("inf")
+
+    return dict(pattern="knn_kernel", module=knn, attr="knn", plain=knn_plain,
+                error=error, ok=lambda err: err == 0.0,
+                launches=PARITY_LAUNCHES["K7"], library=cdist_topk,
+                bound=knn_bound)
+
+
+def capture_calls(module, attr, frame):
+    """Run ``frame()`` once with ``module.<attr>`` wrapped; returns the
+    (inputs, outputs) of each of its calls, cloned."""
+    import torch
+    launch, calls = getattr(module, attr), []
+
+    def clone(x):
+        if isinstance(x, torch.Tensor):
+            return x.clone()
+        return tuple(map(clone, x)) if isinstance(x, tuple) else x
+
+    def wrapped(*args):
+        out = launch(*args)
+        calls.append((clone(args), clone(out)))
         return out
 
-    fa._launch = capture
+    setattr(module, attr, wrapped)
     try:
         frame()
+        torch.cuda.synchronize()
     finally:
-        fa._launch = launch
-    plain_ms, err = 0.0, 0.0
-    for qkv, bias, heads, q_scale, out in calls:
-        def plain(qkv=qkv, bias=bias, heads=heads, q_scale=q_scale):
-            return fa.flash_attention_packed_reference(qkv, bias, heads,
-                                                       q_scale)
-        err = max(err, (out.float() - plain().float()).abs().max().item())
-        plain_ms += cuda_ms(plain, reps=5, warmup=1)
-    print(f"main-path inputs: plain version {plain_ms:.3f} ms per batch; "
-          f"kernel max abs error {err:.4g} over {len(calls)} calls")
-    if not err < KERNEL_TOL:
-        raise AssertionError(f"kernel on main-path inputs: max abs error "
-                             f"{err} ≥ {KERNEL_TOL}")
-    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err)
+        setattr(module, attr, launch)
+    return calls
+
+
+def time_kernels_in_path(frame, specs):
+    """Kernels inside one batch of a path. From the profiler (3 batches):
+    each kernel's device time and launches per batch, which must be exactly
+    its expected count. Then, on the inputs that batch gave it: its error
+    against the plain version, the plain version's time per batch (Σ of
+    CUDA-event medians) and, where the spec has them, the library call's
+    time and the bound, both summed over the batch's calls.
+
+    ``specs``: {tag: dict(pattern (in the kernel's name), module and attr
+    (its launcher), plain, error(got, want), ok(error), launches per batch,
+    optional library(*inputs) -> callable and bound(*inputs) -> (ms,
+    by))}. Returns ({tag: row}, the batch's device kernel time in ms)."""
+    import functools
+    import torch
+    from tpu3dssf_torch.utils import cuda_ms, profile_kernels
+
+    _, kernels, _ = profile_kernels(frame, reps=3)
+    total = sum(us for us, _ in kernels.values()) / 1e3
+    print(f"profiler, per batch: device kernel time {total:.3f} ms over "
+          f"{sum(c for _, c in kernels.values()):g} kernels")
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
+    for name, (us, c) in top:
+        print(f"  {us / 1e3:8.3f} ms {c:6g}x  {name[:100]}")
+    rows = {}
+    for tag, spec in specs.items():
+        hits = [v for k, v in kernels.items() if spec["pattern"] in k]
+        ms, n = sum(us for us, _ in hits) / 1e3, sum(c for _, c in hits)
+        if not (ms > 0 and n == spec["launches"]):
+            raise AssertionError(f"profiler saw {n:g} {tag} launches and "
+                                 f"{ms} ms per batch, expected "
+                                 f"{spec['launches']} and > 0")
+        calls = capture_calls(spec["module"], spec["attr"], frame)
+        if len(calls) != spec["launches"]:
+            raise AssertionError(f"{tag}: {len(calls)} calls in one batch")
+        row = dict(ms=ms, launches=n, plain_ms=0.0, max_abs_err=0.0)
+        library, bound = spec.get("library"), spec.get("bound")
+        by = set()
+        for args, got in calls:
+            plain = functools.partial(spec["plain"], *args)
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     spec["error"](got, plain()))
+            row["plain_ms"] += cuda_ms(plain, reps=5, warmup=1)
+            if library:
+                row["library_ms"] = row.get("library_ms", 0.0) + cuda_ms(
+                    library(*args), reps=5, warmup=1)
+            if bound:
+                b_ms, b_by = bound(*args)
+                row["bound_ms"] = row.get("bound_ms", 0.0) + b_ms
+                by.add(b_by)
+            torch.cuda.empty_cache()
+        if by:
+            row["bound_by"] = "operations" if "operations" in by else "bytes"
+        del calls
+        torch.cuda.empty_cache()
+        print(f"{tag} inside the batch, on its own inputs: "
+              f"{json.dumps(row)}", flush=True)
+        if not spec["ok"](row["max_abs_err"]):
+            raise AssertionError(f"{tag} on the batch's own inputs: error "
+                                 f"{row['max_abs_err']} against its plain "
+                                 "version")
+        rows[tag] = row
+    return rows, total
 
 
 def small_model(device, dtype):
@@ -329,8 +496,8 @@ def check_small_model():
         raise AssertionError(f"small model disagrees: {rel}")
 
 
-def print_build(what, info, seconds):
-    print(f"build {what}: {seconds:.2f} s (nvcc {info['seconds']:.2f} s)")
+def print_build(what, info):
+    print(f"build {what}: nvcc {info['seconds']:.2f} s")
     for line in info["log"].splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print("  ptxas:" + line.split(":", 1)[-1])
@@ -377,8 +544,10 @@ def grad_error(got, ref):
 
 def check_train_kernels(shapes):
     """Phase 7: K2/K4 and K3/K5 vs their plain versions at every training
-    shape; returns {TPU kernel: [row, ...]}."""
+    shape, with the library pair's time (SDPA forward and its backward)
+    and the bound per call; returns {TPU kernel: [row, ...]}."""
     import torch
+    import torch.nn.functional as F
     from tpu3dssf_torch.kernels import flash_attention as fa
     from tpu3dssf_torch.utils import cuda_ms
 
@@ -394,8 +563,25 @@ def check_train_kernels(shapes):
         err = (out.float() - ref.float()).abs().max().item()
         live = keep.any(-1)                  # windows with a valid key
         lse_err = (lse - ref_lse)[live].abs().max().item()
+        # the library's training pair: SDPA's forward with a gradient
+        # pending (it keeps its LSE) and that forward's autograd backward
+        leaf, q, k, v, mask = sdpa_inputs(qkv, bias, H, True, grad=True)
+
+        def lib_fwd():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  scale=scale)
+        lib_out = lib_fwd()
+        lib_dout = torch.randn_like(lib_out)   # keeps ``gen``'s stream
+        lib_fwd_ms = cuda_ms(lib_fwd)
+        lib_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+            lib_out, leaf, lib_dout, retain_graph=True))
+        del leaf, q, k, v, mask, lib_out, lib_dout
+        fwd_bound = attention_bound(W, K, C, H, "lse")
+        bwd_bound = attention_bound(W, K, C, H, "bwd")
         fwd = dict(shape=name, W=W, K=K, C=C, H=H, launches_per_step=n,
                    max_abs_err=err, lse_err=lse_err,
+                   library_ms=lib_fwd_ms, bound_ms=fwd_bound[0],
+                   bound_by=fwd_bound[1],
                    ms=cuda_ms(lambda: fa._launch_lse(qkv, bias, H, scale)),
                    plain_ms=cuda_ms(
                        lambda: fa.flash_attention_packed_lse_reference(
@@ -419,6 +605,8 @@ def check_train_kernels(shapes):
         padded = got[-1].abs().max().item()
         bwd = dict(shape=name, W=W, K=K, C=C, H=H, launches_per_step=n,
                    max_abs_err=err, limit=limit, all_padding_max=padded,
+                   library_ms=lib_bwd_ms, bound_ms=bwd_bound[0],
+                   bound_by=bwd_bound[1],
                    ms=cuda_ms(lambda: fa._launch_bwd(qkv, bias, dout, lse,
                                                      delta, H, scale)),
                    plain_ms=cuda_ms(
@@ -439,16 +627,20 @@ def check_train_kernels(shapes):
 
 def counters():
     from tpu3dssf_torch.kernels import flash_attention as fa
+    from tpu3dssf_torch.kernels import knn
     from tpu3dssf_torch.kernels import window_attention as wa
     return {"K1": fa.LAUNCHES, "K2": fa.LSE_LAUNCHES, "K3": fa.BWD_LAUNCHES,
-            "K4": wa.LSE_LAUNCHES, "K5": wa.BWD_LAUNCHES}
+            "K4": wa.LSE_LAUNCHES, "K5": wa.BWD_LAUNCHES,
+            "K7": knn.LAUNCHES}
 
 
 def reset_counters():
     from tpu3dssf_torch.kernels import flash_attention as fa
+    from tpu3dssf_torch.kernels import knn
     from tpu3dssf_torch.kernels import window_attention as wa
     fa.LAUNCHES = fa.LSE_LAUNCHES = fa.BWD_LAUNCHES = 0
     wa.LSE_LAUNCHES = wa.BWD_LAUNCHES = 0
+    knn.LAUNCHES = 0
 
 
 def run_training(tmp):
@@ -492,6 +684,7 @@ def run_training(tmp):
         loop.evaluate_model = evaluate
     want = {k: n * steps for k, n in TRAIN_LAUNCHES.items()}
     want["K1"] += LAUNCHES_PER_BATCH * val_batches
+    want["K7"] = 0                  # the fusion config's modes use no k-NN
     print(f"training: {steps} steps + {val_batches} val batches in "
           f"{seconds:.1f} s; launches {launches} (expected {want}); val "
           f"pass K1 {val_k1}")
@@ -576,11 +769,10 @@ def time_train_step(card):
     K2–K5 inside it (device time from the profiler; plain time and error on
     the step's own inputs)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from tpu3dssf_torch.cli import common
     from tpu3dssf_torch.kernels import flash_attention as fa
     from tpu3dssf_torch.train.loop import make_train_step
-    from tpu3dssf_torch.utils import cuda_ms
+    from tpu3dssf_torch.utils import cuda_ms, profile_kernels
 
     cfg = common.load_config(CONFIG)
     device = torch.device("cuda")
@@ -605,39 +797,26 @@ def time_train_step(card):
           f"points): {step_ms:.3f} ms -> {points / step_ms * 1e3:,.0f} "
           f"points/s; peak allocated {peak / 2**30:.3f} GiB [{card}]")
 
-    reps = 3
-    train_step()
-    torch.cuda.synchronize()
-    with Capture(record=False), profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            train_step()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    device_ms = {e.key[len("smoke::"):]: e.device_time_total / reps / 1e3
-                 for e in events if e.key.startswith("smoke::")}
-    counts = {e.key[len("smoke::"):]: e.count / reps
-              for e in events if e.key.startswith("smoke::")}
-    # kernels only: user annotations (record_function ranges, the
-    # optimizer's step) also appear on the device timeline
-    cuda_events = [e for e in events if e.device_type.name == "CUDA"
-                   and not e.is_user_annotation]
+    with Capture(record=False):
+        _, kernels, spans = profile_kernels(train_step, reps=3)
+    device_ms = {k[len("smoke::"):]: us / 1e3 for k, (us, _) in spans.items()
+                 if k.startswith("smoke::")}
+    counts = {k[len("smoke::"):]: c for k, (_, c) in spans.items()
+              if k.startswith("smoke::")}
     by_name = {}
-    for e in cuda_events:
+    for name, (us, _) in kernels.items():
         for k, pat in (("lse", r"fap_fwd_kernel<\d+, ?true>"),
                        ("bwd", r"fap_bwd_(dkdv|dq)_kernel")):
-            if re.search(pat, e.key):
-                by_name[k] = by_name.get(k, 0.0) + \
-                    e.self_device_time_total / reps / 1e3
-    total = sum(e.self_device_time_total for e in cuda_events) / reps / 1e3
-    n_kernels = sum(e.count for e in cuda_events) / reps
+            if re.search(pat, name):
+                by_name[k] = by_name.get(k, 0.0) + us / 1e3
+    total = sum(us for us, _ in kernels.values()) / 1e3
+    n_kernels = sum(c for _, c in kernels.values())
     print(f"profiler, per train step: {json.dumps(device_ms)} ms, launches "
           f"{json.dumps(counts)}; by kernel name {json.dumps(by_name)} ms; "
           f"device kernel time {total:.3f} ms over {n_kernels:g} kernels")
-    top = sorted(cuda_events, key=lambda e: -e.self_device_time_total)[:12]
-    for e in top:
-        print(f"  {e.self_device_time_total / reps / 1e3:8.3f} ms "
-              f"{e.count / reps:6g}x  {e.key[:100]}")
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
+    for name, (us, c) in top:
+        print(f"  {us / 1e3:8.3f} ms {c:6g}x  {name[:100]}")
     for k, n in TRAIN_LAUNCHES.items():
         if k != "K1" and not (counts.get(k) == n and device_ms.get(k, 0) > 0):
             raise AssertionError(f"profiler: {k} {counts.get(k)} launches, "
@@ -759,6 +938,215 @@ def check_small_model_grad():
                              f"{cos}")
 
 
+def knn_bound(queries, refs, ref_mask, k):
+    """Bound of one k-NN call: 8 f32 operations for each squared distance
+    and one compare, for every query against every valid ref (this run's
+    data); bytes: queries, refs and mask read once, (B, Q, k) distances
+    and indices written once."""
+    B, Q, _ = queries.shape
+    R = refs.shape[1]
+    pairs = Q * int(ref_mask.sum())
+    return bound(0, 9 * pairs, B * Q * 12 + B * R * 13 + B * Q * k * 8)
+
+
+def knn_plain(queries, refs, ref_mask, k):
+    from tpu3dssf_torch.voxel.voxelize import topk_neighbors_reference
+    return topk_neighbors_reference(queries, refs, ref_mask, k)
+
+
+def knn_mismatch(got, want):
+    """(max |Δ distance|, index mismatches) of two k-NN results; both 0
+    when they are bit-identical."""
+    d = (got[0] - want[0]).abs().max().item()
+    return d, int((got[1] != want[1]).sum())
+
+
+def cdist_topk(queries, refs, ref_mask, k):
+    """The library call: ``torch.cdist(q, r).topk(k, largest=False)``, with
+    the masked refs moved 1e6 m away beforehand (not timed)."""
+    import torch
+    far = torch.where(ref_mask[..., None], refs, 1e6)
+    return lambda: torch.cdist(queries, far).topk(k, dim=-1, largest=False)
+
+
+def parity_batch_inputs():
+    """The first test batch of the parity config on the card and the K7
+    inputs its two calls see: (points (B, P, 3), point mask, centroids
+    (B, V, 3), voxel mask)."""
+    import torch
+    from tpu3dssf_torch.cli import common
+    from tpu3dssf_torch.voxel import voxelize
+
+    cfg = common.load_config(PARITY_CONFIG)
+    batches = iter(common.build_dataloaders(cfg)["test"])
+    host = next(batches)
+    batches.close()
+    host.pop("images", None)
+    b = common.batch_to_device(host, torch.device("cuda"))
+    w = cfg.tpu.window_size
+    cap = -(-cfg.tpu.voxel_capacity // w) * w
+    vox = voxelize(b["points"], b["point_valid"], cfg.voxel_size, cap,
+                   intensity_mode="none")
+    return (b["points"][..., :3].contiguous(), b["point_valid"],
+            vox.voxel_raw[..., :3].contiguous(), vox.voxel_mask)
+
+
+def check_knn(card):
+    """Phase 13: K7 vs its plain version on the card, bit for bit: both
+    calls of a parity batch at full size (knn5: centroids → points, k = 5;
+    nearest: points → centroids, k = 1), a ragged case and a case with
+    fewer than k valid refs. K7 timed as the median of 20 after 3 warm-ups,
+    the plain version 5 after 1, cdist + topk 5 after 1."""
+    import torch
+    from tpu3dssf_torch.kernels import knn
+    from tpu3dssf_torch.utils import cuda_ms
+
+    pts, pmask, cents, vmask = parity_batch_inputs()
+    gen = torch.Generator().manual_seed(7)
+    # ragged: 60 m scenes as the synthetic data spans, 20% masked refs
+    rq = (torch.rand(3, 1000, 3, generator=gen) * 120 - 60).cuda()
+    rr = (torch.rand(3, 2501, 3, generator=gen) * 120 - 60).cuda()
+    rm = (torch.rand(3, 2501, generator=gen) > 0.2).cuda()
+    fm = torch.zeros(2, 40, dtype=torch.bool)
+    fm[1, [3, 17, 29]] = True       # sample 0: no valid ref at all
+    cases = [("knn5 (centroids -> points)", cents, pts, pmask, 5),
+             ("nearest (points -> centroids)", pts, cents, vmask, 1),
+             ("ragged Q=1000 R=2501", rq, rr, rm, 8),
+             ("fewer than k valid refs", rq[:2, :300], rr[:2, :40],
+              fm.cuda(), 5)]
+    rows = []
+    for name, q, r, m, k in cases:
+        got = knn.knn(q, r, m, k)
+        torch.cuda.synchronize()
+        want = knn_plain(q, r, m, k)
+        d_err, i_err = knn_mismatch(got, want)
+        full = k in (1, 5) and q.shape[1] > 30000
+        row = dict(case=name, B=q.shape[0], Q=q.shape[1], R=r.shape[1], k=k,
+                   max_abs_err=d_err, index_mismatches=i_err)
+        if full:
+            row["ms"] = cuda_ms(lambda: knn.knn(q, r, m, k))
+            row["plain_ms"] = cuda_ms(lambda: knn_plain(q, r, m, k),
+                                      reps=5, warmup=1)
+            row["cdist_topk_ms"] = cuda_ms(cdist_topk(q, r, m, k), reps=5,
+                                           warmup=1)
+            row["bound_ms"], row["bound_by"] = knn_bound(q, r, m, k)
+            torch.cuda.empty_cache()
+        if name.startswith("fewer"):   # slots left over: (1e30, 0)
+            unfilled = (got[0][0], got[1][0], got[0][1, :, 3:],
+                        got[1][1, :, 3:])
+            row["unfilled_ok"] = all(bool((x == v).all()) for x, v in zip(
+                unfilled, (knn.BAD_DIST, 0, knn.BAD_DIST, 0)))
+        print("kernel K7 " + json.dumps(row), flush=True)
+        if d_err != 0.0 or i_err or row.get("unfilled_ok") is False:
+            raise AssertionError(f"K7 {name}: not bit-identical to its plain "
+                                 f"version (max |Δd| {d_err}, {i_err} index "
+                                 f"mismatches) or wrong unfilled slots")
+        rows.append(row)
+    return rows
+
+
+def parity_config(tmp):
+    """A copy of the parity config with its checkpoints under ``tmp`` (the
+    stock one points at the committed TPU record)."""
+    import yaml
+    with open(PARITY_CONFIG) as f:
+        raw = yaml.safe_load(f)
+    ckpt = os.path.join(tmp, "ckpt")
+    raw["train_params"].update(checkpoint_path=ckpt, best_model_path=ckpt)
+    raw["test_params"]["checkpoint_path"] = ckpt
+    path = os.path.join(tmp, "parity.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(raw, f)
+    return path, ckpt
+
+
+def run_parity_clis(tmp):
+    """Phase 14: main_infer, main_test and main_sample through their own
+    entry points on a copy of the parity config, counts set to 0 just
+    before each and read just after: exactly 22 K1 and 2 K7 launches per
+    batch and no other kernel; finite metrics; the artifacts in the
+    temporary checkpoint directory. Returns {cli: (launches, batches)}."""
+    import numpy as np
+    from tpu3dssf_torch.cli import common, main_infer, main_sample, main_test
+
+    path, ckpt = parity_config(tmp)
+    n_test = len(common.build_dataloaders(common.load_config(path))["test"])
+    runs = {}
+    for name, cli, argv, n in (
+            ("main_infer", main_infer, ["--split", "test"], n_test),
+            ("main_test", main_test, [], n_test),
+            ("main_sample", main_sample, [], 1)):
+        reset_counters()
+        t0 = time.perf_counter()
+        metrics = cli.main(["--config", path] + argv)
+        seconds = time.perf_counter() - t0
+        launches = counters()
+        want = {k: PARITY_LAUNCHES.get(k, 0) * n for k in launches}
+        bad = {k: v for k, v in metrics.items() if not np.isfinite(v).all()}
+        print(f"parity {name}: {n} batches in {seconds:.1f} s, launches "
+              f"{launches} (expected {want}), overall acc "
+              f"{float(metrics['overall_acc']):.4f}")
+        if launches != want or bad:
+            raise AssertionError(f"parity {name}: launches {launches} "
+                                 f"(expected {want}), non-finite {bad}")
+        runs[name] = (launches, n)
+    import importlib.util
+    written = ["segmentation_result.html"]
+    if importlib.util.find_spec("matplotlib") is not None:
+        written.append("per_class_iou.png")    # else main_test says so
+    for f in written:
+        if not os.path.exists(os.path.join(ckpt, f)):
+            raise AssertionError(f"parity CLIs wrote no {f} under {ckpt}")
+    return runs
+
+
+def time_parity_batch(card, tmp):
+    """Phase 15: one parity batch end to end (LiDAR-only model + loss) with
+    CUDA events and its peak memory; K1 and K7 inside it (device time and
+    launches from the profiler; on the inputs that batch gave them, the
+    plain versions' time and the kernels' error: K1 within 0.05, K7 bit for
+    bit; for K7 also cdist + topk's time and the bound)."""
+    import torch
+    from tpu3dssf_torch.cli import common
+    from tpu3dssf_torch.train.loop import make_eval_step
+    from tpu3dssf_torch.utils import cuda_ms
+
+    path, _ = parity_config(tmp)
+    cfg = common.load_config(path)
+    device = torch.device("cuda")
+    model, _ = common.build_pipeline(cfg, None, device)
+    step = make_eval_step(common.build_loss(cfg), cfg.mlp_class)
+    batches = iter(common.build_dataloaders(cfg)["test"])
+    host = next(batches)
+    batches.close()
+    host.pop("images", None)
+    points = int(host["point_valid"].sum())
+    batch = common.batch_to_device(host, device)
+    tokens = common.zero_tokens(cfg, None, batch["points"].shape[0], device)
+
+    def frame():
+        return step(model, batch, tokens)
+
+    torch.cuda.reset_peak_memory_stats()
+    frame_ms = cuda_ms(frame, reps=10, warmup=2)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"parity batch ({batch['points'].shape[0]} scenes, {points:,} "
+          f"valid points): {frame_ms:.3f} ms -> "
+          f"{points / frame_ms * 1e3:,.0f} points/s; peak allocated "
+          f"{peak / 2**30:.3f} GiB [{card}]")
+
+    inside, total = time_kernels_in_path(
+        frame, {"K1": k1_spec(PARITY_LAUNCHES["K1"]), "K7": k7_spec()})
+    return inside, dict(frame_ms=frame_ms, points=points,
+                        points_per_s=points / frame_ms * 1e3,
+                        peak_bytes=peak, device_kernel_ms=total)
+
+
+def per_path(rows, key, count):
+    """Σ over a kernel's shapes of (calls per batch or step × per call)."""
+    return sum(r[count] * r[key] for r in rows)
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "tpu3dssf_torch")):
         sys.exit("chip_smoke.py: run it from a checkout of the repository "
@@ -771,7 +1159,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from tpu3dssf_torch.cli.common import load_config
-    from tpu3dssf_torch.kernels import flash_attention as fa
+    from tpu3dssf_torch.kernels import _build
 
     card = card_line()
     print(card)
@@ -779,18 +1167,20 @@ def main():
           f"python {sys.version.split()[0]}, "
           f"{torch.cuda.device_count()} device(s)")
 
+    # phases 2, 6 and 12: every source at once, one nvcc each
     t0 = time.perf_counter()
-    print_build("forward kernels", fa.build(), time.perf_counter() - t0)
+    with ThreadPoolExecutor(max_workers=len(SOURCES)) as pool:
+        list(pool.map(_build.load_library, SOURCES))
+    print(f"build: {len(SOURCES)} sources in {time.perf_counter() - t0:.2f} "
+          "s wall, one nvcc each, all started together")
+    for source in SOURCES:
+        print_build(source, _build.BUILD_INFO[source])
 
     cfg = load_config(CONFIG)
     rows = check_kernel(slice_attention_shapes(cfg))
-    reset_counters()
     launches, k1, frame = run_slice(card)
     check_small_model()
 
-    t0 = time.perf_counter()
-    print_build("backward kernel", fa.build_backward(),
-                time.perf_counter() - t0)
     train_rows = check_train_kernels(train_attention_shapes(cfg))
     tmp = tempfile.mkdtemp(prefix="tpu3dssf_smoke_")
     try:
@@ -801,16 +1191,39 @@ def main():
     overfit_one_batch()
     check_small_model_grad()
 
+    parity_rows = check_kernel(
+        slice_attention_shapes(load_config(PARITY_CONFIG)))
+    knn_rows = check_knn(card)
+    tmp = tempfile.mkdtemp(prefix="tpu3dssf_smoke_")
+    try:
+        parity = run_parity_clis(tmp)
+        in_parity, parity_frame = time_parity_batch(card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
     records = [{
         "name": KERNELS["K1"][0], "route": "cuda",
         "source": "tpu3dssf_torch/csrc/" + KERNELS["K1"][1],
         "replaces": KERNELS["K1"][2],
         "launches": launches,
-        "max_abs_err": max([k1["max_abs_err"]]
-                           + [r["max_abs_err"] for r in rows]),
-        # per batch of the inference path, on that batch's own inputs
+        "max_abs_err": max([k1["max_abs_err"], in_parity["K1"]["max_abs_err"]]
+                           + [r["max_abs_err"] for r in rows + parity_rows]),
+        # per batch of the inference path, on that batch's own inputs;
+        # bound and library call summed over its 34 calls
         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
+        "bound_ms": per_path(rows, "bound_ms", "launches_per_batch"),
+        "bound_by": ("operations" if all(r["bound_by"] == "operations"
+                                         for r in rows) else "bytes"),
+        "library_ms": per_path(rows, "library_ms", "launches_per_batch"),
+        "library": "scaled_dot_product_attention",
         "per": "inference batch", "train_launches": train_launches["K1"],
+        "parity_launches": parity["main_infer"][0]["K1"],
+        # per parity batch, likewise
+        "parity": dict(
+            ms=in_parity["K1"]["ms"], plain_ms=in_parity["K1"]["plain_ms"],
+            bound_ms=per_path(parity_rows, "bound_ms", "launches_per_batch"),
+            library_ms=per_path(parity_rows, "library_ms",
+                                "launches_per_batch")),
     }]
     for k in ("K2", "K3", "K4", "K5"):
         name, source, replaces = KERNELS[k]
@@ -820,12 +1233,40 @@ def main():
             "launches": train_launches[k],
             "max_abs_err": max([inside[k]["max_abs_err"]]
                                + [r["max_abs_err"] for r in train_rows[k]]),
-            # per train step, on that step's own inputs
+            # per train step, on that step's own inputs; bound and library
+            # call summed over the step's calls at the isolated shapes
             "ms": inside[k]["ms"], "plain_ms": inside[k]["plain_ms"],
+            "bound_ms": per_path(train_rows[k], "bound_ms",
+                                 "launches_per_step"),
+            "bound_by": ("operations" if all(
+                r["bound_by"] == "operations" for r in train_rows[k])
+                else "bytes"),
+            "library_ms": per_path(train_rows[k], "library_ms",
+                                   "launches_per_step"),
+            "library": ("scaled_dot_product_attention"
+                        + (" backward" if k in ("K3", "K5") else
+                           " (gradient pending)")),
             "per": f"train step ({steps} steps in the run)",
         })
+    name, source, replaces = KERNELS["K7"]
+    k7 = in_parity["K7"]
+    records.append({
+        "name": name, "route": "cuda",
+        "source": "tpu3dssf_torch/csrc/" + source, "replaces": replaces,
+        "launches": parity["main_infer"][0]["K7"],
+        "max_abs_err": max([k7["max_abs_err"]]
+                           + [r["max_abs_err"] for r in knn_rows]),
+        # per parity batch (a knn5 and a nearest call), on that batch's own
+        # inputs
+        "ms": k7["ms"], "plain_ms": k7["plain_ms"],
+        "bound_ms": k7["bound_ms"], "bound_by": k7["bound_by"],
+        "library_ms": k7["library_ms"], "library": "cdist + topk",
+        "cdist_topk_ms": k7["library_ms"], "per": "parity batch",
+        "parity_launches": {n: (c["K7"], b) for n, (c, b) in parity.items()},
+    })
     print("slice " + json.dumps(dict(frame, card=card)))
     print("train_step " + json.dumps(dict(step, card=card)))
+    print("parity_batch " + json.dumps(dict(parity_frame, card=card)))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
-"""The port's CUDA attention kernels, a train step and the timers on the
-card (marked ``cuda``).
+"""The port's CUDA kernels (attention K1–K5, k-NN K7), a train step and the
+timers on the card (marked ``cuda``).
 
 These tests need an NVIDIA GPU and nvcc; without a card each skips with
 its reason. Run them on the card without the JAX test configuration:
@@ -11,13 +11,16 @@ same bf16 inputs, max abs error < 0.05 (bf16 output rounding plus the
 bf16 probabilities of the PV product); LSE within 1e-3 on rows with a valid
 key (f32 sums in another order); backward max |dqkv − plain| < 0.05 ·
 max(1, max |plain|), the gradient rule of scripts/check_tpu_kernels.py
-(bf16 p and ds in the products); dqkv exactly 0 in an all-padding window.
+(bf16 p and ds in the products); dqkv exactly 0 in an all-padding window;
+K7 bit-identical to its plain version (the same f32 operations in the same
+order, no fused multiply-add on either side).
 """
 
 import pytest
 import torch
 
 from tpu3dssf_torch.kernels import flash_attention as fa
+from tpu3dssf_torch.kernels import knn
 from tpu3dssf_torch.kernels import window_attention as wa
 from tpu3dssf_torch.kernels import window_attention_packed
 
@@ -94,7 +97,7 @@ def test_profile_kernels_counts_the_kernel_launches(cuda):
         fa.flash_attention_packed(qkv, bias, 2, 0.25)
         fa.flash_attention_packed(qkv, bias, 2, 0.25)
 
-    _, kernels = profile_kernels(two_calls, reps=3)
+    _, kernels, _ = profile_kernels(two_calls, reps=3)
     k1 = [v for k, v in kernels.items() if "fap_fwd_kernel" in k]
     assert sum(n for _, n in k1) == 2
     assert sum(us for us, _ in k1) > 0
@@ -200,3 +203,70 @@ def test_small_model_train_step_on_the_card(cuda):
     assert torch.isfinite(m["loss"]).item()
     for p in state.model.parameters():
         assert torch.isfinite(p).all()
+
+
+def _knn_inputs(cuda, B, Q, R, masked=0.2, seed=0):
+    """Points over a 120 m square, as the synthetic scenes span: |q|² up to
+    7200, where one f32 ulp is as large as a neighbour gap at 0.1 m."""
+    gen = torch.Generator().manual_seed(seed)
+    q = torch.rand(B, Q, 3, generator=gen) * 120 - 60
+    r = torch.rand(B, R, 3, generator=gen) * 120 - 60
+    r[:, 10:20] = r[:, :10]                  # exact ties
+    m = torch.rand(B, R, generator=gen) > masked
+    return q.to(cuda), r.to(cuda), m.to(cuda)
+
+
+@pytest.mark.parametrize("B,Q,R,k", [(2, 77, 200, 1), (3, 1000, 2501, 5),
+                                     (1, 4097, 1031, 8), (2, 257, 64, 5)])
+def test_knn_kernel_is_bit_identical_to_its_plain_version(cuda, B, Q, R, k):
+    from tpu3dssf_torch.voxel.voxelize import topk_neighbors_reference
+
+    q, r, m = _knn_inputs(cuda, B, Q, R)
+    before = knn.LAUNCHES
+    d, i = knn.knn(q, r, m, k)
+    torch.cuda.synchronize()
+    assert knn.LAUNCHES == before + 1
+    want_d, want_i = topk_neighbors_reference(q, r, m, k)
+    assert d.dtype == torch.float32 and i.dtype == torch.int32
+    assert d.shape == i.shape == (B, Q, k)
+    assert torch.equal(d, want_d) and torch.equal(i, want_i)
+
+
+def test_knn_kernel_fills_missing_neighbours_with_bad_slots(cuda):
+    from tpu3dssf_torch.voxel.voxelize import topk_neighbors_reference
+
+    q, r, _ = _knn_inputs(cuda, 2, 100, 40)
+    m = torch.zeros(2, 40, dtype=torch.bool, device=cuda)
+    m[1, [3, 17, 29]] = True                 # sample 0: no valid ref
+    d, i = knn.knn(q, r, m, 5)
+    want_d, want_i = topk_neighbors_reference(q, r, m, 5)
+    assert torch.equal(d, want_d) and torch.equal(i, want_i)
+    assert (d[0] == knn.BAD_DIST).all() and (i[0] == 0).all()
+    assert (d[1, :, 3:] == knn.BAD_DIST).all() and (i[1, :, 3:] == 0).all()
+
+
+def test_knn_kernel_refuses_what_it_does_not_take(cuda):
+    q, r, m = _knn_inputs(cuda, 1, 10, 20)
+    with pytest.raises(ValueError, match="k"):
+        knn.knn(q, r, m, 9)
+    with pytest.raises(TypeError, match="float32"):
+        knn.knn(q.double(), r, m, 3)
+    with pytest.raises(ValueError, match="ref_mask"):
+        knn.knn(q, r, m.float(), 3)
+
+
+def test_parity_modes_launch_the_knn_kernel(cuda):
+    from tpu3dssf_torch.voxel import devoxelize_nearest, voxelize
+
+    pts = torch.cat([torch.rand(2, 3000, 3) * 40 - 20,
+                     torch.rand(2, 3000, 1)], -1).to(cuda)
+    mask = torch.ones(2, 3000, dtype=torch.bool, device=cuda)
+    before = knn.LAUNCHES
+    vox = voxelize(pts, mask, 0.5, 2048, "knn5")
+    vals = torch.randn(2, 2048, 4, device=cuda, requires_grad=True)
+    out, _ = devoxelize_nearest(pts[..., :3], mask, vox.voxel_raw[..., :3],
+                                vox.voxel_mask, vals)
+    out.sum().backward()
+    torch.cuda.synchronize()
+    assert knn.LAUNCHES == before + 2
+    assert torch.isfinite(vox.voxel_raw).all() and vals.grad.abs().sum() > 0

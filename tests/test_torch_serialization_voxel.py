@@ -109,14 +109,6 @@ def test_voxelize_matches_every_field(rng, capacity, mode):
         _eq(idx[b], jidx)
 
 
-def test_knn_modes_name_the_roadmap_item(rng):
-    pts, mask = _cloud(rng, P=100)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        voxel.voxelize(t(pts), t(mask), 0.5, 64, "knn5")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        voxel.devoxelize_nearest()
-
-
 def _random_quats(rng, *shape):
     q = rng.normal(size=shape + (4,)).astype(np.float32)
     return q / np.linalg.norm(q, axis=-1, keepdims=True)

@@ -1,30 +1,90 @@
 """Shared CLI wiring for the port: config → data, models, loss, state.
 
-The host-side pieces (config loading, the synthetic dataset and its
-loader, the dataset and loader builders, one example batch, the metric
-logger, stdout tee and history plot) are the JAX package's own, which
-import no JAX, re-exported here. The model build functions here make the
-port's modules on an explicit ``device`` with seeded random weights (no
-pretrained weights are loaded yet).
+Port of ``tpu3dssf.cli.common``. The dataset and loader builders are the
+JAX CLI's, over the port's own copies of the host modules
+(``tpu3dssf_torch.config``, ``tpu3dssf_torch.data``). The model build
+functions make the port's modules on an explicit ``device`` with seeded
+random weights (no pretrained weights are loaded yet).
 """
 
 from __future__ import annotations
 
+from typing import Dict
+
 import numpy as np
 import torch
 
-from tpu3dssf.cli.common import (  # noqa: F401  (re-exported)
-    build_dataloaders,
-    build_datasets,
-    example_batch,
+from tpu3dssf_torch.config import (  # noqa: F401  (re-exported)
+    Config,
+    load_class_dict,
+    load_config,
+    load_label_mapping,
 )
-from tpu3dssf.config import Config, load_config  # noqa: F401
-from tpu3dssf.data import HostDataPipeline, SyntheticNuScenes  # noqa: F401
-from tpu3dssf.utils.logging import create_logger, tee_stdout  # noqa: F401
-from tpu3dssf.utils.viz import plot_training_history  # noqa: F401
+from tpu3dssf_torch.data import (  # noqa: F401  (re-exported)
+    HostDataPipeline,
+    NuScenesDataset,
+    SyntheticNuScenes,
+)
 from tpu3dssf_torch.models.ptv3 import _round_up
+from tpu3dssf_torch.utils.logging import (  # noqa: F401  (re-exported)
+    create_logger,
+    tee_stdout,
+)
+from tpu3dssf_torch.utils.viz import plot_training_history  # noqa: F401
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def build_datasets(cfg: Config) -> Dict[str, object]:
+    """All three splits (the JAX CLI's builder)."""
+    if cfg.tpu.dataset == "synthetic":
+        n = cfg.tpu.synthetic_samples or (4 if cfg.debug else 16)
+        kw = dict(num_points=cfg.tpu.synthetic_points,
+                  image_hw=tuple(cfg.tpu.synthetic_image_hw),
+                  render_semantics=cfg.tpu.synthetic_render,
+                  cache=cfg.max_num_epochs > 1)
+        return {
+            "train": SyntheticNuScenes(num_samples=n, seed=0, **kw),
+            "val": SyntheticNuScenes(num_samples=max(2, n // 4), seed=1,
+                                     **kw),
+            "test": SyntheticNuScenes(num_samples=max(2, n // 4), seed=2,
+                                      **kw),
+        }
+
+    mapping = load_label_mapping(cfg.label_mapping)
+    learning_map = {int(k): int(v)
+                    for k, v in mapping["learning_map"].items()}
+    version = ("v1.0-mini" if cfg.debug else "v1.0-trainval")
+    out = {}
+    for split, loader in (("train", cfg.train_loader),
+                          ("val", cfg.val_loader),
+                          ("test", cfg.test_loader)):
+        out[split] = NuScenesDataset(
+            dataroot=loader.data_path or cfg.train_loader.data_path,
+            version=version, split=split, learning_map=learning_map,
+            point_capacity=cfg.tpu.point_capacity)
+    return out
+
+
+def build_dataloaders(cfg: Config, datasets=None) -> Dict[str, object]:
+    datasets = datasets or build_datasets(cfg)
+    loaders = {}
+    for split, lcfg in (("train", cfg.train_loader),
+                        ("val", cfg.val_loader),
+                        ("test", cfg.test_loader)):
+        loaders[split] = HostDataPipeline(
+            datasets[split], batch_size=lcfg.batch_size,
+            point_capacity=cfg.tpu.point_capacity,
+            shuffle=lcfg.shuffle, drop_last=(split == "train"),
+            num_workers=lcfg.num_workers)
+    return loaders
+
+
+def example_batch(cfg: Config, datasets) -> Dict:
+    """One packed batch of the val split at batch size 1."""
+    pipe = HostDataPipeline(datasets["val"], batch_size=1,
+                            point_capacity=cfg.tpu.point_capacity)
+    return next(iter(pipe))
 
 
 def resolve_device(name: str) -> torch.device:
@@ -71,22 +131,25 @@ def build_image_encoder(cfg: Config, device, seed: int = 0):
 
 
 def build_pipeline(cfg: Config, vit_cfg=None, device="cpu", seed: int = 1):
-    """The fusion ``SegmentationPipeline`` on ``device`` with seeded
-    weights; returns (model, PipelineConfig)."""
+    """The model on ``device`` with seeded weights: the fusion
+    ``SegmentationPipeline``, or ``LidarSegmentationModel`` for
+    ``image_encoder: none`` (``vit_cfg`` None); returns (model,
+    PipelineConfig)."""
     from tpu3dssf_torch.models.fusion import (FusionConfig, PipelineConfig,
                                               SegmentationPipeline)
     from tpu3dssf_torch.models.layers import init_weights
+    from tpu3dssf_torch.models.lidar_only import LidarSegmentationModel
     from tpu3dssf_torch.models.ptv3 import PTv3Config
 
-    if cfg.image_encoder == "none":
-        raise NotImplementedError(
-            "the LiDAR-only model is not ported yet (ROADMAP.md, H100 port)")
     dtype = compute_dtype(cfg)
     w = cfg.tpu.window_size
-    fusion = FusionConfig(patch_tok_dim=vit_cfg.hidden_size,
-                          patch_size=vit_cfg.patch_size,
-                          encoder_size=vit_cfg.image_size,
-                          output_dim=cfg.mlp_class, dtype=dtype)
+    if vit_cfg is None:
+        fusion = FusionConfig(output_dim=cfg.mlp_class, dtype=dtype)
+    else:
+        fusion = FusionConfig(patch_tok_dim=vit_cfg.hidden_size,
+                              patch_size=vit_cfg.patch_size,
+                              encoder_size=vit_cfg.image_size,
+                              output_dim=cfg.mlp_class, dtype=dtype)
     pipe = PipelineConfig(
         fusion=fusion,
         ptv3=PTv3Config(enc_window=(w,) * 5, dec_window=(w,) * 4,
@@ -98,7 +161,9 @@ def build_pipeline(cfg: Config, vit_cfg=None, device="cpu", seed: int = 1):
         intensity_mode=cfg.tpu.intensity_mode,
         devoxelize_mode=cfg.tpu.devoxelize_mode,
     )
-    model = init_weights(SegmentationPipeline(pipe), seed)
+    cls = (LidarSegmentationModel if cfg.image_encoder == "none"
+           else SegmentationPipeline)
+    model = init_weights(cls(pipe), seed)
     return model.to(device).eval(), pipe
 
 

@@ -121,7 +121,7 @@ def main(argv=None):
     print(f"batch_ms prefetch_closed {closed} prefetch_live {prefetch_live} "
           f"closed_again {closed_again} [{card}]")
 
-    prof, kernels = profile_kernels(frame, reps=3)
+    prof, kernels, _ = profile_kernels(frame, reps=3)
     print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=30,
                                     max_name_column_width=60))
     if args.trace:

@@ -53,28 +53,33 @@ def library_path(source: str) -> Path:
 
 
 def load_library(source: str) -> ctypes.CDLL:
-    """Compile ``csrc/<source>`` if its library is missing, then load it."""
+    """Compile ``csrc/<source>`` if its library is missing, then load it.
+
+    nvcc runs outside the lock, into a file of its own that is renamed into
+    place, so callers on several threads build several sources at once."""
     with _lock:
         lib = _libs.get(source)
-        if lib is not None:
-            return lib
-        so = library_path(source)
-        info = {"seconds": 0.0, "log": ""}
-        if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   str(CSRC_DIR / source)]
-            t0 = time.perf_counter()
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            info["seconds"] = time.perf_counter() - t0
-            info["log"] = res.stdout + res.stderr
-            if res.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed on {source} (exit {res.returncode}):\n"
-                    f"{' '.join(cmd)}\n{info['log']}")
-            os.replace(tmp, so)  # atomic: concurrent builds agree
-        lib = ctypes.CDLL(str(so))
-        BUILD_INFO[source] = info
-        _libs[source] = lib
+    if lib is not None:
         return lib
+    so = library_path(source)
+    info = {"seconds": 0.0, "log": ""}
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(
+            f"{so.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC_DIR / source)]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        info["seconds"] = time.perf_counter() - t0
+        info["log"] = res.stdout + res.stderr
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed on {source} (exit {res.returncode}):\n"
+                f"{' '.join(cmd)}\n{info['log']}")
+        os.replace(tmp, so)  # atomic: concurrent builds agree
+    with _lock:
+        if source not in _libs:
+            _libs[source] = ctypes.CDLL(str(so))
+            BUILD_INFO[source] = info
+        return _libs[source]

@@ -256,20 +256,6 @@ def _lib_bwd():
                  [_PTR] * 6 + [_INT] * 4 + [_FLOAT, _PTR])
 
 
-def build():
-    """Compile (or reuse) and load the forward kernels; returns the build
-    record."""
-    _lib()
-    return _build.BUILD_INFO[_SOURCE]
-
-
-def build_backward():
-    """Compile (or reuse) and load the backward kernel; returns the build
-    record."""
-    _lib_bwd()
-    return _build.BUILD_INFO[_BWD_SOURCE]
-
-
 def _raise_if_failed(err, what, qkv, heads):
     if err != 0:
         B, N, C3 = qkv.shape

@@ -4,6 +4,7 @@ from tpu3dssf_torch.models.fusion import (
     PipelineConfig,
     SegmentationPipeline,
 )
+from tpu3dssf_torch.models.lidar_only import LidarSegmentationModel
 from tpu3dssf_torch.models.ptv3 import PointTransformerV3, PTv3Config
 from tpu3dssf_torch.models.vit import ViTConfig, VisionTransformer
 
@@ -16,4 +17,5 @@ __all__ = [
     "FusionConfig",
     "PipelineConfig",
     "SegmentationPipeline",
+    "LidarSegmentationModel",
 ]

@@ -19,12 +19,12 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from tpu3dssf.utils.logging import MetricLogger, NullLogger
 from tpu3dssf_torch.losses import CELSLoss
 from tpu3dssf_torch.metrics import (confusion_matrix, evaluate_from_confusion,
                                     format_metrics)
 from tpu3dssf_torch.models.vit import preprocess_images
 from tpu3dssf_torch.train.checkpoint import save_checkpoint
+from tpu3dssf_torch.utils.logging import MetricLogger, NullLogger
 
 
 def make_image_encode_fn(vit_model, encoder_hw, compute_dtype=torch.float32):

@@ -2,6 +2,8 @@ from tpu3dssf_torch.voxel.voxelize import (
     VoxelizeResult,
     devoxelize_nearest,
     devoxelize_own_voxel,
+    knn_intensity_transfer,
+    topk_neighbors_reference,
     voxelize,
 )
 
@@ -10,4 +12,6 @@ __all__ = [
     "voxelize",
     "devoxelize_nearest",
     "devoxelize_own_voxel",
+    "knn_intensity_transfer",
+    "topk_neighbors_reference",
 ]

@@ -10,6 +10,11 @@ sorted as signed (hi, lo) int32 pairs) and the overflow rule (voxels past
 The segment sums use ``index_add_``; on CUDA that is atomic, so centroid
 sums are taken in an order that changes from run to run (integer outputs
 do not depend on it).
+
+The k-NN parity modes (``intensity_mode="knn5"``, :func:`devoxelize_nearest`)
+find neighbours with :func:`_topk_neighbors`: a CUDA tensor launches the
+hand-written kernel K7 (:mod:`tpu3dssf_torch.kernels.knn`), a CPU tensor
+takes the plain version :func:`topk_neighbors_reference`.
 """
 
 from __future__ import annotations
@@ -18,13 +23,15 @@ from typing import NamedTuple
 
 import torch
 
+from tpu3dssf_torch.kernels import knn
 from tpu3dssf_torch.serialization.codes import pack_cell_keys
 from tpu3dssf_torch.serialization.partition import argsort_lex
 
-_ROADMAP_KNN = ("the k-NN parity modes (intensity_mode='knn5', "
-                "devoxelize_mode='nearest') wait for the port of the TPU "
-                "k-NN kernel (tpu3dssf/kernels/knn.py); see ROADMAP.md, "
-                "open item 12 (parity modes) and kernel K7")
+# the reference's 5-NN intensity weights (utils/lidar.py:101)
+KNN_INTENSITY_WEIGHTS = (0.4, 0.3, 0.2, 0.05, 0.05)
+# distance of a masked ref and of an unfilled k-NN slot: loses to every
+# real squared distance and stays finite; never square it (1e30² is inf)
+KNN_BAD_DIST = knn.BAD_DIST
 
 
 class VoxelizeResult(NamedTuple):
@@ -63,12 +70,10 @@ def voxelize(points, point_mask, voxel_size, capacity,
       point_mask: (B, P) bool — valid input points.
       voxel_size: python float.
       capacity: python int — max number of voxels V per batch row.
-      intensity_mode: "mean" (in-voxel mean) or "none"; "knn5" raises
-        NotImplementedError until the k-NN kernel is ported.
+      intensity_mode: "mean" (in-voxel mean), "knn5" (the reference's
+        weighted 5-NN transfer from the raw points) or "none".
     """
-    if intensity_mode == "knn5":
-        raise NotImplementedError(_ROADMAP_KNN)
-    if intensity_mode not in ("mean", "none"):
+    if intensity_mode not in ("mean", "knn5", "none"):
         raise ValueError(f"unknown intensity_mode: {intensity_mode!r}")
     B, P, _ = points.shape
     dev = points.device
@@ -112,6 +117,9 @@ def voxelize(points, point_mask, voxel_size, capacity,
 
     if intensity_mode == "mean":
         intensity = sums[..., 3:4] / denom
+    elif intensity_mode == "knn5":
+        intensity = knn_intensity_transfer(
+            centroid, voxel_mask, xyz, points[..., 3], point_mask)[..., None]
     else:
         intensity = torch.zeros((B, capacity, 1), dtype=torch.float32,
                                 device=dev)
@@ -138,6 +146,87 @@ def devoxelize_own_voxel(point_voxel, point_ok, voxel_values):
     return torch.where(point_ok[..., None], values, 0.0), point_voxel
 
 
-def devoxelize_nearest(*args, **kwargs):
-    """1-NN devoxelization (parity mode): not ported yet."""
-    raise NotImplementedError(_ROADMAP_KNN)
+def topk_neighbors_reference(queries, refs, ref_mask, k, chunk=1 << 24):
+    """Plain PyTorch version of K7: the k nearest valid refs per query.
+
+    Same function as the JAX package's ``_tiled_topk_neighbors`` (its XLA
+    path): squared distances ``(|q|² − 2·q·r) + |r|²`` with every product
+    and sum rounded in f32 in that order (written elementwise, so no matmul
+    and no fused multiply-add: the kernel does the same operations and
+    both are bit-identical), masked refs at :data:`KNN_BAD_DIST`, then k
+    rounds of argmin (first index of the minimum) that each set the winner
+    to :data:`KNN_BAD_DIST`. Neighbours come in (distance, index) order;
+    a query with fewer than k valid refs gets (KNN_BAD_DIST, 0) in the
+    slots left over. Rows of queries are taken ``chunk // R`` at a time,
+    so no (Q, R) matrix exists for the whole sample.
+
+    Args:
+      queries: (B, Q, 3) float32; refs: (B, R, 3) float32; ref_mask:
+        (B, R) bool; k: neighbours per query (1 ≤ k ≤ R).
+
+    Returns (distances (B, Q, k) float32, indices (B, Q, k) int32).
+    """
+    B, Q, _ = queries.shape
+    R = refs.shape[1]
+    qn = _sq_norm(queries)                                # (B, Q)
+    rn = _sq_norm(refs)                                   # (B, R)
+    rows = max(1, chunk // R)
+    dist, idx = [], []
+    for s in range(0, Q, rows):
+        q = queries[:, s:s + rows, None, :]               # (B, q, 1, 3)
+        r = refs[:, None, :, :]                           # (B, 1, R, 3)
+        dot = (q[..., 0] * r[..., 0] + q[..., 1] * r[..., 1]) \
+            + q[..., 2] * r[..., 2]
+        d = (qn[:, s:s + rows, None] - 2.0 * dot) + rn[:, None, :]
+        d = torch.where(ref_mask[:, None, :], d, KNN_BAD_DIST)
+        best_d, best_i = [], []
+        for _ in range(k):
+            a = d.argmin(dim=-1, keepdim=True)            # first minimum
+            best_d.append(d.gather(-1, a))
+            best_i.append(a)
+            d.scatter_(-1, a, KNN_BAD_DIST)
+        dist.append(torch.cat(best_d, -1))
+        idx.append(torch.cat(best_i, -1))
+    return torch.cat(dist, 1), torch.cat(idx, 1).to(torch.int32)
+
+
+def _sq_norm(x):
+    """(x·x + y·y) + z·z in f32, the JAX package's order."""
+    return (x[..., 0] * x[..., 0] + x[..., 1] * x[..., 1]) \
+        + x[..., 2] * x[..., 2]
+
+
+def _topk_neighbors(queries, refs, ref_mask, k):
+    """K7 on a CUDA tensor, the plain version on a CPU tensor. Like the
+    JAX function, it takes no query mask: every query gets neighbours and
+    the callers mask the invalid ones."""
+    if queries.device.type == "cpu":
+        return topk_neighbors_reference(queries, refs, ref_mask, k)
+    return knn.knn(queries, refs, ref_mask, k)
+
+
+def knn_intensity_transfer(centroids, voxel_mask, points_xyz, intensity,
+                           point_mask, weights=KNN_INTENSITY_WEIGHTS):
+    """Weighted 5-NN intensity from the raw points onto the centroids (the
+    reference's utils/lidar.py:97-105): centroids (B, V, 3), voxel_mask
+    (B, V), points_xyz (B, P, 3), intensity (B, P), point_mask (B, P) →
+    (B, V), 0 at dead voxels."""
+    k = len(weights)
+    _, idx = _topk_neighbors(centroids, points_xyz, point_mask, k)
+    B, V, _ = idx.shape
+    near = torch.gather(intensity, 1, idx.reshape(B, V * k).to(torch.int64))
+    w = torch.tensor(weights, dtype=torch.float32, device=intensity.device)
+    return torch.where(voxel_mask, (near.reshape(B, V, k) * w).sum(-1), 0.0)
+
+
+def devoxelize_nearest(points_xyz, point_mask, centroids, voxel_mask,
+                       voxel_values):
+    """Per-voxel values (B, V, C) onto points by the nearest live centroid
+    (the reference's cdist + argmin, utils/lidar.py:120-172); differentiable
+    in ``voxel_values`` through the gather. Returns (point_values
+    (B, P, C), nearest voxel (B, P) int32), both 0 at invalid points."""
+    _, idx = _topk_neighbors(points_xyz, centroids, voxel_mask, 1)
+    idx = idx[..., 0]
+    values = _take(voxel_values, idx.to(torch.int64))
+    return (torch.where(point_mask[..., None], values, 0.0),
+            torch.where(point_mask, idx, 0))
