@@ -2,15 +2,18 @@
 
     python3 chip_smoke.py
 
-Drives the port's three paths at full width with seeded random weights:
+Drives the port's paths at full width with seeded random weights:
 streaming fused inference (``tpu3dssf_torch.cli.main_infer``) and training
 (``tpu3dssf_torch.cli.main_train``) over ``configs/synthetic_convergence_
 fusion_r3.yaml`` (DINOv3 ViT-S/16 over 6 cameras → voxelize → PTv3 →
 fusion head → devoxelize, bf16, batch 2), and the LiDAR-only reference-
 parity path (``main_infer``, ``main_test``, ``main_sample``) over
 ``configs/synthetic_convergence_lidar_parity.yaml`` (knn5 voxelize → PTv3
-→ linear head → nearest devoxelize, bf16, batch 4). It checks, in order
-(any failure raises, exit code ≠ 0):
+→ linear head → nearest devoxelize, bf16, batch 4); then the fusion frame
+with the ViT-L/16 encoder on both of its attention routes, that encoder's
+gradient, and ``configs/synthetic_convergence_lidar.yaml`` at window 48,
+where every PTv3 block takes the (W, K, H, D) window route. It checks, in
+order (any failure raises, exit code ≠ 0):
 
 1. a CUDA device is present; prints the card's name and power limit;
 2. (with 6 and 12) every kernel source builds from ``tpu3dssf_torch/csrc``,
@@ -72,7 +75,38 @@ parity path (``main_infer``, ``main_test``, ``main_sample``) over
     memory; K1 and K7 inside it as K1 in 4: device time and exactly 22 and
     2 launches per batch from the profiler, and on the inputs that batch
     gave them the plain versions' time and the kernels' error (K1 within
-    0.05, K7 bit for bit), for K7 also cdist + topk's time and the bound.
+    0.05, K7 bit for bit), for K7 also cdist + topk's time and the bound;
+16. the (B, N, H, D) kernels against their plain versions: K8 (and its
+    training forward with LSE) and K9 at the ViT-L/16 encoder's shape
+    (B = 12 images, N = 2845 tokens, H = 16, D = 64) and at ragged N = 1,
+    77, 130 with the trailing keys masked; K6 and the window route's K4/K5
+    at every window-48 shape of the LiDAR config (random padding keys, one
+    all-padding window). Outputs within 0.05, LSE within 1e-3, gradients
+    within 0.05 · max(1, max |plain|) and exactly 0 in the all-padding
+    window; besides, every output within 2% of its max |plain|, and dq, dk,
+    dv within 2% of their largest |plain| value (``REL_TOL``); each timed
+    beside SDPA (its backward for K5/K9) and the bound;
+17. ``main_infer`` over the fusion config with ``image_encoder:
+    dinov3_large`` (ViT-L/16, a temporary copy): exactly 46 K1 launches per
+    batch (24 ViT layers + 22 PTv3 blocks) and no other kernel over its 6
+    test batches (2 scenes, 12 images at 640 x 1138 each), finite metrics;
+    one batch timed end to end with its peak memory;
+18. the same encoder, weights and images with ``packed_head_groups=False``:
+    exactly 24 K8 launches and no K1 per encode, its patch tokens within
+    1% of the largest token of the K1 route's, and K8 inside the encode as
+    K1 in 4 (device time, then the plain version, SDPA and the bound on
+    each call's own inputs; each call within 0.05 and within 2% of its max
+    |plain|);
+19. the gradient of a fixed random projection of that encoder's patch
+    tokens with respect to every parameter, one sample of 6 images:
+    exactly 24 K8 and 24 K9 launches; card kernels vs the plain versions on
+    the card, per-parameter cosine ≥ 0.98; K9 inside the backward (two
+    device kernels per call) as K8 in 18, within 0.05 · max(1, max |plain|)
+    and within 2% of the call's largest |plain| gradient value;
+20. ``main_infer`` over the LiDAR-only config at window 48 (a temporary
+    copy, voxel capacity 726 x 48): exactly 22 K6 launches per batch and no
+    other kernel, finite metrics; one batch timed end to end with K6 inside
+    it as K8 in 18; one train step: exactly 22 K4 and 22 K5, a finite loss.
 
 The last two lines are a JSON record of the kernels and the device line.
 Every kernel record has ``launches`` (from its path's run), ``max_abs_err``
@@ -83,8 +117,10 @@ f32) and ``library_ms`` (the PyTorch call named in ``library``). K1's
 numbers are per inference batch (step 4, 6 batches; ``parity`` holds its
 time per parity batch, step 15); K2–K5's per train step (step 9; launches
 from the one-epoch run of step 8); K7's per parity batch (step 15;
-launches from step 14's main_infer run). Every ``ms`` is device time from
-the profiler.
+launches from step 14's main_infer run); K6's per window-48 batch (step
+20), K8's per ViT-L encode (step 18) and K9's per ViT-L backward (step
+19), with the bound and SDPA's time summed over that run's own calls.
+Every ``ms`` is device time from the profiler.
 Needs the repository checkout around it; JAX is never imported.
 """
 
@@ -115,6 +151,22 @@ BF16_FLOPS, F32_FLOPS, HBM_BYTES = 989e12, 67e12, 3.35e12
 # per train step: K1 (frozen ViT), K2/K3 (14 blocks at C >= 128), K4/K5
 # (8 blocks at C in {32, 64})
 TRAIN_LAUNCHES = {"K1": 12, "K2": 14, "K3": 14, "K4": 8, "K5": 8}
+# the ViT-L/16 fusion frame: K1 per batch (24 ViT layers + 22 PTv3 blocks),
+# and K8 per encode (24 layers) on the (B, N, H, D) route
+VITL_LAUNCHES, VITL_LAYERS = 24 + 22, 24
+# the LiDAR-only config at PTv3's upstream constructor window of 48: every
+# block on the (W, K, H, D) route, K6 per batch and K4 + K5 per train step
+LIDAR_CONFIG = "configs/synthetic_convergence_lidar.yaml"
+WINDOW, WINDOW_CAPACITY, WINDOW_LAUNCHES = 48, 726 * 48, 22
+# phases 16-20 also hold each compared output to max |kernel - plain| <=
+# REL_TOL * max |plain| (see rel_err): the absolute limits above are as
+# large as a typical value at the ViT-L shape (|out| ~ sqrt(e / N) ~ 0.03
+# for unit-variance scores), and far above the gradients that reach K9 in
+# the ViT-L backward; one bf16 ulp is at most 2**-7 of a value
+REL_TOL = 0.02
+# K8 route vs K1 route patch tokens, max abs error over max |token|: both
+# run the same kernel body on the same bf16 values, q·bf16(1/8) is exact
+VITL_ROUTE_TOL = 0.01
 KERNELS = {  # name, source, the TPU kernel it replaces
     "K1": ("flash_attention_packed", "flash_attention_packed.cu",
            "tpu3dssf/kernels/flash_attention.py:230"),
@@ -126,7 +178,13 @@ KERNELS = {  # name, source, the TPU kernel it replaces
            "tpu3dssf/kernels/window_attention.py:89"),
     "K5": ("window_attention_bwd", "flash_attention_packed_bwd.cu",
            "tpu3dssf/kernels/window_attention.py:155"),
+    "K6": ("window_attention", "flash_attention_packed.cu",
+           "tpu3dssf/kernels/window_attention.py:70"),
     "K7": ("knn", "knn.cu", "tpu3dssf/kernels/knn.py:40"),
+    "K8": ("flash_attention", "flash_attention_packed.cu",
+           "tpu3dssf/kernels/flash_attention.py:51"),
+    "K9": ("flash_attention_bwd", "flash_attention_packed_bwd.cu",
+           "tpu3dssf/kernels/flash_attention.py:126"),
 }
 SOURCES = sorted({source for _, source, _ in KERNELS.values()})
 
@@ -214,7 +272,7 @@ def check_kernel(shapes):
     library call computing the same function) and the bound."""
     import torch
     import torch.nn.functional as F
-    from tpu3dssf_torch.kernels import flash_attention as fa
+    from tpu3dssf_torch.kernels.modules import flash_attention as fa
     from tpu3dssf_torch.utils import cuda_ms
 
     gen = torch.Generator().manual_seed(0)
@@ -262,7 +320,7 @@ def run_slice(card):
     import numpy as np
     import torch
     from tpu3dssf_torch.cli import common, main_infer
-    from tpu3dssf_torch.kernels import flash_attention as fa
+    from tpu3dssf_torch.kernels.modules import flash_attention as fa
     from tpu3dssf_torch.train.loop import make_eval_step
     from tpu3dssf_torch.utils import cuda_ms
 
@@ -323,7 +381,7 @@ def run_slice(card):
 def k1_spec(launches):
     """K1 inside a batch: its launcher, its plain version and its tolerance
     (see :func:`time_kernels_in_path`)."""
-    from tpu3dssf_torch.kernels import flash_attention as fa
+    from tpu3dssf_torch.kernels.modules import flash_attention as fa
     return dict(pattern="fap_fwd_kernel", module=fa, attr="_launch",
                 plain=fa.flash_attention_packed_reference,
                 error=lambda got, want: (got.float() - want.float()).abs()
@@ -357,8 +415,8 @@ def capture_calls(module, attr, frame):
             return x.clone()
         return tuple(map(clone, x)) if isinstance(x, tuple) else x
 
-    def wrapped(*args):
-        out = launch(*args)
+    def wrapped(*args, **kwargs):
+        out = launch(*args, **kwargs)
         calls.append((clone(args), clone(out)))
         return out
 
@@ -371,23 +429,47 @@ def capture_calls(module, attr, frame):
     return calls
 
 
+def profiled_counts(kernels, specs):
+    """{tag: (device ms, device kernels) per batch} of each spec's kernel in
+    a :func:`profile_kernels` table."""
+    out = {}
+    for tag, spec in specs.items():
+        hits = [v for k, v in kernels.items() if spec["pattern"] in k]
+        out[tag] = (sum(us for us, _ in hits) / 1e3, sum(c for _, c in hits))
+    return out
+
+
 def time_kernels_in_path(frame, specs):
     """Kernels inside one batch of a path. From the profiler (3 batches):
     each kernel's device time and launches per batch, which must be exactly
-    its expected count. Then, on the inputs that batch gave it: its error
+    its expected count (the profiler now and then drops a device record, so
+    a short count is profiled once more; a real miscount repeats). Then, on
+    the inputs that batch gave it: its error
     against the plain version, the plain version's time per batch (Σ of
     CUDA-event medians) and, where the spec has them, the library call's
     time and the bound, both summed over the batch's calls.
 
     ``specs``: {tag: dict(pattern (in the kernel's name), module and attr
     (its launcher), plain, error(got, want), ok(error), launches per batch,
-    optional library(*inputs) -> callable and bound(*inputs) -> (ms,
-    by))}. Returns ({tag: row}, the batch's device kernel time in ms)."""
+    optional kernels_per_launch (device kernels per call, default 1),
+    library(*inputs) -> callable, bound(*inputs) -> (ms, by) and relative
+    (also hold each call to :func:`rel_err` <= REL_TOL))}. Returns ({tag:
+    row}, the batch's device kernel time in ms)."""
     import functools
     import torch
     from tpu3dssf_torch.utils import cuda_ms, profile_kernels
 
+    def short(counts):
+        return [tag for tag, (ms, n) in counts.items() if not (
+            ms > 0 and n == specs[tag]["launches"]
+            * specs[tag].get("kernels_per_launch", 1))]
+
     _, kernels, _ = profile_kernels(frame, reps=3)
+    if short(profiled_counts(kernels, specs)):
+        print(f"profiler: counts {profiled_counts(kernels, specs)} off "
+              f"their expected values; profiling once more")
+        _, kernels, _ = profile_kernels(frame, reps=3)
+    counts = profiled_counts(kernels, specs)
     total = sum(us for us, _ in kernels.values()) / 1e3
     print(f"profiler, per batch: device kernel time {total:.3f} ms over "
           f"{sum(c for _, c in kernels.values()):g} kernels")
@@ -396,22 +478,27 @@ def time_kernels_in_path(frame, specs):
         print(f"  {us / 1e3:8.3f} ms {c:6g}x  {name[:100]}")
     rows = {}
     for tag, spec in specs.items():
-        hits = [v for k, v in kernels.items() if spec["pattern"] in k]
-        ms, n = sum(us for us, _ in hits) / 1e3, sum(c for _, c in hits)
-        if not (ms > 0 and n == spec["launches"]):
-            raise AssertionError(f"profiler saw {n:g} {tag} launches and "
-                                 f"{ms} ms per batch, expected "
-                                 f"{spec['launches']} and > 0")
+        ms, n = counts[tag]
+        per = spec.get("kernels_per_launch", 1)
+        if tag in short(counts):
+            raise AssertionError(f"profiler saw {n:g} {tag} device kernels "
+                                 f"and {ms} ms per batch, expected "
+                                 f"{spec['launches']} x {per} and > 0")
         calls = capture_calls(spec["module"], spec["attr"], frame)
         if len(calls) != spec["launches"]:
             raise AssertionError(f"{tag}: {len(calls)} calls in one batch")
-        row = dict(ms=ms, launches=n, plain_ms=0.0, max_abs_err=0.0)
+        row = dict(ms=ms, launches=n / per, plain_ms=0.0, max_abs_err=0.0)
         library, bound = spec.get("library"), spec.get("bound")
         by = set()
         for args, got in calls:
             plain = functools.partial(spec["plain"], *args)
+            want = plain()
             row["max_abs_err"] = max(row["max_abs_err"],
-                                     spec["error"](got, plain()))
+                                     spec["error"](got, want))
+            if spec.get("relative"):
+                row["rel_err"] = max(row.get("rel_err", 0.0),
+                                     rel_err(got, want))
+            del want
             row["plain_ms"] += cuda_ms(plain, reps=5, warmup=1)
             if library:
                 row["library_ms"] = row.get("library_ms", 0.0) + cuda_ms(
@@ -427,9 +514,11 @@ def time_kernels_in_path(frame, specs):
         torch.cuda.empty_cache()
         print(f"{tag} inside the batch, on its own inputs: "
               f"{json.dumps(row)}", flush=True)
-        if not spec["ok"](row["max_abs_err"]):
+        if (not spec["ok"](row["max_abs_err"])
+                or row.get("rel_err", 0.0) > REL_TOL):
             raise AssertionError(f"{tag} on the batch's own inputs: error "
-                                 f"{row['max_abs_err']} against its plain "
+                                 f"{row['max_abs_err']} (relative "
+                                 f"{row.get('rel_err')}) against its plain "
                                  "version")
         rows[tag] = row
     return rows, total
@@ -438,7 +527,7 @@ def time_kernels_in_path(frame, specs):
 def small_model(device, dtype):
     """A small fusion model with seeded weights, on ``device`` in ``dtype``:
     (encode_fn, model, host batch, images). Its PTv3 has stages at C = 32,
-    64 and 128, so it reaches every attention kernel."""
+    64 and 128 at window 128, so it reaches K1–K5."""
     import torch
     from tpu3dssf_torch.cli.common import HostDataPipeline, SyntheticNuScenes
     from tpu3dssf_torch.models import fusion, ptv3, vit
@@ -454,9 +543,9 @@ def small_model(device, dtype):
                                    dtype=dtype),
         ptv3=ptv3.PTv3Config(
             enc_depths=(1, 2, 1), enc_channels=(32, 64, 128),
-            enc_heads=(2, 4, 8), enc_window=(64, 64, 64),
+            enc_heads=(2, 4, 8), enc_window=(128, 128, 128),
             dec_depths=(1, 1), dec_channels=(32, 64), dec_heads=(2, 4),
-            dec_window=(64, 64), dtype=dtype),
+            dec_window=(128, 128), dtype=dtype),
         voxel_size=0.4, voxel_capacity=1024)
     data = SyntheticNuScenes(num_samples=2, num_points=3000,
                              image_hw=(90, 160), seed=3,
@@ -548,7 +637,7 @@ def check_train_kernels(shapes):
     and the bound per call; returns {TPU kernel: [row, ...]}."""
     import torch
     import torch.nn.functional as F
-    from tpu3dssf_torch.kernels import flash_attention as fa
+    from tpu3dssf_torch.kernels.modules import flash_attention as fa
     from tpu3dssf_torch.utils import cuda_ms
 
     gen = torch.Generator().manual_seed(1)
@@ -626,20 +715,22 @@ def check_train_kernels(shapes):
 
 
 def counters():
-    from tpu3dssf_torch.kernels import flash_attention as fa
-    from tpu3dssf_torch.kernels import knn
-    from tpu3dssf_torch.kernels import window_attention as wa
+    from tpu3dssf_torch.kernels.modules import flash_attention as fa
+    from tpu3dssf_torch.kernels.modules import window_attention as wa
+    from tpu3dssf_torch.kernels.modules import knn
     return {"K1": fa.LAUNCHES, "K2": fa.LSE_LAUNCHES, "K3": fa.BWD_LAUNCHES,
-            "K4": wa.LSE_LAUNCHES, "K5": wa.BWD_LAUNCHES,
-            "K7": knn.LAUNCHES}
+            "K4": wa.LSE_LAUNCHES, "K5": wa.BWD_LAUNCHES, "K6": wa.LAUNCHES,
+            "K7": knn.LAUNCHES, "K8": fa.FLASH_LAUNCHES,
+            "K9": fa.FLASH_BWD_LAUNCHES}
 
 
 def reset_counters():
-    from tpu3dssf_torch.kernels import flash_attention as fa
-    from tpu3dssf_torch.kernels import knn
-    from tpu3dssf_torch.kernels import window_attention as wa
+    from tpu3dssf_torch.kernels.modules import flash_attention as fa
+    from tpu3dssf_torch.kernels.modules import knn
+    from tpu3dssf_torch.kernels.modules import window_attention as wa
     fa.LAUNCHES = fa.LSE_LAUNCHES = fa.BWD_LAUNCHES = 0
-    wa.LSE_LAUNCHES = wa.BWD_LAUNCHES = 0
+    fa.FLASH_LAUNCHES = fa.FLASH_BWD_LAUNCHES = 0
+    wa.LAUNCHES = wa.LSE_LAUNCHES = wa.BWD_LAUNCHES = 0
     knn.LAUNCHES = 0
 
 
@@ -682,9 +773,8 @@ def run_training(tmp):
         launches = counters()
     finally:
         loop.evaluate_model = evaluate
-    want = {k: n * steps for k, n in TRAIN_LAUNCHES.items()}
+    want = {k: TRAIN_LAUNCHES.get(k, 0) * steps for k in launches}
     want["K1"] += LAUNCHES_PER_BATCH * val_batches
-    want["K7"] = 0                  # the fusion config's modes use no k-NN
     print(f"training: {steps} steps + {val_batches} val batches in "
           f"{seconds:.1f} s; launches {launches} (expected {want}); val "
           f"pass K1 {val_k1}")
@@ -727,7 +817,7 @@ class Capture:
     128 == 0: K2/K3, else K4/K5)."""
 
     def __init__(self, record):
-        from tpu3dssf_torch.kernels import flash_attention as fa
+        from tpu3dssf_torch.kernels.modules import flash_attention as fa
         self.fa, self.record = fa, record
         self.calls = {k: [] for k in ("K2", "K3", "K4", "K5")}
         self.lse, self.bwd = fa._launch_lse, fa._launch_bwd
@@ -770,7 +860,7 @@ def time_train_step(card):
     the step's own inputs)."""
     import torch
     from tpu3dssf_torch.cli import common
-    from tpu3dssf_torch.kernels import flash_attention as fa
+    from tpu3dssf_torch.kernels.modules import flash_attention as fa
     from tpu3dssf_torch.train.loop import make_train_step
     from tpu3dssf_torch.utils import cuda_ms, profile_kernels
 
@@ -1045,16 +1135,19 @@ def check_knn(card):
     return rows
 
 
-def parity_config(tmp):
-    """A copy of the parity config with its checkpoints under ``tmp`` (the
-    stock one points at the committed TPU record)."""
+def config_copy(src, tmp, name, train=None, tpu=None):
+    """A copy of config ``src`` under ``tmp`` with its checkpoints there too
+    (the stock ones point at committed TPU records), ``train`` and ``tpu``
+    updating its train_params and tpu_params. Returns (path, ckpt dir)."""
     import yaml
-    with open(PARITY_CONFIG) as f:
+    with open(src) as f:
         raw = yaml.safe_load(f)
     ckpt = os.path.join(tmp, "ckpt")
-    raw["train_params"].update(checkpoint_path=ckpt, best_model_path=ckpt)
+    raw["train_params"].update(checkpoint_path=ckpt, best_model_path=ckpt,
+                               **(train or {}))
     raw["test_params"]["checkpoint_path"] = ckpt
-    path = os.path.join(tmp, "parity.yaml")
+    raw["tpu_params"].update(tpu or {})
+    path = os.path.join(tmp, name)
     with open(path, "w") as f:
         yaml.safe_dump(raw, f)
     return path, ckpt
@@ -1069,7 +1162,7 @@ def run_parity_clis(tmp):
     import numpy as np
     from tpu3dssf_torch.cli import common, main_infer, main_sample, main_test
 
-    path, ckpt = parity_config(tmp)
+    path, ckpt = config_copy(PARITY_CONFIG, tmp, "parity.yaml")
     n_test = len(common.build_dataloaders(common.load_config(path))["test"])
     runs = {}
     for name, cli, argv, n in (
@@ -1111,7 +1204,7 @@ def time_parity_batch(card, tmp):
     from tpu3dssf_torch.train.loop import make_eval_step
     from tpu3dssf_torch.utils import cuda_ms
 
-    path, _ = parity_config(tmp)
+    path, _ = config_copy(PARITY_CONFIG, tmp, "parity.yaml")
     cfg = common.load_config(path)
     device = torch.device("cuda")
     model, _ = common.build_pipeline(cfg, None, device)
@@ -1140,6 +1233,519 @@ def time_parity_batch(card, tmp):
     return inside, dict(frame_ms=frame_ms, points=points,
                         points_per_s=points / frame_ms * 1e3,
                         peak_bytes=peak, device_kernel_ms=total)
+
+
+def sdpa_views(q, k, v, bias, grad=False):
+    """(leaves, (q, k, v) as (B, H, N, D) views, attn_mask) for
+    ``scaled_dot_product_attention`` from (B, N, H, D) tensors: detached
+    copies that require grad when ``grad``; the additive bias in the
+    inputs' dtype where it masks a key, else None."""
+    leaves = [x.detach().requires_grad_(grad) for x in (q, k, v)]
+    mask = bias[:, None].to(q.dtype) if bool((bias != 0).any()) else None
+    return leaves, [x.transpose(1, 2) for x in leaves], mask
+
+
+def flash_library(q, k, v, bias, q_scale, *_):
+    """The library call of one forward call (K6, K8): SDPA on its inputs."""
+    import torch.nn.functional as F
+    _, (qt, kt, vt), mask = sdpa_views(q, k, v, bias)
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  scale=q_scale)
+
+
+def flash_bwd_library(q, k, v, bias, dout, lse, delta, q_scale, *_):
+    """The library call of one backward call (K5, K9): the autograd
+    backward of SDPA's forward on its inputs (run once, not timed)."""
+    import torch
+    import torch.nn.functional as F
+    leaves, (qt, kt, vt), mask = sdpa_views(q, k, v, bias, grad=True)
+    out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                         scale=q_scale)
+    g = dout.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
+
+
+def flash_bound(kind):
+    """:func:`attention_bound` of one (B, N, H, D) call from its inputs."""
+    def bound_of(q, *_):
+        B, N, H, D = q.shape
+        return attention_bound(B, N, H * D, H, kind)
+    return bound_of
+
+
+def mha_plain(q, k, v, bias, *_):
+    """The plain version of K6 and K8 on a forward call's inputs."""
+    from tpu3dssf_torch.kernels.modules import flash_attention as fa
+    return fa.mha_reference(q, k, v, bias)
+
+
+def bwd_plain(q, k, v, bias, dout, lse, delta, q_scale, *_):
+    """The plain version of K5 and K9 on a backward call's inputs."""
+    from tpu3dssf_torch.kernels.modules import flash_attention as fa
+    return fa.flash_attention_bwd_reference(q, k, v, bias, dout, lse, delta,
+                                            q_scale)
+
+
+def max_err(got, want):
+    return (got.float() - want.float()).abs().max().item()
+
+
+def peak(x):
+    return x.float().abs().max().item()
+
+
+def rel_err(got, want):
+    """max |got - want| / max |want| (0 where both are 0). For the tuple
+    (dq, dk, dv) both maxima run over all three: dq and dk alone can be 0
+    up to rounding (at N = 1 they are), so they have no scale of their
+    own."""
+    if isinstance(want, (tuple, list)):
+        err = max(max_err(a, b) for a, b in zip(got, want))
+        top = max(peak(b) for b in want)
+    else:
+        err, top = max_err(got, want), peak(want)
+    return err / top if top else (0.0 if err == 0.0 else float("inf"))
+
+
+def grads_err(got, want):
+    """Max abs error over (dq, dk, dv); inf when one of them is not within
+    0.05 · max(1, max |plain|)."""
+    errs = [grad_error(a, b) for a, b in zip(got, want)]
+    return (max(e for e, _ in errs) if all(e < lim for e, lim in errs)
+            else float("inf"))
+
+
+def check_flash_shape(gen, name, B, N, H, D, keys, n, window):
+    """One shape of phase 16. ``keys``: "all" live, "trailing" (the last 5
+    keys masked) or "windows" (30% padding keys, an all-padding last
+    window). ``window``: the (W, K, H, D) route (K6 forward, K4 with its
+    LSE, K5) instead of K8 (its training forward with LSE) and K9. Each
+    output and each of dq, dk, dv is held to the absolute limits and to
+    :func:`rel_err` <= REL_TOL. Returns {kernel: row} with each call's
+    error, max |plain|, time, plain and library time and bound."""
+    import torch
+    import torch.nn.functional as F
+    from tpu3dssf_torch.utils import cuda_ms
+    from tpu3dssf_torch.kernels.modules import flash_attention as fa
+    from tpu3dssf_torch.kernels.modules import window_attention as wa
+
+    qkv = torch.randn(B, N, 3 * H * D, generator=gen).to("cuda",
+                                                         torch.bfloat16)
+    q, k, v = qkv.unflatten(-1, (3, H, D)).unbind(2)
+    keep = torch.ones(B, N, dtype=torch.bool)
+    if keys == "trailing":
+        keep[:, -5:] = N <= 5
+    elif keys == "windows":
+        keep = torch.rand(B, N, generator=gen) > 0.3
+        keep[-1] = False
+    keep = keep.to("cuda")
+    bias = wa.key_bias(keep)
+    scale = D ** -0.5
+    # the window routes zero masked query rows and their gradient; K8 has
+    # no query mask
+    qmask = (keep if window else torch.ones_like(keep))[..., None, None]
+    dout = torch.randn(B, N, H, D, generator=gen).to("cuda")
+    dout = (dout * qmask).to(torch.bfloat16)
+    common = dict(shape=name, B=B, N=N, H=H, D=D, calls_per_path=n)
+    fwd, lse_tag, bwd = ("K6", "K4", "K5") if window else ("K8", None, "K9")
+    rows = {}
+
+    if window:
+        got, want = (wa.window_attention(q, k, v, keep),
+                     wa.window_attention_reference(q, k, v, keep))
+    else:
+        got, want = (fa.flash_attention(q, k, v, bias),
+                     fa.mha_reference(q, k, v, bias))
+    torch.cuda.synchronize()
+    _, (qt, kt, vt), mask = sdpa_views(q, k, v, bias)
+    rows[fwd] = dict(common, max_abs_err=max_err(got, want),
+                     rel_err=rel_err(got, want), max_abs_plain=peak(want),
+                     ms=cuda_ms(lambda: fa._launch_flash(q, k, v, bias,
+                                                         scale)),
+                     plain_ms=cuda_ms(lambda: mha_plain(q, k, v, bias),
+                                      reps=5, warmup=1),
+                     library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                         qt, kt, vt, attn_mask=mask, scale=scale)))
+    rows[fwd]["bound_ms"], rows[fwd]["bound_by"] = attention_bound(
+        B, N, H * D, H, "fwd")
+    finite = bool(torch.isfinite(got.float()).all())
+
+    out, lse = fa._launch_flash(q, k, v, bias, scale, with_lse=True)
+    torch.cuda.synchronize()
+    ref, ref_lse = fa.flash_attention_lse_reference(q, k, v, bias, scale)
+    live = keep.any(-1)
+    lse_err = (lse - ref_lse)[live].abs().max().item()
+    lse_row = dict(common, max_abs_err=max_err(out, ref),
+                   rel_err=rel_err(out, ref), max_abs_plain=peak(ref),
+                   lse_err=lse_err)
+    if lse_tag:
+        lse_row["ms"] = cuda_ms(lambda: fa._launch_flash(
+            q, k, v, bias, scale, with_lse=True))
+        lse_row["plain_ms"] = cuda_ms(
+            lambda: fa.flash_attention_lse_reference(q, k, v, bias, scale),
+            reps=5, warmup=1)
+        leaves, (ql, kl, vl), _ = sdpa_views(q, k, v, bias, grad=True)
+        lse_row["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+            ql, kl, vl, attn_mask=mask, scale=scale))
+        lse_row["bound_ms"], lse_row["bound_by"] = attention_bound(
+            B, N, H * D, H, "lse")
+        rows[lse_tag] = lse_row
+        del leaves, ql, kl, vl
+    else:   # K8's training forward: held to the same tolerances
+        rows[fwd]["lse_forward"] = lse_row
+
+    out = out * qmask.to(out.dtype)
+    delta = fa.row_delta(dout, out)
+    grads = fa._launch_flash_bwd(q, k, v, bias, dout, lse, delta, scale)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_bwd_reference(q, k, v, bias, dout, lse, delta,
+                                            scale)
+    errs = [grad_error(a, b) for a, b in zip(grads, want)]
+    padded = (max(g[-1].abs().max().item() for g in grads) if window
+              else 0.0)
+    rows[bwd] = dict(common, max_abs_err=max(e for e, _ in errs),
+                     limit=min(lim for _, lim in errs),
+                     rel_err=rel_err(grads, want),
+                     max_abs_plain=[peak(x) for x in want],
+                     all_padding_max=padded,
+                     ms=cuda_ms(lambda: fa._launch_flash_bwd(
+                         q, k, v, bias, dout, lse, delta, scale)),
+                     plain_ms=cuda_ms(lambda: bwd_plain(
+                         q, k, v, bias, dout, lse, delta, scale),
+                         reps=5, warmup=1),
+                     library_ms=cuda_ms(flash_bwd_library(
+                         q, k, v, bias, dout, lse, delta, scale)))
+    rows[bwd]["bound_ms"], rows[bwd]["bound_by"] = attention_bound(
+        B, N, H * D, H, "bwd")
+    for tag, row in rows.items():
+        print(f"kernel {tag} " + json.dumps(row), flush=True)
+    checks = {fwd: (rows[fwd]["max_abs_err"] < KERNEL_TOL and finite
+                    and rows[fwd]["rel_err"] <= REL_TOL),
+              "forward with LSE": (lse_row["max_abs_err"] < KERNEL_TOL
+                                   and lse_row["rel_err"] <= REL_TOL),
+              "LSE": lse_err < LSE_TOL,
+              bwd: (all(e < lim for e, lim in errs)
+                    and rows[bwd]["rel_err"] <= REL_TOL),
+              "all-padding window": padded == 0.0}
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"{name}: {bad} out of tolerance: "
+                             f"{json.dumps(rows)}")
+    del qkv, q, k, v, dout, got, want, out, lse, grads, qt, kt, vt
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_flash_kernels(window_shapes):
+    """Phase 16: K8 and K9 at the ViT-L encoder's shape (B = 12 images,
+    N = 2845 tokens, H = 16, D = 64) and at ragged N (1, 77, 130) with the
+    trailing keys masked; K6 and the window route's K4/K5 at every
+    attention shape of the window-48 LiDAR config (``window_shapes``, from
+    :func:`slice_attention_shapes`; random padding keys, one all-padding
+    window). Returns {kernel: [row, ...]}."""
+    import torch
+    gen = torch.Generator().manual_seed(2)
+    rows = {k: [] for k in ("K4", "K5", "K6", "K8", "K9")}
+    cases = [("vitl", 12, 2845, 16, 64, "all", VITL_LAYERS, False)]
+    cases += [(f"ragged_n{n}", 2, n, 16, 64, "trailing", 0, False)
+              for n in (1, 77, 130)]
+    cases += [(name, W, K, H, C // H, "windows", n, True)
+              for name, W, K, C, H, _, _, n in window_shapes]
+    for name, B, N, H, D, keys, n, window in cases:
+        for tag, row in check_flash_shape(gen, name, B, N, H, D, keys, n,
+                                          window).items():
+            rows[tag].append(row)
+    return rows
+
+
+def vitl_encoder(cfg, device):
+    """The ViT-L encoder exactly as ``common.build_image_encoder`` builds it
+    (seed 0, LayerScale folded), with the module kept: (vit, vit_cfg,
+    encode)."""
+    import dataclasses
+    from tpu3dssf_torch.cli import common
+    from tpu3dssf_torch.models.layers import init_weights
+    from tpu3dssf_torch.models.vit import (VisionTransformer, dinov3_large,
+                                           fold_layerscale)
+    from tpu3dssf_torch.train.loop import make_image_encode_fn
+
+    vit_cfg = dataclasses.replace(dinov3_large(),
+                                  dtype=common.compute_dtype(cfg))
+    vit = init_weights(VisionTransformer(vit_cfg), 0)
+    vit = fold_layerscale(vit).to(device).eval()
+    return vit, vit_cfg, make_image_encode_fn(vit, vit_cfg.image_size,
+                                              vit_cfg.dtype)
+
+
+def set_vit_route(vit, packed_head_groups):
+    """Switch every block of ``vit`` between the packed (K1) and the
+    (B, N, H, D) (K8) route; the weights stay."""
+    import dataclasses
+    cfg = dataclasses.replace(vit.config,
+                              packed_head_groups=packed_head_groups)
+    vit.config = cfg
+    for blk in vit.blocks:
+        blk.cfg = cfg
+
+
+def first_batch(cfg, split, device):
+    """The first ``split`` batch of ``cfg`` on ``device``: (batch, images on
+    the device or None, valid points)."""
+    import torch
+    from tpu3dssf_torch.cli import common
+    batches = iter(common.build_dataloaders(cfg)[split])
+    host = next(batches)
+    batches.close()  # stop the prefetch thread: it would share the host
+    points = int(host["point_valid"].sum())
+    images = host.pop("images", None)
+    if images is not None and cfg.image_encoder != "none":
+        images = torch.as_tensor(images).to(device)
+    else:
+        images = None
+    return common.batch_to_device(host, device), images, points
+
+
+def run_vitl_frame(card, tmp):
+    """Phase 17: ``main_infer`` over the fusion config with the ViT-L/16
+    encoder (its 6 test batches of 2 scenes, 12 images at 640 x 1138), with
+    exactly 46 K1 launches per batch (24 ViT layers + 22 PTv3 blocks) and no
+    other kernel; then one batch timed end to end with its peak memory.
+    Returns (K1 launches, frame record, (vit, vit_cfg, encode, images))."""
+    import numpy as np
+    import torch
+    from tpu3dssf_torch.cli import common, main_infer
+    from tpu3dssf_torch.train.loop import make_eval_step
+    from tpu3dssf_torch.utils import cuda_ms
+
+    path, _ = config_copy(CONFIG, tmp, "vitl.yaml",
+                          train=dict(image_encoder="dinov3_large"))
+    cfg = common.load_config(path)
+    n = len(common.build_dataloaders(cfg)["test"])
+    reset_counters()
+    t0 = time.perf_counter()
+    metrics = main_infer.main(["--config", path, "--split", "test"])
+    seconds = time.perf_counter() - t0
+    launches = counters()
+    want = {k: VITL_LAUNCHES * n if k == "K1" else 0 for k in launches}
+    bad = {k: v for k, v in metrics.items() if not np.isfinite(v).all()}
+    print(f"ViT-L main_infer: {n} batches in {seconds:.1f} s, launches "
+          f"{launches} (expected {want})")
+    if launches != want or bad:
+        raise AssertionError(f"ViT-L main_infer: launches {launches} "
+                             f"(expected {want}), non-finite {bad}")
+
+    device = torch.device("cuda")
+    vit, vit_cfg, encode = vitl_encoder(cfg, device)
+    model, _ = common.build_pipeline(cfg, vit_cfg, device)
+    step = make_eval_step(common.build_loss(cfg), cfg.mlp_class)
+    batch, images, points = first_batch(cfg, "test", device)
+
+    def frame():
+        return step(model, batch, encode(images))
+
+    torch.cuda.reset_peak_memory_stats()
+    frame_ms = cuda_ms(frame, reps=10, warmup=2)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"ViT-L frame ({batch['points'].shape[0]} scenes, "
+          f"{images.shape[0] * images.shape[1]} images, {points:,} valid "
+          f"points): {frame_ms:.3f} ms -> {points / frame_ms * 1e3:,.0f} "
+          f"points/s; peak allocated {peak / 2**30:.3f} GiB [{card}]")
+    del model
+    torch.cuda.empty_cache()
+    return launches["K1"], dict(
+        frame_ms=frame_ms, points=points, points_per_s=points / frame_ms * 1e3,
+        peak_bytes=peak, batches=n, main_infer_s=seconds), (
+        vit, vit_cfg, encode, images)
+
+
+def run_vitl_k8(vit, encode, images):
+    """Phase 18: the same encoder, weights and images on the (B, N, H, D)
+    route (``packed_head_groups=False``): exactly 24 K8 launches and no K1
+    in the encode, its patch tokens against the K1 route's (max abs error
+    over max |token| < VITL_ROUTE_TOL), and K8 inside the encode (device
+    time from the profiler; on its own inputs the plain version's time, its
+    error, SDPA's time and the bound). Returns (launches, row, route
+    agreement)."""
+    import torch
+    from tpu3dssf_torch.kernels.modules import flash_attention as fa
+
+    set_vit_route(vit, True)
+    reset_counters()
+    packed = encode(images)
+    k1 = counters()
+    set_vit_route(vit, False)
+    reset_counters()
+    tokens = encode(images)
+    torch.cuda.synchronize()
+    launches = counters()
+    want = {k: VITL_LAYERS if k == "K8" else 0 for k in launches}
+    err = (tokens.float() - packed.float()).abs().max().item()
+    scale = packed.float().abs().max().item()
+    agree = dict(max_abs_err=err, max_abs_token=scale, rel_err=err / scale)
+    print(f"ViT-L on the K8 route: launches {launches} (K1 route: {k1}); "
+          f"tokens vs the K1 route {json.dumps(agree)}")
+    if (launches != want or k1["K1"] != VITL_LAYERS
+            or not torch.isfinite(tokens.float()).all()
+            or not err / scale < VITL_ROUTE_TOL):
+        raise AssertionError(f"ViT-L K8 route: launches {launches}, tokens "
+                             f"{agree}")
+    del packed, tokens
+    inside, _ = time_kernels_in_path(lambda: encode(images), {"K8": dict(
+        pattern="fap_fwd_kernel", module=fa, attr="_launch_flash",
+        plain=mha_plain, error=max_err, ok=lambda e: e < KERNEL_TOL,
+        relative=True, launches=VITL_LAYERS, library=flash_library,
+        bound=flash_bound("fwd"))})
+    return launches["K8"], inside["K8"], agree
+
+
+def run_vitl_grad(vit, vit_cfg, images):
+    """Phase 19: the gradient, with respect to every ViT-L parameter, of a
+    fixed random projection of its patch tokens on the K8 route, for one
+    sample of 6 images at full width: exactly 24 K8 and 24 K9 launches; the
+    card's kernels against the plain versions on the card (per-parameter
+    cosine ≥ GRAD_COSINE); K9 inside the backward (device time, and on
+    each call's own inputs the plain version's error and time, SDPA's
+    backward and the bound). Returns (launches, K9 row, cosines)."""
+    import torch
+    import torch.nn.functional as F
+    from tpu3dssf_torch.models.vit import preprocess_images
+    from tpu3dssf_torch.kernels.modules import flash_attention as fa
+
+    set_vit_route(vit, False)
+    with torch.no_grad():
+        x = preprocess_images(images[:1], vit_cfg.image_size,
+                              dtype=vit_cfg.dtype).flatten(0, 1)
+    names, params = zip(*vit.named_parameters())
+    gen = torch.Generator().manual_seed(3)
+    proj = torch.randn((x.shape[0], vit_cfg.num_patches,
+                        vit_cfg.hidden_size), generator=gen).to("cuda")
+
+    def grads():
+        with torch.enable_grad():
+            tokens = vit(x)["patch_features"]
+            return torch.autograd.grad((tokens.float() * proj).sum(), params)
+
+    reset_counters()
+    got = grads()
+    torch.cuda.synchronize()
+    launches = counters()
+    want = {k: VITL_LAYERS if k in ("K8", "K9") else 0 for k in launches}
+
+    def plain_fwd(q, k, v, bias, scale, with_lse=False, name=None):
+        out, lse = fa.flash_attention_lse_reference(q, k, v, bias, scale)
+        return (out, lse) if with_lse else out
+
+    def plain_bwd(q, k, v, bias, dout, lse, delta, scale, out=None,
+                  name=None):
+        return bwd_plain(q, k, v, bias, dout, lse, delta, scale)
+
+    kernels = fa._launch_flash, fa._launch_flash_bwd
+    fa._launch_flash, fa._launch_flash_bwd = plain_fwd, plain_bwd
+    try:
+        ref = grads()
+        torch.cuda.synchronize()
+    finally:
+        fa._launch_flash, fa._launch_flash_bwd = kernels
+    cos = {n: F.cosine_similarity(a.flatten().double(), b.flatten().double(),
+                                  dim=0, eps=1e-30).item()
+           for n, a, b in zip(names, got, ref)}
+    low = min(cos, key=cos.get)
+    whole = F.cosine_similarity(torch.cat([a.flatten() for a in got]),
+                                torch.cat([b.flatten() for b in ref]),
+                                dim=0).item()
+    finite = all(bool(torch.isfinite(a).all()) for a in got)
+    summary = dict(min_cosine=cos[low], min_cosine_param=low,
+                   whole_cosine=whole, params=len(cos))
+    print(f"ViT-L gradient on the K8/K9 route: launches {launches} "
+          f"(expected {want}); card kernels vs plain versions on the card "
+          f"{json.dumps(summary)}")
+    if launches != want or not finite or cos[low] < GRAD_COSINE:
+        raise AssertionError(f"ViT-L gradient: launches {launches}, finite "
+                             f"{finite}, {summary}")
+    del got, ref
+    torch.cuda.empty_cache()
+    inside, _ = time_kernels_in_path(grads, {"K9": dict(
+        pattern="fap_bwd_", kernels_per_launch=2, module=fa,
+        attr="_launch_flash_bwd", plain=bwd_plain, error=grads_err,
+        ok=lambda e: e < float("inf"), relative=True, launches=VITL_LAYERS,
+        library=flash_bwd_library, bound=flash_bound("bwd"))})
+    set_vit_route(vit, True)
+    return launches, inside["K9"], summary
+
+
+def run_window_path(card, tmp):
+    """Phase 20: the LiDAR-only config at window 48 (voxel capacity 726 x
+    48) through ``main_infer``'s own entry point: exactly 22 K6 launches per
+    batch and no other kernel, finite metrics; one batch timed end to end
+    with K6 inside it as K8 in 18; one train step (``make_train_step``):
+    exactly 22 K4 and 22 K5 launches, a finite loss. Returns (K6 launches,
+    K6 row, batch record, step launches)."""
+    import numpy as np
+    import torch
+    from tpu3dssf_torch.cli import common, main_infer
+    from tpu3dssf_torch.train.loop import make_eval_step, make_train_step
+    from tpu3dssf_torch.utils import cuda_ms
+    from tpu3dssf_torch.kernels.modules import flash_attention as fa
+
+    path, _ = config_copy(LIDAR_CONFIG, tmp, "window48.yaml", tpu=dict(
+        window_size=WINDOW, voxel_capacity=WINDOW_CAPACITY))
+    cfg = common.load_config(path)
+    n = len(common.build_dataloaders(cfg)["test"])
+    reset_counters()
+    t0 = time.perf_counter()
+    metrics = main_infer.main(["--config", path, "--split", "test"])
+    seconds = time.perf_counter() - t0
+    launches = counters()
+    want = {k: WINDOW_LAUNCHES * n if k == "K6" else 0 for k in launches}
+    bad = {k: v for k, v in metrics.items() if not np.isfinite(v).all()}
+    print(f"window-48 main_infer: {n} batches in {seconds:.1f} s, launches "
+          f"{launches} (expected {want}), overall acc "
+          f"{float(metrics['overall_acc']):.4f}")
+    if launches != want or bad:
+        raise AssertionError(f"window-48 main_infer: launches {launches} "
+                             f"(expected {want}), non-finite {bad}")
+
+    device = torch.device("cuda")
+    model, _ = common.build_pipeline(cfg, None, device)
+    step = make_eval_step(common.build_loss(cfg), cfg.mlp_class)
+    batch, _, points = first_batch(cfg, "test", device)
+    tokens = common.zero_tokens(cfg, None, batch["points"].shape[0], device)
+
+    def frame():
+        return step(model, batch, tokens)
+
+    torch.cuda.reset_peak_memory_stats()
+    frame_ms = cuda_ms(frame, reps=10, warmup=2)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"window-48 batch ({batch['points'].shape[0]} scenes, {points:,} "
+          f"valid points): {frame_ms:.3f} ms -> "
+          f"{points / frame_ms * 1e3:,.0f} points/s; peak allocated "
+          f"{peak / 2**30:.3f} GiB [{card}]")
+    inside, total = time_kernels_in_path(frame, {"K6": dict(
+        pattern="fap_fwd_kernel", module=fa, attr="_launch_flash",
+        plain=mha_plain, error=max_err, ok=lambda e: e < KERNEL_TOL,
+        relative=True, launches=WINDOW_LAUNCHES, library=flash_library,
+        bound=flash_bound("fwd"))})
+
+    state = common.init_state(cfg, model, steps_per_epoch=1)
+    train_step = make_train_step(common.build_loss(cfg))
+    batch, _, _ = first_batch(cfg, "train", device)
+    tokens = common.zero_tokens(cfg, None, batch["points"].shape[0], device)
+    reset_counters()
+    loss = float(train_step(state, batch, tokens)["loss"])
+    torch.cuda.synchronize()
+    step_launches = counters()
+    want = {k: WINDOW_LAUNCHES if k in ("K4", "K5") else 0
+            for k in step_launches}
+    print(f"window-48 train step: loss {loss:.4f}, launches {step_launches} "
+          f"(expected {want})")
+    if step_launches != want or not np.isfinite(loss):
+        raise AssertionError(f"window-48 train step: loss {loss}, launches "
+                             f"{step_launches} (expected {want})")
+    return launches["K6"], inside["K6"], dict(
+        frame_ms=frame_ms, points=points, points_per_s=points / frame_ms * 1e3,
+        peak_bytes=peak, device_kernel_ms=total, batches=n,
+        main_infer_s=seconds, train_step_loss=loss), step_launches
 
 
 def per_path(rows, key, count):
@@ -1201,6 +1807,23 @@ def main():
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    tmp = tempfile.mkdtemp(prefix="tpu3dssf_smoke_")
+    try:
+        window_cfg = load_config(config_copy(
+            LIDAR_CONFIG, tmp, "w48.yaml", tpu=dict(
+                window_size=WINDOW, voxel_capacity=WINDOW_CAPACITY))[0])
+        flash_rows = check_flash_kernels(slice_attention_shapes(window_cfg))
+        vitl_k1, vitl_frame, (vit, vit_cfg, encode, images) = \
+            run_vitl_frame(card, tmp)
+        k8_launches, k8, route = run_vitl_k8(vit, encode, images)
+        grad_launches, k9, grad = run_vitl_grad(vit, vit_cfg, images)
+        del vit, encode, images
+        torch.cuda.empty_cache()
+        k6_launches, k6, window_frame, step_launches = run_window_path(card,
+                                                                       tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
     records = [{
         "name": KERNELS["K1"][0], "route": "cuda",
         "source": "tpu3dssf_torch/csrc/" + KERNELS["K1"][1],
@@ -1218,6 +1841,7 @@ def main():
         "library": "scaled_dot_product_attention",
         "per": "inference batch", "train_launches": train_launches["K1"],
         "parity_launches": parity["main_infer"][0]["K1"],
+        "vitl_launches": vitl_k1,
         # per parity batch, likewise
         "parity": dict(
             ms=in_parity["K1"]["ms"], plain_ms=in_parity["K1"]["plain_ms"],
@@ -1227,12 +1851,14 @@ def main():
     }]
     for k in ("K2", "K3", "K4", "K5"):
         name, source, replaces = KERNELS[k]
-        records.append({
+        record = {
             "name": name, "route": "cuda",
             "source": "tpu3dssf_torch/csrc/" + source, "replaces": replaces,
             "launches": train_launches[k],
             "max_abs_err": max([inside[k]["max_abs_err"]]
-                               + [r["max_abs_err"] for r in train_rows[k]]),
+                               + [r["max_abs_err"] for r in train_rows[k]]
+                               + [r["max_abs_err"] for r in
+                                  flash_rows.get(k, [])]),
             # per train step, on that step's own inputs; bound and library
             # call summed over the step's calls at the isolated shapes
             "ms": inside[k]["ms"], "plain_ms": inside[k]["plain_ms"],
@@ -1247,7 +1873,15 @@ def main():
                         + (" backward" if k in ("K3", "K5") else
                            " (gradient pending)")),
             "per": f"train step ({steps} steps in the run)",
-        })
+        }
+        if k in ("K4", "K5"):
+            # the (W, K, H, D) route: launches per window-48 train step, and
+            # the isolated calls (phase 16) summed over that step's calls
+            record["window_route"] = dict(
+                launches=step_launches[k],
+                **{key: per_path(flash_rows[k], key, "calls_per_path")
+                   for key in ("ms", "plain_ms", "bound_ms", "library_ms")})
+        records.append(record)
     name, source, replaces = KERNELS["K7"]
     k7 = in_parity["K7"]
     records.append({
@@ -1264,7 +1898,33 @@ def main():
         "cdist_topk_ms": k7["library_ms"], "per": "parity batch",
         "parity_launches": {n: (c["K7"], b) for n, (c, b) in parity.items()},
     })
+    for k, launches_k, row, library, per in (
+            ("K6", k6_launches, k6, "scaled_dot_product_attention",
+             "window-48 LiDAR batch"),
+            ("K8", k8_launches, k8, "scaled_dot_product_attention",
+             "ViT-L encode (12 images)"),
+            ("K9", grad_launches["K9"], k9,
+             "scaled_dot_product_attention backward",
+             "ViT-L backward (6 images)")):
+        name, source, replaces = KERNELS[k]
+        # per path run, on that run's own inputs; bound and library call
+        # summed over the run's calls
+        records.append({
+            "name": name, "route": "cuda",
+            "source": "tpu3dssf_torch/csrc/" + source, "replaces": replaces,
+            "launches": launches_k,
+            "max_abs_err": max([row["max_abs_err"]]
+                               + [r["max_abs_err"] for r in flash_rows[k]]),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"], "library": library, "per": per,
+        })
+    records.sort(key=lambda r: next(k for k, v in KERNELS.items()
+                                    if v[2] == r["replaces"]))
     print("slice " + json.dumps(dict(frame, card=card)))
+    print("vitl_frame " + json.dumps(dict(vitl_frame, card=card,
+                                          k8_route=route, gradient=grad)))
+    print("window48_batch " + json.dumps(dict(window_frame, card=card)))
     print("train_step " + json.dumps(dict(step, card=card)))
     print("parity_batch " + json.dumps(dict(parity_frame, card=card)))
     print(json.dumps({"kernels": records}))

@@ -26,11 +26,12 @@ from jax.experimental.pallas import tpu as pltpu
 from tests.test_torch_convert import t
 from tpu3dssf.serialization.partition import (
     permutation_gather as jax_permutation_gather)
-from tpu3dssf_torch.kernels import flash_attention as fa
-from tpu3dssf_torch.kernels import window_attention as wa
 from tpu3dssf_torch.serialization import permutation_gather
 
-# the modules (tpu3dssf.kernels re-exports functions of the same names)
+# the modules (tpu3dssf_torch.kernels and tpu3dssf.kernels re-export
+# functions of the same names)
+from tpu3dssf_torch.kernels.modules import flash_attention as fa
+from tpu3dssf_torch.kernels.modules import window_attention as wa
 jfa = importlib.import_module("tpu3dssf.kernels.flash_attention")
 jwa = importlib.import_module("tpu3dssf.kernels.window_attention")
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -148,21 +149,30 @@ def _graph(fn, seen=None):
     return {type(f).__name__ for f in seen}
 
 
-@pytest.mark.parametrize("C,H,rule,other", [
-    (32, 2, "WindowAttentionPacked", "FlashAttentionPacked"),
-    (128, 8, "FlashAttentionPacked", "WindowAttentionPacked")])
-def test_serialized_attention_takes_the_jax_route(rng, C, H, rule, other):
-    """C % 128 == 0 → the packed rule, else the window rule; without a
-    gradient both give the same output from the inference forward."""
+RULES = ("FlashAttentionPacked", "WindowAttentionPacked", "FlashAttention")
+
+
+@pytest.mark.parametrize("C,H,window,rule", [
+    (32, 2, 128, "WindowAttentionPacked"),
+    (128, 8, 128, "FlashAttentionPacked"),
+    (32, 2, 16, "FlashAttention"),         # K % 128 != 0
+    (128, 16, 128, "FlashAttention")])     # no 128-aligned head group
+def test_serialized_attention_takes_the_jax_route(rng, C, H, window, rule):
+    """At a window K % 128 == 0: C % 128 == 0 → the packed rule, else the
+    packed window rule; any other K, or more than 8 heads without a
+    128-aligned head group → the (W, K, H, D) rule (FlashAttention with a
+    query mask). Without a gradient each gives the same output from its
+    inference forward."""
     from tpu3dssf_torch.models.layers import init_weights
     from tpu3dssf_torch.models.ptv3 import SerializedAttention
 
-    attn = init_weights(SerializedAttention(C, H, 16), 0)
-    x = t(rng.normal(size=(2, 32, C)).astype(np.float32))
-    mask = t(rng.random((2, 32)) > 0.2)
+    N = max(window, 32)
+    attn = init_weights(SerializedAttention(C, H, window), 0)
+    x = t(rng.normal(size=(2, N, C)).astype(np.float32))
+    mask = t(rng.random((2, N)) > 0.2)
     y = attn(x, None, None, mask)
     names = _graph(y.grad_fn)
-    assert rule + "Backward" in names and other + "Backward" not in names
+    assert {r for r in RULES if r + "Backward" in names} == {rule}
     with torch.no_grad():
         np.testing.assert_allclose(y.detach().numpy(),
                                    attn(x, None, None, mask).numpy(), **TOL)

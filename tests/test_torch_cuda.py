@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (attention K1–K5, k-NN K7), a train step and the
-timers on the card (marked ``cuda``).
+"""The port's CUDA kernels (attention K1–K6, K8, K9, k-NN K7), a train step
+and the timers on the card (marked ``cuda``).
 
 These tests need an NVIDIA GPU and nvcc; without a card each skips with
 its reason. Run them on the card without the JAX test configuration:
@@ -19,10 +19,12 @@ order, no fused multiply-add on either side).
 import pytest
 import torch
 
-from tpu3dssf_torch.kernels import flash_attention as fa
 from tpu3dssf_torch.kernels import knn
-from tpu3dssf_torch.kernels import window_attention as wa
 from tpu3dssf_torch.kernels import window_attention_packed
+
+# the modules (the package re-exports functions of the same names)
+from tpu3dssf_torch.kernels.modules import flash_attention as fa
+from tpu3dssf_torch.kernels.modules import window_attention as wa
 
 pytestmark = pytest.mark.cuda
 TOL = 0.05
@@ -158,8 +160,8 @@ def test_training_rules_launch_their_kernels(cuda):
     assert [a - b for a, b in zip(after, counts)] == [0, 1, 1, 1, 1]
     assert torch.isfinite(x.grad.float()).all()
     assert y.grad[~mask].abs().max().item() == 0.0   # masked slots
-    with pytest.raises(ValueError, match="head dim"):   # D = 64: no bwd
-        z = qkv[..., :384].contiguous().requires_grad_()
+    with pytest.raises(ValueError, match="head dim"):   # D = 32: none
+        z = qkv[..., :192].contiguous().requires_grad_()
         fa.flash_attention_packed(z, bias, 2, 0.125).sum().backward()
 
 
@@ -179,8 +181,8 @@ def test_small_model_train_step_on_the_card(cuda):
                                    dtype=bf16),
         ptv3=ptv3.PTv3Config(
             enc_depths=(1, 1), enc_channels=(32, 128), enc_heads=(2, 8),
-            enc_window=(64, 64), dec_depths=(1,), dec_channels=(32,),
-            dec_heads=(2,), dec_window=(64,), dtype=bf16),
+            enc_window=(128, 128), dec_depths=(1,), dec_channels=(32,),
+            dec_heads=(2,), dec_window=(128,), dtype=bf16),
         voxel_size=0.4, voxel_capacity=1024)
     data = SyntheticNuScenes(num_samples=2, num_points=3000,
                              image_hw=(90, 160), seed=3)
@@ -203,6 +205,118 @@ def test_small_model_train_step_on_the_card(cuda):
     assert torch.isfinite(m["loss"]).item()
     for p in state.model.parameters():
         assert torch.isfinite(p).all()
+
+
+def _bhnd_inputs(cuda, B, N, H, D, seed=0):
+    """q, k, v as (B, N, H, D) views of one bf16 (B, N, 3C) buffer (the
+    strides the models hand the kernels), a bias masking the last 5 keys
+    (JAX's test_attention.py bias) and an upstream gradient."""
+    gen = torch.Generator().manual_seed(seed)
+    qkv = torch.randn(B, N, 3 * H * D, generator=gen).to(cuda, torch.bfloat16)
+    q, k, v = qkv.unflatten(-1, (3, H, D)).unbind(2)
+    bias = torch.zeros(B, 1, N)
+    if N > 5:
+        bias[:, :, -5:] = -1e9
+    dout = torch.randn(B, N, H, D, generator=gen).to(cuda, torch.bfloat16)
+    return q, k, v, bias.to(cuda), dout
+
+
+def _grads_close(got, want):
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and torch.isfinite(a.float()).all()
+        err = (a.float() - b.float()).abs().max().item()
+        assert err < TOL * max(1.0, b.float().abs().max().item())
+
+
+# ragged N and the ViT-L encoder's shape (D = 64, 16 heads), and D = 16
+FLASH_SHAPES = [(2, 1, 16, 64), (2, 77, 16, 64), (2, 130, 16, 64),
+                (1, 2845, 16, 64), (3, 130, 4, 16), (2, 77, 2, 16)]
+
+
+@pytest.mark.parametrize("B,N,H,D", FLASH_SHAPES)
+def test_flash_kernels_match_their_plain_versions(cuda, B, N, H, D):
+    """K8 (and its training forward with LSE) and K9 vs their plain
+    versions on the same bf16 inputs."""
+    q, k, v, bias, dout = _bhnd_inputs(cuda, B, N, H, D)
+    before = fa.FLASH_LAUNCHES
+    out = fa.flash_attention(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert fa.FLASH_LAUNCHES == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == (B, N, H, D)
+    ref = fa.mha_reference(q, k, v, bias)
+    assert (out.float() - ref.float()).abs().max().item() < TOL
+    scale = D ** -0.5
+    out, lse = fa._launch_flash(q, k, v, bias, scale, with_lse=True)
+    ref, ref_lse = fa.flash_attention_lse_reference(q, k, v, bias, scale)
+    assert (out.float() - ref.float()).abs().max().item() < TOL
+    assert (lse - ref_lse).abs().max().item() < 1e-3
+    delta = fa.row_delta(dout, out)
+    got = fa._launch_flash_bwd(q, k, v, bias, dout, lse, delta, scale)
+    torch.cuda.synchronize()
+    _grads_close(got, fa.flash_attention_bwd_reference(
+        q, k, v, bias, dout, lse, delta, scale))
+
+
+@pytest.mark.parametrize("W,K,H", [(64, 48, 2), (12, 48, 32), (5, 77, 4)])
+def test_window_route_matches_its_plain_versions(cuda, W, K, H):
+    """K6, and the K4/K5 rule through autograd, on (W, K, H, D) views with
+    random padding keys and an all-padding last window: outputs vs
+    ``window_attention_reference``, gradients vs its autograd in f32,
+    exactly 0 in the all-padding window."""
+    q, k, v, _, dout = _bhnd_inputs(cuda, W, K, H, 16)
+    gen = torch.Generator().manual_seed(2)
+    mask = torch.rand(W, K, generator=gen) > 0.3
+    mask[-1] = False
+    mask = mask.to(cuda)
+    counts = (wa.LAUNCHES, wa.LSE_LAUNCHES, wa.BWD_LAUNCHES)
+    out = wa.window_attention(q, k, v, mask)
+    ref = wa.window_attention_reference(q, k, v, mask)
+    assert (out.float() - ref.float()).abs().max().item() < TOL
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    wa.window_attention(*leaves, mask).backward(dout)
+    torch.cuda.synchronize()
+    assert (wa.LAUNCHES, wa.LSE_LAUNCHES, wa.BWD_LAUNCHES) == tuple(
+        c + 1 for c in counts)
+    f32 = [x.detach().float().requires_grad_() for x in (q, k, v)]
+    wa.window_attention_reference(*f32, mask).backward(dout.float())
+    _grads_close([x.grad for x in leaves], [x.grad for x in f32])
+    assert max(x.grad[-1].abs().max().item() for x in leaves) == 0.0
+
+
+def test_flash_attention_rule_launches_k8_and_k9(cuda):
+    """The training rule of ``flash_attention``: one K8 (with LSE) forward
+    and one K9 backward; gradients vs autograd of ``mha_reference`` in
+    f32."""
+    q, k, v, bias, dout = _bhnd_inputs(cuda, 2, 300, 16, 64)
+    counts = (fa.FLASH_LAUNCHES, fa.FLASH_BWD_LAUNCHES, fa.LAUNCHES)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    fa.flash_attention(*leaves, bias).backward(dout)
+    torch.cuda.synchronize()
+    assert (fa.FLASH_LAUNCHES, fa.FLASH_BWD_LAUNCHES, fa.LAUNCHES) == (
+        counts[0] + 1, counts[1] + 1, counts[2])
+    f32 = [x.detach().float().requires_grad_() for x in (q, k, v)]
+    fa.mha_reference(*f32, bias).backward(dout.float())
+    _grads_close([x.grad for x in leaves], [x.grad for x in f32])
+
+
+def test_flash_kernels_refuse_what_they_do_not_take(cuda):
+    q, k, v, bias, dout = _bhnd_inputs(cuda, 1, 64, 2, 32)     # D = 32
+    with pytest.raises(ValueError, match="head dim"):
+        fa._launch_flash(q, k, v, bias, 0.2)
+    q, k, v, bias, dout = _bhnd_inputs(cuda, 1, 64, 2, 16)
+    with pytest.raises(ValueError, match="no kernel"):
+        fa._launch_flash(q.cpu(), k.cpu(), v.cpu(), bias.cpu(), 0.25)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fa._launch_flash(q.float(), k.float(), v.float(), bias, 0.25)
+    strided = torch.zeros(1, 64, 2, 32, device=cuda,
+                          dtype=torch.bfloat16)[..., ::2]   # D stride 2
+    with pytest.raises(ValueError, match="contiguous"):
+        fa._launch_flash(strided, k, v, bias, 0.25)
+    lse = torch.zeros(1, 2, 64, device=cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fa._launch_flash_bwd(q, k, v, bias, dout.float(), lse, lse, 0.25)
+    with pytest.raises(ValueError, match="lse"):
+        fa._launch_flash_bwd(q, k, v, bias, dout, lse[:, :1], lse, 0.25)
 
 
 def _knn_inputs(cuda, B, Q, R, masked=0.2, seed=0):

@@ -23,9 +23,9 @@ from tpu3dssf.kernels.flash_attention import (flash_attention_packed as
 from tpu3dssf.kernels.window_attention import (
     window_attention_packed as jax_window_attention_packed,
     window_attention_reference as jax_window_attention_reference)
-from tpu3dssf_torch.kernels import flash_attention as fa
 from tpu3dssf_torch.kernels import (window_attention_packed,
                                     window_attention_reference)
+from tpu3dssf_torch.kernels.modules import flash_attention as fa
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
@@ -118,5 +118,9 @@ def test_cpu_tensor_takes_plain_version_without_launching(rng):
 def test_cuda_wrapper_checks_fail_loudly():
     # the checks the CUDA path applies before any build or launch
     meta = torch.empty(1, 8, 96, device="meta")
+    bias = torch.empty(1, 1, 8, device="meta")
     with pytest.raises(ValueError, match="no kernel for device"):
-        fa._check(meta, torch.empty(1, 1, 8, device="meta"), 2)
+        fa._launch(meta, bias, 2, None)
+    q, k, v = meta.unflatten(-1, (3, 2, 16)).unbind(2)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        fa._launch_flash(q, k, v, bias, 0.25)

@@ -204,7 +204,7 @@ def test_cli_runs_the_lidar_parity_model_on_cpu(tmp_path, capsys, cli):
     import importlib
 
     from tpu3dssf_torch.cli import common
-    from tpu3dssf_torch.kernels import flash_attention as fa
+    from tpu3dssf_torch.kernels.modules import flash_attention as fa
 
     path = _tiny_lidar_config(tmp_path)
     ckpt = tmp_path / "ckpt"

@@ -244,7 +244,7 @@ def _tiny_config(tmp_path):
 
 def test_main_infer_runs_end_to_end_on_cpu(tmp_path, capsys):
     from tpu3dssf_torch.cli.main_infer import main
-    from tpu3dssf_torch.kernels import flash_attention as fa
+    from tpu3dssf_torch.kernels.modules import flash_attention as fa
 
     before = fa.LAUNCHES
     out = main(["--config", _tiny_config(tmp_path), "--device", "cpu"])
@@ -267,7 +267,10 @@ def test_main_infer_refuses_to_fall_back_to_cpu(tmp_path):
 
 def test_port_imports_no_jax():
     """Every module of the port imports without JAX and without the JAX
-    package ``tpu3dssf``: the port keeps its own copies of the host code."""
+    package ``tpu3dssf``: the port keeps its own copies of the host code.
+    ``tpu3dssf_torch.kernels`` exports the functions ``tpu3dssf.kernels``
+    exports, and ``tpu3dssf_torch.kernels.modules`` reaches the modules
+    those names shadow."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import tpu3dssf_torch\n"
@@ -285,8 +288,18 @@ def test_port_imports_no_jax():
         " 'tpu3dssf_torch.data.class_weights', 'tpu3dssf_torch.utils.logging',"
         " 'tpu3dssf_torch.utils.viz', 'tpu3dssf_torch.kernels.knn',"
         " 'tpu3dssf_torch.models.lidar_only', 'tpu3dssf_torch.cli.main_test',"
-        " 'tpu3dssf_torch.cli.main_sample'}\n"
+        " 'tpu3dssf_torch.cli.main_sample',"
+        " 'tpu3dssf_torch.kernels.flash_attention',"
+        " 'tpu3dssf_torch.kernels.window_attention',"
+        " 'tpu3dssf_torch.kernels.modules'}\n"
         "assert new <= set(sys.modules), new - set(sys.modules)\n"
+        "import tpu3dssf_torch.kernels as k\n"
+        "names = ('flash_attention', 'mha_reference', 'window_attention')\n"
+        "assert all(n in k.__all__ and callable(getattr(k, n))"
+        " for n in names), k.__all__\n"
+        "from tpu3dssf_torch.kernels import modules\n"
+        "assert all(getattr(modules, n).__name__ == 'tpu3dssf_torch.kernels.'"
+        " + n for n in modules.__all__), modules.__all__\n"
         "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

@@ -417,8 +417,8 @@ def test_train_model_epochs_checkpoints_and_profiler_trace(tmp_path, rng):
 def test_main_train_runs_and_resumes_on_cpu(tmp_path, capsys):
     import yaml
     from tpu3dssf_torch.cli.main_train import main
-    from tpu3dssf_torch.kernels import flash_attention as fa
-    from tpu3dssf_torch.kernels import window_attention as wa
+    from tpu3dssf_torch.kernels.modules import flash_attention as fa
+    from tpu3dssf_torch.kernels.modules import window_attention as wa
 
     cfg_path = _tiny_config(tmp_path)
     cfg = yaml.safe_load(open(cfg_path))

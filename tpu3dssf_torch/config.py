@@ -68,11 +68,9 @@ class TPUParams:
     # checkpoints either direction with scripts/convert_checkpoint.py
     # (exact — identical logits, tests/test_convert.py).
     scan_blocks: bool = False
-    # ViT encode as per-layer dispatches (models/vit.py
-    # make_looped_encode) instead of one jitted program — required for
-    # ViT-L on environments whose AOT compiler rejects the 24-layer
-    # program (PERF.md "ViT-L"). "auto": looped iff image_encoder is
-    # dinov3_large on a TPU backend.
+    # The JAX package's per-layer ViT dispatch (a TPU compile workaround
+    # for ViT-L). Parsed and validated for schema parity; the port runs
+    # its ViT eagerly and this field has no effect.
     vit_looped: str = "auto"           # "auto" | "on" | "off"
     compute_dtype: str = "bfloat16"    # model compute dtype
     # split each optimizer step's batch into this many sequential

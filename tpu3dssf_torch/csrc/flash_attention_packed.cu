@@ -1,31 +1,41 @@
-// Packed-layout flash attention forward for Hopper (sm_90a), bf16 in/out.
+// Strided flash attention forward for Hopper (sm_90a), bf16 in/out.
 //
-// Replaces the TPU kernel tpu3dssf/kernels/flash_attention.py::_packed_kernel:
-// its with_lse=False forward (K1, fap_forward_bf16) and, with the kLse flag,
-// its with_lse=True training forward (K2, fap_forward_lse_bf16), which is
-// also the port of window_attention.py::_attn_kernel_lse (K4): the two TPU
-// kernels compute the same function and differ only in Mosaic block rules.
+// One kernel replaces four TPU kernels that compute the same function and
+// differ only in layout and Mosaic block rules:
+//   * tpu3dssf/kernels/flash_attention.py::_packed_kernel, its
+//     with_lse=False forward (K1) and, with the kLse flag, its with_lse=True
+//     training forward (K2);
+//   * tpu3dssf/kernels/window_attention.py::_attn_kernel_lse (K4, kLse) and
+//     ::_attn_kernel (K6), the (W, K, H, D) window kernels;
+//   * tpu3dssf/kernels/flash_attention.py::_flash_kernel (K8), the
+//     (B, H, N, D) kernel of the ViT's many-head route, and (kLse) the
+//     forward of its training rule.
 // Computes, for every (batch row b, head h):
 //
-//     out[b, :, hD:(h+1)D] = softmax(q_s k^T + bias[b]) v
+//     out[b, :, h, :] = softmax(q_s k^T + bias[b]) v
 //
-// with q, k, v read straight from the packed qkv projection (B, N, 3C):
-// q at channels [hD, hD+D), k at [C+hD, ...), v at [2C+hD, ...), row stride
-// 3C. q is scaled by q_scale in bf16 (1.0 when the caller pre-scaled), the
-// additive key bias (B, 1, N) is f32, and the output is normalised after the
-// PV product by max(denominator, 1e-20), as the TPU kernel does.
+// q, k, v and out are separate pointers, each with its own (batch, token,
+// head) strides in elements and the D channels of a head contiguous. The
+// packed projection (B, N, 3C) is one stride set (q at channel h*D of a row
+// of 3C, k at C + h*D, v at 2C + h*D: token stride 3C, head stride D), and
+// (B, N, H, D) tensors, or q/k/v views of one (W, K, 3C) buffer, are others,
+// so no layout is repacked before the kernel. q is scaled by q_scale in bf16
+// (1.0 when the caller pre-scaled), the additive key bias (B, 1, N) is f32,
+// and the output is normalised after the PV product by max(denominator,
+// 1e-20), as the TPU kernels do.
 //
 // Design. One CTA of four warps per (64-row query tile, head, batch row);
 // each warp owns 16 query rows. The CTA walks the keys in tiles of 64 with an
 // online softmax (running max, running sum, f32 output accumulator in
-// registers), so no score block ever leaves the SM: the TPU kernel instead
+// registers), so no score block ever leaves the SM: the TPU kernels instead
 // kept all N keys of a head resident in VMEM, which at N = 2845, D = 64 is
 // more than the 227 KB of shared memory a block may use. Both products run
 // on the tensor cores as mma.sync m16n8k16 bf16 with f32 accumulation; the
 // S accumulator fragment is re-packed in registers as the A operand of the
 // PV product, so probabilities never touch shared memory. Ragged edges are
 // masked in the kernel (keys past N score -inf, query rows past N are not
-// stored), so N need not be a multiple of any tile.
+// stored), so N need not be a multiple of any tile: a 48-slot PTv3 window
+// is one CTA per (window, head) with 16 idle rows and keys.
 //
 // With kLse the kernel also writes the per-(b, h, query row) log-sum-exp in
 // natural-log units, lse[b, h, n] = m + log(max(l, 1e-20)) as f32 (B, H, N),
@@ -55,6 +65,19 @@ constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr float kLog2e = 1.4426950408889634f;
 
+// Pointers and (batch, token, head) strides in elements of one launch.
+struct FwdArgs {
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
+  const float* bias;   // (B, 1, N)
+  __nv_bfloat16* out;
+  float* lse;          // (B, H, N), written only with kLse
+  int64_t q_s[3], k_s[3], v_s[3], o_s[3];
+  int N;
+  float q_scale;
+};
+
 __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
                                           uint32_t b0, uint32_t b1) {
   asm volatile(
@@ -74,11 +97,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 template <int D, bool kLse>
-__global__ void __launch_bounds__(kThreads)
-    fap_fwd_kernel(const __nv_bfloat16* __restrict__ qkv,
-                   const float* __restrict__ bias,
-                   __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-                   int N, int C, float q_scale) {
+__global__ void __launch_bounds__(kThreads) fap_fwd_kernel(const FwdArgs a) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
   constexpr int kStride = D + 8;          // Q/K smem row stride (elements)
   constexpr int kVtStride = kBlockK + 8;  // V^T smem row stride (elements)
@@ -96,18 +115,20 @@ __global__ void __launch_bounds__(kThreads)
   const int q0 = blockIdx.x * kBlockQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int64_t row_stride = 3LL * C;
-  const __nv_bfloat16* base = qkv + (int64_t)b * N * row_stride + h * D;
-  const float* bias_b = bias + (int64_t)b * N;
+  const int N = a.N;
+  const __nv_bfloat16* qb = a.q + b * a.q_s[0] + h * a.q_s[2];
+  const __nv_bfloat16* kb = a.k + b * a.k_s[0] + h * a.k_s[2];
+  const __nv_bfloat16* vb = a.v + b * a.v_s[0] + h * a.v_s[2];
+  const float* bias_b = a.bias + (int64_t)b * N;
 
-  // Q tile; q * q_scale rounded to bf16, the TPU kernel's q * bf16(scale)
-  const float qs = __bfloat162float(__float2bfloat16(q_scale));
+  // Q tile; q * q_scale rounded to bf16, the TPU kernels' q * bf16(scale)
+  const float qs = __bfloat162float(__float2bfloat16(a.q_scale));
   for (int c = tid; c < kBlockQ * kChunks; c += kThreads) {
     const int r = c / kChunks;
     const int col = (c % kChunks) * 8;
     const int n = q0 + r;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (n < N) v = *reinterpret_cast<const uint4*>(base + n * row_stride + col);
+    if (n < N) v = *reinterpret_cast<const uint4*>(qb + n * a.q_s[1] + col);
     if (qs != 1.0f) {
       __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&v);
 #pragma unroll
@@ -146,9 +167,8 @@ __global__ void __launch_bounds__(kThreads)
       uint4 kv = make_uint4(0u, 0u, 0u, 0u);
       uint4 vv = make_uint4(0u, 0u, 0u, 0u);
       if (n < N) {
-        const __nv_bfloat16* p = base + n * row_stride + col;
-        kv = *reinterpret_cast<const uint4*>(p + C);
-        vv = *reinterpret_cast<const uint4*>(p + 2 * C);
+        kv = *reinterpret_cast<const uint4*>(kb + n * a.k_s[1] + col);
+        vv = *reinterpret_cast<const uint4*>(vb + n * a.v_s[1] + col);
       }
       *reinterpret_cast<uint4*>(&sK[r * kStride + col]) = kv;
       const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
@@ -241,69 +261,72 @@ __global__ void __launch_bounds__(kThreads)
   const float d0 = fmaxf(l0, 1e-20f);
   const float d1 = fmaxf(l1, 1e-20f);
 
-  const int64_t r0 = q0 + qr + g;
-  const int64_t r1 = r0 + 8;
-  __nv_bfloat16* ob = out + (int64_t)b * N * C + h * D;
+  const int r0 = q0 + qr + g;
+  const int r1 = r0 + 8;
+  __nv_bfloat16* ob = a.out + b * a.o_s[0] + h * a.o_s[2];
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
     const int col = n * 8 + 2 * t;
     if (r0 < N)
-      *reinterpret_cast<uint32_t*>(ob + r0 * C + col) =
+      *reinterpret_cast<uint32_t*>(ob + r0 * a.o_s[1] + col) =
           pack_bf16(acc[n][0] / d0, acc[n][1] / d0);
     if (r1 < N)
-      *reinterpret_cast<uint32_t*>(ob + r1 * C + col) =
+      *reinterpret_cast<uint32_t*>(ob + r1 * a.o_s[1] + col) =
           pack_bf16(acc[n][2] / d1, acc[n][3] / d1);
   }
   if constexpr (kLse) {
     // a row whose every score was -inf (only with -inf biases) gets +inf,
     // so the backward's exp(s - lse) is 0 there and not NaN
-    float* lb = lse + ((int64_t)b * gridDim.y + h) * N;
+    float* lb = a.lse + ((int64_t)b * gridDim.y + h) * N;
     if (t == 0 && r0 < N) lb[r0] = m0 == -INFINITY ? INFINITY : m0 + logf(d0);
     if (t == 0 && r1 < N) lb[r1] = m1 == -INFINITY ? INFINITY : m1 + logf(d1);
   }
 }
 
 template <bool kLse>
-int launch_fwd(const void* qkv, const void* bias, void* out, void* lse, int B,
-               int N, int C, int H, float q_scale, void* stream) {
-  if (B <= 0 || N <= 0 || H <= 0 || C % H != 0) return (int)cudaErrorInvalidValue;
-  const int D = C / H;
-  const dim3 grid((N + kBlockQ - 1) / kBlockQ, H, B);
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const auto* q = static_cast<const __nv_bfloat16*>(qkv);
-  const auto* bs = static_cast<const float*>(bias);
-  auto* o = static_cast<__nv_bfloat16*>(out);
-  auto* l = static_cast<float*>(lse);
-  switch (D) {
-    case 16:
-      fap_fwd_kernel<16, kLse><<<grid, kThreads, 0, s>>>(q, bs, o, l, N, C,
-                                                         q_scale);
-      break;
-    case 64:
-      fap_fwd_kernel<64, kLse><<<grid, kThreads, 0, s>>>(q, bs, o, l, N, C,
-                                                         q_scale);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+void launch(const FwdArgs& a, int B, int H, int D, cudaStream_t s) {
+  const dim3 grid((a.N + kBlockQ - 1) / kBlockQ, H, B);
+  if (D == 16)
+    fap_fwd_kernel<16, kLse><<<grid, kThreads, 0, s>>>(a);
+  else
+    fap_fwd_kernel<64, kLse><<<grid, kThreads, 0, s>>>(a);
 }
 
 }  // namespace
 
-// C entry points (bound with ctypes). qkv (B, N, 3C) bf16, bias (B, 1, N)
-// f32, out (B, N, C) bf16, lse (B, H, N) f32, all contiguous and 16-byte
-// aligned. Each returns the cudaError_t of the launch; cudaErrorInvalidValue
-// for an unsupported head dimension D = C / H (16 and 64 are built).
-extern "C" int fap_forward_bf16(const void* qkv, const void* bias, void* out,
-                                int B, int N, int C, int H, float q_scale,
-                                void* stream) {
-  return launch_fwd<false>(qkv, bias, out, nullptr, B, N, C, H, q_scale,
-                           stream);
-}
-
-extern "C" int fap_forward_lse_bf16(const void* qkv, const void* bias,
-                                    void* out, void* lse, int B, int N, int C,
-                                    int H, float q_scale, void* stream) {
-  return launch_fwd<true>(qkv, bias, out, lse, B, N, C, H, q_scale, stream);
+// C entry point (bound with ctypes). q, k, v and out are (B, N, H, D) bf16
+// views given by their data pointers and `strides`, 12 int64 in elements:
+// the (batch, token, head) strides of q, k, v, out in that order, each a
+// multiple of 8, with every pointer 16-byte aligned and the D channels of a
+// head contiguous. bias (B, 1, N) f32 contiguous. lse (B, H, N) f32
+// contiguous, or null for the forward without LSE. Returns the cudaError_t
+// of the launch; cudaErrorInvalidValue for an unsupported head dimension
+// (16 and 64 are built) or empty shape.
+extern "C" int fa_forward_bf16(const void* q, const void* k, const void* v,
+                               const void* bias, void* out, void* lse,
+                               const long long* strides, int B, int N, int H,
+                               int D, float q_scale, void* stream) {
+  if (B <= 0 || N <= 0 || H <= 0 || (D != 16 && D != 64))
+    return (int)cudaErrorInvalidValue;
+  FwdArgs a;
+  a.q = static_cast<const __nv_bfloat16*>(q);
+  a.k = static_cast<const __nv_bfloat16*>(k);
+  a.v = static_cast<const __nv_bfloat16*>(v);
+  a.bias = static_cast<const float*>(bias);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.lse = static_cast<float*>(lse);
+  for (int i = 0; i < 3; ++i) {
+    a.q_s[i] = strides[i];
+    a.k_s[i] = strides[3 + i];
+    a.v_s[i] = strides[6 + i];
+    a.o_s[i] = strides[9 + i];
+  }
+  a.N = N;
+  a.q_scale = q_scale;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (lse != nullptr)
+    launch<true>(a, B, H, D, s);
+  else
+    launch<false>(a, B, H, D, s);
+  return (int)cudaGetLastError();
 }

@@ -1,11 +1,18 @@
-// Packed-layout flash attention backward for Hopper (sm_90a), bf16 in/out.
+// Strided flash attention backward for Hopper (sm_90a), bf16 in/out.
 //
-// Replaces the TPU kernel tpu3dssf/kernels/flash_attention.py::
-// _packed_bwd_kernel with use_stats=True (K3, the training backward of the
-// PTv3 stages with C % 128 == 0) and window_attention.py::_attn_bwd_kernel
-// (K5, the C = 32/64 stages): the two compute the same function and differ
-// only in Mosaic block rules. For every (batch row b, head h), from the
-// forward's log-sum-exp lse (B, H, N) and delta = rowsum(do * o) (B, H, N),
+// One backward replaces three TPU kernels that compute the same gradient and
+// differ in layout, Mosaic block rules and where their statistics come from:
+//   * tpu3dssf/kernels/flash_attention.py::_packed_bwd_kernel with
+//     use_stats=True (K3, the training backward of the PTv3 stages with
+//     C % 128 == 0);
+//   * tpu3dssf/kernels/window_attention.py::_attn_bwd_kernel (K5, the
+//     (W, K, H, D) window backward);
+//   * tpu3dssf/kernels/flash_attention.py::_flash_bwd_kernel (K9, the
+//     (B, H, N, D) backward of the ViT's many-head route). The TPU kernel
+//     rebuilds p from a full-row max and sum and takes rowsum(dp * p) itself;
+//     here it is fed the forward's LSE and delta = rowsum(do * o) like K3 and
+//     K5, which is the same gradient.
+// For every (batch row b, head h), from lse (B, H, N) and delta (B, H, N),
 // both f32 and computed outside:
 //
 //     q_s = bf16(q * bf16(q_scale))           (the forward's scaled q)
@@ -14,11 +21,12 @@
 //     ds  = p * (dp - delta)
 //     dq  = (ds k) * q_scale                  dk = ds^T q_s
 //
-// with q, k, v read straight from the packed qkv (B, N, 3C) (head h at
-// channel offset h*D of each third), do (B, N, C) bf16, and the result
-// written as one packed dqkv (B, N, 3C) bf16. As in the TPU kernel, p is
-// rounded to bf16 for the dv product and ds for the dq and dk products;
-// every product accumulates in f32.
+// q, k, v, do, dq, dk and dv are separate pointers, each with its own
+// (batch, token, head) strides in elements and a head's D channels
+// contiguous: the packed qkv (B, N, 3C) and its packed gradient are one
+// stride set, (B, N, H, D) tensors another. As in the TPU kernels, p is
+// rounded to bf16 for the dv product and ds for the dq and dk products; every
+// product accumulates in f32.
 //
 // Design. Two passes, no atomics, so the gradients are deterministic:
 //   * fap_bwd_dkdv_kernel: one CTA of four warps per (64-key tile, head,
@@ -34,14 +42,22 @@
 // Both products per tile run on the tensor cores as mma.sync m16n8k16 bf16
 // with f32 accumulation. Operands read as B with the reduction along the
 // tile's rows (do and q_s for dv/dk, k for dq) are stored transposed in
-// shared memory, so every B fragment is two 32-bit loads. Ragged N is masked
-// in the kernels: keys past N get a -inf bias, query rows past N a +inf lse
-// (so p = 0 there), and rows past N are not stored.
+// shared memory, so every B fragment is two 32-bit loads. Each 16-wide slice
+// of a tile's scores is turned into p and ds and consumed by the products
+// before the next slice is computed, so at D = 64 a warp holds only the dk
+// and dv accumulators (64 floats a thread) and two score fragments, not a
+// 16 x 64 block of p and ds beside them. The operands staged only once (K
+// and V in the dk/dv pass, q_s and do in the dq pass) go through the shared
+// buffers of the loop, which keeps D = 64 inside 48 KB of static shared
+// memory. Ragged N is masked in the kernels: keys past N get a -inf bias,
+// query rows past N a +inf lse (so p = 0 there), and rows past N are not
+// stored.
 //
 // What bounds it. At D = 16 every score costs one exp and a few f32 ops on
 // the CUDA cores against 4 x 16 multiply-adds on the tensor cores: like the
 // forward, the kernel is bound by latency and the exp of each score
-// (recomputed once in each pass), not by bytes. wgmma,
+// (recomputed once in each pass), not by bytes. At D = 64 the five products
+// per score block dominate and the bound is the mma.sync issue rate. wgmma,
 // TMA and one fused pass (dq by atomics or a split reduction) are the next
 // steps.
 
@@ -56,6 +72,25 @@ constexpr int kBlock = 64;  // query rows (dq pass) or keys (dk/dv pass) per CTA
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr float kLog2e = 1.4426950408889634f;
+
+enum { kQ, kK, kV, kDo, kDq, kDk, kDv, kTensors };
+
+// Pointers and (batch, token, head) strides in elements of one launch.
+struct BwdArgs {
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
+  const __nv_bfloat16* dout;
+  const float* bias;   // (B, 1, N)
+  const float* lse;    // (B, H, N)
+  const float* delta;  // (B, H, N)
+  __nv_bfloat16* dq;
+  __nv_bfloat16* dk;
+  __nv_bfloat16* dv;
+  int64_t s[kTensors][3];
+  int N;
+  float q_scale;
+};
 
 __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
                                           uint32_t b0, uint32_t b1) {
@@ -73,6 +108,13 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// the (b, h) slice of tensor `i`
+template <typename T>
+__device__ __forceinline__ T* slice(T* base, const BwdArgs& a, int i, int b,
+                                    int h) {
+  return base + b * a.s[i][0] + h * a.s[i][2];
 }
 
 // A fragment (16 rows x 16) of a row-major shared-memory tile
@@ -120,19 +162,10 @@ __device__ __forceinline__ void stage(__nv_bfloat16* tile, __nv_bfloat16* tile_t
 
 // dk and dv for one 64-key tile of one (head, batch row).
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    fap_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ qkv,
-                        const float* __restrict__ bias,
-                        const __nv_bfloat16* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta,
-                        __nv_bfloat16* __restrict__ dqkv, int N, int C,
-                        float q_scale) {
+__global__ void __launch_bounds__(kThreads) fap_bwd_dkdv_kernel(const BwdArgs a) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
   constexpr int kStride = D + 8;
   constexpr int kTStride = kBlock + 8;
-  __shared__ __align__(16) __nv_bfloat16 sK[kBlock * kStride];
-  __shared__ __align__(16) __nv_bfloat16 sV[kBlock * kStride];
   __shared__ __align__(16) __nv_bfloat16 sQ[kBlock * kStride];
   __shared__ __align__(16) __nv_bfloat16 sQt[D * kTStride];
   __shared__ __align__(16) __nv_bfloat16 sDo[kBlock * kStride];
@@ -149,30 +182,33 @@ __global__ void __launch_bounds__(kThreads)
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int H = gridDim.y;
-  const int64_t row_stride = 3LL * C;
-  const __nv_bfloat16* base = qkv + (int64_t)b * N * row_stride + h * D;
-  const __nv_bfloat16* do_base = dout + (int64_t)b * N * C + h * D;
-  const float* lse_bh = lse + ((int64_t)b * H + h) * N;
-  const float* delta_bh = delta + ((int64_t)b * H + h) * N;
-  const float qs = __bfloat162float(__float2bfloat16(q_scale));
+  const int N = a.N;
+  const __nv_bfloat16* qb = slice(a.q, a, kQ, b, h);
+  const __nv_bfloat16* dob = slice(a.dout, a, kDo, b, h);
+  const float* lse_bh = a.lse + ((int64_t)b * H + h) * N;
+  const float* delta_bh = a.delta + ((int64_t)b * H + h) * N;
+  const float qs = __bfloat162float(__float2bfloat16(a.q_scale));
 
-  stage<D, true, false>(sK, nullptr, base + (int64_t)k0 * row_stride + C,
-                        row_stride, N - k0, 1.0f);
-  stage<D, true, false>(sV, nullptr, base + (int64_t)k0 * row_stride + 2 * C,
-                        row_stride, N - k0, 1.0f);
+  // this tile's K and V, staged through the query-side buffers
+  stage<D, true, false>(sQ, nullptr,
+                        slice(a.k, a, kK, b, h) + k0 * a.s[kK][1],
+                        a.s[kK][1], N - k0, 1.0f);
+  stage<D, true, false>(sDo, nullptr,
+                        slice(a.v, a, kV, b, h) + k0 * a.s[kV][1],
+                        a.s[kV][1], N - k0, 1.0f);
   __syncthreads();
 
   const int kr = warp * 16;  // this warp's 16 keys within the tile
   uint32_t kf[D / 16][4], vf[D / 16][4];
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    load_a<kStride>(kf[kk], sK, kr, kk * 16, g, t);
-    load_a<kStride>(vf[kk], sV, kr, kk * 16, g, t);
+    load_a<kStride>(kf[kk], sQ, kr, kk * 16, g, t);
+    load_a<kStride>(vf[kk], sDo, kr, kk * 16, g, t);
   }
   const int key0 = k0 + kr + g;  // keys of accumulator rows g and g + 8
   const int key1 = key0 + 8;
-  const float kb0 = key0 < N ? bias[(int64_t)b * N + key0] : -INFINITY;
-  const float kb1 = key1 < N ? bias[(int64_t)b * N + key1] : -INFINITY;
+  const float kb0 = key0 < N ? a.bias[(int64_t)b * N + key0] : -INFINITY;
+  const float kb1 = key1 < N ? a.bias[(int64_t)b * N + key1] : -INFINITY;
 
   float dk[D / 8][4], dv[D / 8][4];
 #pragma unroll
@@ -181,11 +217,11 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = 0; i < 4; ++i) dk[n][i] = dv[n][i] = 0.0f;
 
   for (int q0 = 0; q0 < N; q0 += kBlock) {
-    __syncthreads();  // every warp is done with the previous query tile
-    stage<D, true, true>(sQ, sQt, base + (int64_t)q0 * row_stride, row_stride,
-                         N - q0, qs);
-    stage<D, true, true>(sDo, sDot, do_base + (int64_t)q0 * C, C, N - q0,
-                         1.0f);
+    __syncthreads();  // every warp is done with the previous tile's buffers
+    stage<D, true, true>(sQ, sQt, qb + q0 * a.s[kQ][1], a.s[kQ][1], N - q0,
+                         qs);
+    stage<D, true, true>(sDo, sDot, dob + q0 * a.s[kDo][1], a.s[kDo][1],
+                         N - q0, 1.0f);
     for (int r = tid; r < kBlock; r += kThreads) {
       const int n = q0 + r;
       sLse[r] = n < N ? lse_bh[n] : INFINITY;
@@ -193,46 +229,44 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
 
-    // p^T and ds^T for this warp's 16 keys x 64 queries
-    float p[kBlock / 8][4], ds[kBlock / 8][4];
-#pragma unroll
-    for (int j = 0; j < kBlock / 8; ++j) {
-      float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      float dp[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const __nv_bfloat16* qp = &sQ[(j * 8 + g) * kStride + kk * 16 + 2 * t];
-        mma_16816(s, kf[kk], ld32(qp), ld32(qp + 8));
-        const __nv_bfloat16* op = &sDo[(j * 8 + g) * kStride + kk * 16 + 2 * t];
-        mma_16816(dp, vf[kk], ld32(op), ld32(op + 8));
-      }
-      const int c0 = j * 8 + 2 * t;  // the query columns of this thread
-      const float l0 = sLse[c0], l1 = sLse[c0 + 1];
-      const float e0 = sDelta[c0], e1 = sDelta[c0 + 1];
-      p[j][0] = exp2f((s[0] + kb0 - l0) * kLog2e);
-      p[j][1] = exp2f((s[1] + kb0 - l1) * kLog2e);
-      p[j][2] = exp2f((s[2] + kb1 - l0) * kLog2e);
-      p[j][3] = exp2f((s[3] + kb1 - l1) * kLog2e);
-      ds[j][0] = p[j][0] * (dp[0] - e0);
-      ds[j][1] = p[j][1] * (dp[1] - e1);
-      ds[j][2] = p[j][2] * (dp[2] - e0);
-      ds[j][3] = p[j][3] * (dp[3] - e1);
-    }
-
-    // dv += p^T do, dk += ds^T q_s: two adjacent n8 fragments form one k16
-    // A operand
+    // 16 queries at a time: p^T and ds^T for this warp's 16 keys, then
+    // dv += p^T do and dk += ds^T q_s (two n8 fragments form one k16 A
+    // operand)
 #pragma unroll
     for (int kk = 0; kk < kBlock / 16; ++kk) {
-      const uint32_t pa[4] = {
-          pack_bf16(p[2 * kk][0], p[2 * kk][1]),
-          pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-          pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-          pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-      const uint32_t da[4] = {
-          pack_bf16(ds[2 * kk][0], ds[2 * kk][1]),
-          pack_bf16(ds[2 * kk][2], ds[2 * kk][3]),
-          pack_bf16(ds[2 * kk + 1][0], ds[2 * kk + 1][1]),
-          pack_bf16(ds[2 * kk + 1][2], ds[2 * kk + 1][3])};
+      float p[2][4], ds[2][4];
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int j = 2 * kk + jj;
+        float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        float dp[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+        for (int dd = 0; dd < D / 16; ++dd) {
+          const __nv_bfloat16* qp = &sQ[(j * 8 + g) * kStride + dd * 16 + 2 * t];
+          mma_16816(s, kf[dd], ld32(qp), ld32(qp + 8));
+          const __nv_bfloat16* op = &sDo[(j * 8 + g) * kStride + dd * 16 + 2 * t];
+          mma_16816(dp, vf[dd], ld32(op), ld32(op + 8));
+        }
+        const int c0 = j * 8 + 2 * t;  // the query columns of this thread
+        const float l0 = sLse[c0], l1 = sLse[c0 + 1];
+        const float e0 = sDelta[c0], e1 = sDelta[c0 + 1];
+        p[jj][0] = exp2f((s[0] + kb0 - l0) * kLog2e);
+        p[jj][1] = exp2f((s[1] + kb0 - l1) * kLog2e);
+        p[jj][2] = exp2f((s[2] + kb1 - l0) * kLog2e);
+        p[jj][3] = exp2f((s[3] + kb1 - l1) * kLog2e);
+        ds[jj][0] = p[jj][0] * (dp[0] - e0);
+        ds[jj][1] = p[jj][1] * (dp[1] - e1);
+        ds[jj][2] = p[jj][2] * (dp[2] - e0);
+        ds[jj][3] = p[jj][3] * (dp[3] - e1);
+      }
+      const uint32_t pa[4] = {pack_bf16(p[0][0], p[0][1]),
+                              pack_bf16(p[0][2], p[0][3]),
+                              pack_bf16(p[1][0], p[1][1]),
+                              pack_bf16(p[1][2], p[1][3])};
+      const uint32_t da[4] = {pack_bf16(ds[0][0], ds[0][1]),
+                              pack_bf16(ds[0][2], ds[0][3]),
+                              pack_bf16(ds[1][0], ds[1][1]),
+                              pack_bf16(ds[1][2], ds[1][3])};
 #pragma unroll
       for (int n = 0; n < D / 8; ++n) {
         const __nv_bfloat16* op = &sDot[(n * 8 + g) * kTStride + kk * 16 + 2 * t];
@@ -243,38 +277,32 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  __nv_bfloat16* ob = dqkv + (int64_t)b * N * row_stride + h * D;
+  __nv_bfloat16* dkb = slice(a.dk, a, kDk, b, h);
+  __nv_bfloat16* dvb = slice(a.dv, a, kDv, b, h);
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
     const int col = n * 8 + 2 * t;
     if (key0 < N) {
-      __nv_bfloat16* r = ob + (int64_t)key0 * row_stride + col;
-      *reinterpret_cast<uint32_t*>(r + C) = pack_bf16(dk[n][0], dk[n][1]);
-      *reinterpret_cast<uint32_t*>(r + 2 * C) = pack_bf16(dv[n][0], dv[n][1]);
+      *reinterpret_cast<uint32_t*>(dkb + key0 * a.s[kDk][1] + col) =
+          pack_bf16(dk[n][0], dk[n][1]);
+      *reinterpret_cast<uint32_t*>(dvb + key0 * a.s[kDv][1] + col) =
+          pack_bf16(dv[n][0], dv[n][1]);
     }
     if (key1 < N) {
-      __nv_bfloat16* r = ob + (int64_t)key1 * row_stride + col;
-      *reinterpret_cast<uint32_t*>(r + C) = pack_bf16(dk[n][2], dk[n][3]);
-      *reinterpret_cast<uint32_t*>(r + 2 * C) = pack_bf16(dv[n][2], dv[n][3]);
+      *reinterpret_cast<uint32_t*>(dkb + key1 * a.s[kDk][1] + col) =
+          pack_bf16(dk[n][2], dk[n][3]);
+      *reinterpret_cast<uint32_t*>(dvb + key1 * a.s[kDv][1] + col) =
+          pack_bf16(dv[n][2], dv[n][3]);
     }
   }
 }
 
 // dq for one 64-query tile of one (head, batch row).
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    fap_bwd_dq_kernel(const __nv_bfloat16* __restrict__ qkv,
-                      const float* __restrict__ bias,
-                      const __nv_bfloat16* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta,
-                      __nv_bfloat16* __restrict__ dqkv, int N, int C,
-                      float q_scale) {
+__global__ void __launch_bounds__(kThreads) fap_bwd_dq_kernel(const BwdArgs a) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
   constexpr int kStride = D + 8;
   constexpr int kTStride = kBlock + 8;
-  __shared__ __align__(16) __nv_bfloat16 sQ[kBlock * kStride];
-  __shared__ __align__(16) __nv_bfloat16 sDo[kBlock * kStride];
   __shared__ __align__(16) __nv_bfloat16 sK[kBlock * kStride];
   __shared__ __align__(16) __nv_bfloat16 sKt[D * kTStride];
   __shared__ __align__(16) __nv_bfloat16 sV[kBlock * kStride];
@@ -289,28 +317,32 @@ __global__ void __launch_bounds__(kThreads)
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int H = gridDim.y;
-  const int64_t row_stride = 3LL * C;
-  const __nv_bfloat16* base = qkv + (int64_t)b * N * row_stride + h * D;
-  const float* bias_b = bias + (int64_t)b * N;
-  const float qs = __bfloat162float(__float2bfloat16(q_scale));
+  const int N = a.N;
+  const __nv_bfloat16* kb = slice(a.k, a, kK, b, h);
+  const __nv_bfloat16* vb = slice(a.v, a, kV, b, h);
+  const float* bias_b = a.bias + (int64_t)b * N;
+  const float qs = __bfloat162float(__float2bfloat16(a.q_scale));
 
-  stage<D, true, false>(sQ, nullptr, base + (int64_t)q0 * row_stride,
-                        row_stride, N - q0, qs);
-  stage<D, true, false>(sDo, nullptr, dout + (int64_t)b * N * C +
-                        (int64_t)q0 * C + h * D, C, N - q0, 1.0f);
+  // this tile's q_s and do, staged through the key-side buffers
+  stage<D, true, false>(sK, nullptr,
+                        slice(a.q, a, kQ, b, h) + q0 * a.s[kQ][1],
+                        a.s[kQ][1], N - q0, qs);
+  stage<D, true, false>(sV, nullptr,
+                        slice(a.dout, a, kDo, b, h) + q0 * a.s[kDo][1],
+                        a.s[kDo][1], N - q0, 1.0f);
   __syncthreads();
 
   const int qr = warp * 16;
   uint32_t qf[D / 16][4], of[D / 16][4];
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    load_a<kStride>(qf[kk], sQ, qr, kk * 16, g, t);
-    load_a<kStride>(of[kk], sDo, qr, kk * 16, g, t);
+    load_a<kStride>(qf[kk], sK, qr, kk * 16, g, t);
+    load_a<kStride>(of[kk], sV, qr, kk * 16, g, t);
   }
   const int r0 = q0 + qr + g;  // query rows of accumulator rows g, g + 8
   const int r1 = r0 + 8;
-  const float* lse_bh = lse + ((int64_t)b * H + h) * N;
-  const float* delta_bh = delta + ((int64_t)b * H + h) * N;
+  const float* lse_bh = a.lse + ((int64_t)b * H + h) * N;
+  const float* delta_bh = a.delta + ((int64_t)b * H + h) * N;
   const float l0 = r0 < N ? lse_bh[r0] : INFINITY;
   const float l1 = r1 < N ? lse_bh[r1] : INFINITY;
   const float e0 = r0 < N ? delta_bh[r0] : 0.0f;
@@ -321,11 +353,10 @@ __global__ void __launch_bounds__(kThreads)
   for (int n = 0; n < D / 8; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.0f;
 
   for (int k0 = 0; k0 < N; k0 += kBlock) {
-    __syncthreads();  // every warp is done with the previous key tile
-    stage<D, true, true>(sK, sKt, base + (int64_t)k0 * row_stride + C,
-                         row_stride, N - k0, 1.0f);
-    stage<D, true, false>(sV, nullptr,
-                          base + (int64_t)k0 * row_stride + 2 * C, row_stride,
+    __syncthreads();  // every warp is done with the previous tile's buffers
+    stage<D, true, true>(sK, sKt, kb + k0 * a.s[kK][1], a.s[kK][1], N - k0,
+                         1.0f);
+    stage<D, true, false>(sV, nullptr, vb + k0 * a.s[kV][1], a.s[kV][1],
                           N - k0, 1.0f);
     for (int r = tid; r < kBlock; r += kThreads) {
       const int n = k0 + r;
@@ -333,33 +364,33 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
 
-    float ds[kBlock / 8][4];
-#pragma unroll
-    for (int j = 0; j < kBlock / 8; ++j) {
-      float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      float dp[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const __nv_bfloat16* kp = &sK[(j * 8 + g) * kStride + kk * 16 + 2 * t];
-        mma_16816(s, qf[kk], ld32(kp), ld32(kp + 8));
-        const __nv_bfloat16* vp = &sV[(j * 8 + g) * kStride + kk * 16 + 2 * t];
-        mma_16816(dp, of[kk], ld32(vp), ld32(vp + 8));
-      }
-      const float b0 = sBias[j * 8 + 2 * t];
-      const float b1 = sBias[j * 8 + 2 * t + 1];
-      ds[j][0] = exp2f((s[0] + b0 - l0) * kLog2e) * (dp[0] - e0);
-      ds[j][1] = exp2f((s[1] + b1 - l0) * kLog2e) * (dp[1] - e0);
-      ds[j][2] = exp2f((s[2] + b0 - l1) * kLog2e) * (dp[2] - e1);
-      ds[j][3] = exp2f((s[3] + b1 - l1) * kLog2e) * (dp[3] - e1);
-    }
-
+    // 16 keys at a time: ds for this warp's 16 queries, then dq += ds k
 #pragma unroll
     for (int kk = 0; kk < kBlock / 16; ++kk) {
-      const uint32_t da[4] = {
-          pack_bf16(ds[2 * kk][0], ds[2 * kk][1]),
-          pack_bf16(ds[2 * kk][2], ds[2 * kk][3]),
-          pack_bf16(ds[2 * kk + 1][0], ds[2 * kk + 1][1]),
-          pack_bf16(ds[2 * kk + 1][2], ds[2 * kk + 1][3])};
+      float ds[2][4];
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int j = 2 * kk + jj;
+        float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        float dp[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+        for (int dd = 0; dd < D / 16; ++dd) {
+          const __nv_bfloat16* kp = &sK[(j * 8 + g) * kStride + dd * 16 + 2 * t];
+          mma_16816(s, qf[dd], ld32(kp), ld32(kp + 8));
+          const __nv_bfloat16* vp = &sV[(j * 8 + g) * kStride + dd * 16 + 2 * t];
+          mma_16816(dp, of[dd], ld32(vp), ld32(vp + 8));
+        }
+        const float b0 = sBias[j * 8 + 2 * t];
+        const float b1 = sBias[j * 8 + 2 * t + 1];
+        ds[jj][0] = exp2f((s[0] + b0 - l0) * kLog2e) * (dp[0] - e0);
+        ds[jj][1] = exp2f((s[1] + b1 - l0) * kLog2e) * (dp[1] - e0);
+        ds[jj][2] = exp2f((s[2] + b0 - l1) * kLog2e) * (dp[2] - e1);
+        ds[jj][3] = exp2f((s[3] + b1 - l1) * kLog2e) * (dp[3] - e1);
+      }
+      const uint32_t da[4] = {pack_bf16(ds[0][0], ds[0][1]),
+                              pack_bf16(ds[0][2], ds[0][3]),
+                              pack_bf16(ds[1][0], ds[1][1]),
+                              pack_bf16(ds[1][2], ds[1][3])};
 #pragma unroll
       for (int n = 0; n < D / 8; ++n) {
         const __nv_bfloat16* kp = &sKt[(n * 8 + g) * kTStride + kk * 16 + 2 * t];
@@ -368,45 +399,63 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  __nv_bfloat16* ob = dqkv + (int64_t)b * N * row_stride + h * D;
+  __nv_bfloat16* dqb = slice(a.dq, a, kDq, b, h);
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
     const int col = n * 8 + 2 * t;
     if (r0 < N)
-      *reinterpret_cast<uint32_t*>(ob + (int64_t)r0 * row_stride + col) =
-          pack_bf16(dq[n][0] * q_scale, dq[n][1] * q_scale);
+      *reinterpret_cast<uint32_t*>(dqb + r0 * a.s[kDq][1] + col) =
+          pack_bf16(dq[n][0] * a.q_scale, dq[n][1] * a.q_scale);
     if (r1 < N)
-      *reinterpret_cast<uint32_t*>(ob + (int64_t)r1 * row_stride + col) =
-          pack_bf16(dq[n][2] * q_scale, dq[n][3] * q_scale);
+      *reinterpret_cast<uint32_t*>(dqb + r1 * a.s[kDq][1] + col) =
+          pack_bf16(dq[n][2] * a.q_scale, dq[n][3] * a.q_scale);
   }
+}
+
+template <int D>
+int launch(const BwdArgs& a, int B, int H, cudaStream_t s) {
+  const dim3 grid((a.N + kBlock - 1) / kBlock, H, B);
+  fap_bwd_dkdv_kernel<D><<<grid, kThreads, 0, s>>>(a);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  fap_bwd_dq_kernel<D><<<grid, kThreads, 0, s>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// C entry point (bound with ctypes). qkv (B, N, 3C) bf16, bias (B, 1, N)
-// f32, dout (B, N, C) bf16, lse and delta (B, H, N) f32, dqkv (B, N, 3C)
-// bf16, all contiguous and 16-byte aligned. Launches the dk/dv pass, then
-// the dq pass, on `stream`. Returns the first failing launch's cudaError_t;
-// cudaErrorInvalidValue for a head dimension D = C / H other than 16.
-extern "C" int fap_backward_bf16(const void* qkv, const void* bias,
-                                 const void* dout, const void* lse,
-                                 const void* delta, void* dqkv, int B, int N,
-                                 int C, int H, float q_scale, void* stream) {
-  if (B <= 0 || N <= 0 || H <= 0 || C % H != 0 || C / H != 16)
+// C entry point (bound with ctypes). q, k, v, dout, dq, dk and dv are
+// (B, N, H, D) bf16 views given by their data pointers and `strides`, 21
+// int64 in elements: the (batch, token, head) strides of q, k, v, dout, dq,
+// dk, dv in that order, each a multiple of 8, with every pointer 16-byte
+// aligned and the D channels of a head contiguous. bias (B, 1, N), lse and
+// delta (B, H, N) f32 contiguous. Launches the dk/dv pass, then the dq pass,
+// on `stream`. Returns the first failing launch's cudaError_t;
+// cudaErrorInvalidValue for a head dimension other than 16 or 64 or an empty
+// shape.
+extern "C" int fa_backward_bf16(const void* q, const void* k, const void* v,
+                                const void* dout, const void* bias,
+                                const void* lse, const void* delta, void* dq,
+                                void* dk, void* dv, const long long* strides,
+                                int B, int N, int H, int D, float q_scale,
+                                void* stream) {
+  if (B <= 0 || N <= 0 || H <= 0 || (D != 16 && D != 64))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + kBlock - 1) / kBlock, H, B);
+  BwdArgs a;
+  a.q = static_cast<const __nv_bfloat16*>(q);
+  a.k = static_cast<const __nv_bfloat16*>(k);
+  a.v = static_cast<const __nv_bfloat16*>(v);
+  a.dout = static_cast<const __nv_bfloat16*>(dout);
+  a.bias = static_cast<const float*>(bias);
+  a.lse = static_cast<const float*>(lse);
+  a.delta = static_cast<const float*>(delta);
+  a.dq = static_cast<__nv_bfloat16*>(dq);
+  a.dk = static_cast<__nv_bfloat16*>(dk);
+  a.dv = static_cast<__nv_bfloat16*>(dv);
+  for (int i = 0; i < kTensors; ++i)
+    for (int j = 0; j < 3; ++j) a.s[i][j] = strides[3 * i + j];
+  a.N = N;
+  a.q_scale = q_scale;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const auto* q = static_cast<const __nv_bfloat16*>(qkv);
-  const auto* bs = static_cast<const float*>(bias);
-  const auto* o = static_cast<const __nv_bfloat16*>(dout);
-  const auto* l = static_cast<const float*>(lse);
-  const auto* d = static_cast<const float*>(delta);
-  auto* dst = static_cast<__nv_bfloat16*>(dqkv);
-  fap_bwd_dkdv_kernel<16><<<grid, kThreads, 0, s>>>(q, bs, o, l, d, dst, N, C,
-                                                    q_scale);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  fap_bwd_dq_kernel<16><<<grid, kThreads, 0, s>>>(q, bs, o, l, d, dst, N, C,
-                                                  q_scale);
-  return (int)cudaGetLastError();
+  return D == 16 ? launch<16>(a, B, H, s) : launch<64>(a, B, H, s);
 }

@@ -1,23 +1,37 @@
 from tpu3dssf_torch.kernels.flash_attention import (
+    FlashAttention,
     FlashAttentionPacked,
+    flash_attention,
+    flash_attention_bwd_reference,
+    flash_attention_lse_reference,
     flash_attention_packed,
     flash_attention_packed_bwd_reference,
     flash_attention_packed_lse_reference,
     flash_attention_packed_reference,
+    mha_reference,
+    pick_head_group,
 )
 from tpu3dssf_torch.kernels.window_attention import (
     WindowAttentionPacked,
+    window_attention,
     window_attention_packed,
     window_attention_reference,
 )
 
 __all__ = [
+    "FlashAttention",
     "FlashAttentionPacked",
     "WindowAttentionPacked",
+    "flash_attention",
+    "flash_attention_bwd_reference",
+    "flash_attention_lse_reference",
     "flash_attention_packed",
     "flash_attention_packed_bwd_reference",
     "flash_attention_packed_lse_reference",
     "flash_attention_packed_reference",
+    "mha_reference",
+    "pick_head_group",
+    "window_attention",
     "window_attention_packed",
     "window_attention_reference",
 ]

@@ -1,26 +1,33 @@
-"""Packed-layout multi-head attention: the CUDA kernels and their plain
-versions.
+"""Multi-head attention: the CUDA kernels and their plain versions.
 
-Port of ``tpu3dssf.kernels.flash_attention.flash_attention_packed`` and its
-custom VJP. Three TPU kernels have a Hopper counterpart here, each with its
-own launch counter:
+Port of ``tpu3dssf.kernels.flash_attention``: ``flash_attention_packed``
+(MHA straight off the (B, N, 3C) qkv projection) and ``flash_attention``
+(MHA on (B, N, H, D) tensors), each with its custom VJP. Five TPU kernels
+have a Hopper counterpart here, each with its own launch counter:
 
-* K1, the inference forward ``_packed_kernel`` (``with_lse=False``):
-  ``fap_forward_bf16`` in ``csrc/flash_attention_packed.cu``, counted in
-  :data:`LAUNCHES`. It serves each ViT layer and every PTv3 block when
-  nothing needs a gradient.
-* K2, the training forward ``_packed_kernel`` with ``with_lse=True``
-  (``_fap_fwd``): ``fap_forward_lse_bf16`` in the same source, counted in
-  :data:`LSE_LAUNCHES`.
-* K3, the stats-fed backward ``_packed_bwd_kernel`` (``_fap_bwd``):
-  ``fap_backward_bf16`` in ``csrc/flash_attention_packed_bwd.cu``, counted
-  in :data:`BWD_LAUNCHES`.
+* K1, the packed inference forward ``_packed_kernel`` (``with_lse=False``),
+  counted in :data:`LAUNCHES`. It serves each ViT layer of the packed route
+  and every PTv3 block of the packed routes when nothing needs a gradient.
+* K2, the packed training forward ``_packed_kernel`` with ``with_lse=True``
+  (``_fap_fwd``), counted in :data:`LSE_LAUNCHES`.
+* K3, the stats-fed packed backward ``_packed_bwd_kernel`` (``_fap_bwd``),
+  counted in :data:`BWD_LAUNCHES`.
+* K8, the (B, H, N, D) forward ``_flash_kernel``, counted in
+  :data:`FLASH_LAUNCHES`: :func:`flash_attention` without a gradient, and
+  the forward of :class:`FlashAttention` (which also writes the LSE).
+* K9, its backward ``_flash_bwd_kernel``, counted in
+  :data:`FLASH_BWD_LAUNCHES`: the backward of :class:`FlashAttention`.
 
-K2 and K3 run through :class:`FlashAttentionPacked`, the training rule
-that the PTv3 stages with C % 128 == 0 take. The C ∈ {32, 64} stages reach
-the same two kernels through
-:class:`tpu3dssf_torch.kernels.window_attention.WindowAttentionPacked`,
-which counts them as K4 and K5.
+Two CUDA kernels carry all five: ``fap_fwd_kernel`` in
+``csrc/flash_attention_packed.cu`` (with a compile-time LSE flag) and the
+two-pass ``fap_bwd_*_kernel`` in ``csrc/flash_attention_packed_bwd.cu``.
+Each takes q, k, v (and do, dq, dk, dv) as separate pointers with their own
+(batch, token, head) strides, so the packed layout is one stride set and
+(B, N, H, D) another; the launchers here pass views and never repack. The
+window routes of :mod:`tpu3dssf_torch.kernels.window_attention` launch the
+same two kernels and count them as K4, K5 and K6; the (W, K, H, D) one
+trains through :class:`FlashAttention` with a query mask and its own
+counters.
 
 Dispatch is by device and nothing else: a CUDA tensor launches the
 hand-written Hopper kernels or raises; a CPU tensor takes the plain
@@ -30,6 +37,7 @@ versions. There is no fallback from one to the other.
 from __future__ import annotations
 
 import ctypes
+import sys
 
 import torch
 
@@ -38,31 +46,60 @@ from tpu3dssf_torch.kernels import _build
 _SOURCE = "flash_attention_packed.cu"
 _BWD_SOURCE = "flash_attention_packed_bwd.cu"
 SUPPORTED_HEAD_DIMS = (16, 64)
-SUPPORTED_BWD_HEAD_DIMS = (16,)
 
-# kernel launches made in this process: K1, K2 and K3
+# kernel launches made in this process: K1, K2, K3, K8 and K9
 LAUNCHES = 0
 LSE_LAUNCHES = 0
 BWD_LAUNCHES = 0
+FLASH_LAUNCHES = 0
+FLASH_BWD_LAUNCHES = 0
+
+
+def pick_head_group(heads: int, channels: int):
+    """The head-group size JAX's packed kernel would use, or None.
+
+    Port of ``tpu3dssf.kernels.flash_attention.pick_head_group``: the
+    largest group in (8, 4, 2) that divides ``heads`` with a 128-aligned
+    group width ``channels // (heads // group)``. It is a Mosaic rule, and
+    the port's kernels need no head groups; the models ask it only to take
+    the route JAX takes, so that the same TPU kernel's counterpart runs.
+    """
+    return next((g for g in (8, 4, 2)
+                 if heads % g == 0 and (channels // (heads // g)) % 128 == 0),
+                None)
 
 
 def _split_heads(qkv, heads):
-    B, N, C3 = qkv.shape
-    C = C3 // 3
-    return (x.reshape(B, N, heads, C // heads) for x in qkv.split(C, dim=-1))
+    """(B, N, 3C) → q, k, v as (B, N, H, D) views."""
+    C = qkv.shape[-1] // 3
+    return tuple(x.unflatten(-1, (heads, C // heads))
+                 for x in qkv.split(C, dim=-1))
 
 
-def flash_attention_packed_lse_reference(qkv, key_bias, heads, q_scale=None):
-    """Plain PyTorch version of the forward with LSE: f32 softmax and
-    matmuls. Returns (out (B, N, C) in qkv.dtype, lse (B, H, N) f32).
+def mha_reference(q, k, v, bias=None):
+    """Plain MHA, the port of JAX's oracle and the plain version of K8.
+
+    q, k, v (B, N, H, D); ``bias`` (B, 1|H, N) additive on the keys. Scores
+    in f32 scaled by 1/√D, softmax, PV in f32; the output in q.dtype.
+    """
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if bias is not None:
+        s = s + bias.float()[:, :, None, :]
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
+def flash_attention_lse_reference(q, k, v, key_bias, q_scale=None):
+    """Plain PyTorch version of the forward with LSE on (B, N, H, D): f32
+    softmax and matmuls. Returns (out (B, N, H, D) in q.dtype, lse (B, H, N)
+    f32).
 
     Same math as the kernels: q is scaled by ``q_scale`` in the input
-    dtype, scores get the additive key bias, the output is normalised after
-    the PV product by ``max(denominator, 1e-20)``, and the LSE is
-    ``max + log(max(denominator, 1e-20))`` in natural-log units.
+    dtype, scores get the additive key bias (B, 1, N), the output is
+    normalised after the PV product by ``max(denominator, 1e-20)``, and the
+    LSE is ``max + log(max(denominator, 1e-20))`` in natural-log units.
     """
-    B, N, C3 = qkv.shape
-    q, k, v = _split_heads(qkv, heads)
     if q_scale is not None:
         q = q * torch.tensor(q_scale, dtype=q.dtype)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
@@ -73,7 +110,39 @@ def flash_attention_packed_lse_reference(qkv, key_bias, heads, q_scale=None):
     out = torch.einsum("bhqk,bkhd->bqhd", e, v.float())
     out = out / denom.permute(0, 2, 1, 3)
     lse = (m + torch.log(denom))[..., 0]
-    return out.reshape(B, N, C3 // 3).to(qkv.dtype), lse
+    return out.to(q.dtype), lse
+
+
+def flash_attention_bwd_reference(q, k, v, key_bias, dout, lse, delta,
+                                  q_scale=None):
+    """Plain PyTorch version of the stats-fed backward on (B, N, H, D), in
+    f32: the plain version of K3, K5 and K9.
+
+    From the forward's ``lse`` and ``delta = rowsum(dout·out)`` (both
+    (B, H, N) f32): p = exp(s − lse), dv = pᵀ·do, dp = do·vᵀ,
+    ds = p·(dp − delta), dq = ds·k·q_scale, dk = dsᵀ·q_s with q_s the
+    forward's scaled q. Returns (dq, dk, dv) in q.dtype.
+    """
+    scale = 1.0 if q_scale is None else q_scale
+    qs = (q * torch.tensor(scale, dtype=q.dtype)).float()
+    k, v, do = k.float(), v.float(), dout.float()
+    s = torch.einsum("bqhd,bkhd->bhqk", qs, k)
+    s = s + key_bias.float()[:, :, None, :]
+    p = torch.exp(s - lse.float()[..., None])
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, v)
+    ds = p * (dp - delta.float()[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qs)
+    return tuple(x.to(q.dtype) for x in (dq, dk, dv))
+
+
+def flash_attention_packed_lse_reference(qkv, key_bias, heads, q_scale=None):
+    """:func:`flash_attention_lse_reference` on the packed layout: (out
+    (B, N, C) in qkv.dtype, lse (B, H, N) f32)."""
+    out, lse = flash_attention_lse_reference(*_split_heads(qkv, heads),
+                                             key_bias, q_scale)
+    return out.flatten(2), lse
 
 
 def flash_attention_packed_reference(qkv, key_bias, heads, q_scale=None):
@@ -85,38 +154,22 @@ def flash_attention_packed_reference(qkv, key_bias, heads, q_scale=None):
 
 def flash_attention_packed_bwd_reference(qkv, key_bias, dout, lse, delta,
                                          heads, q_scale=None):
-    """Plain PyTorch version of the stats-fed backward, in f32.
-
-    From the forward's ``lse`` and ``delta = rowsum(dout·out)`` (both
-    (B, H, N) f32): p = exp(s − lse), dv = pᵀ·do, dp = do·vᵀ,
-    ds = p·(dp − delta), dq = ds·k·q_scale, dk = dsᵀ·q_s with q_s the
-    forward's scaled q. Returns dqkv (B, N, 3C) in qkv.dtype.
-    """
-    B, N, C3 = qkv.shape
-    q, k, v = _split_heads(qkv, heads)
-    scale = 1.0 if q_scale is None else q_scale
-    qs = (q * torch.tensor(scale, dtype=q.dtype)).float()
-    k, v = k.float(), v.float()
-    do = dout.reshape(q.shape).float()
-    s = torch.einsum("bqhd,bkhd->bhqk", qs, k)
-    s = s + key_bias.float()[:, :, None, :]
-    p = torch.exp(s - lse.float()[..., None])
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
-    dp = torch.einsum("bqhd,bkhd->bhqk", do, v)
-    ds = p * (dp - delta.float()[..., None])
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k) * scale
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qs)
-    return torch.cat([x.reshape(B, N, C3 // 3) for x in (dq, dk, dv)],
-                     dim=-1).to(qkv.dtype)
+    """:func:`flash_attention_bwd_reference` on the packed layout: dout
+    (B, N, C) → dqkv (B, N, 3C) in qkv.dtype."""
+    grads = flash_attention_bwd_reference(
+        *_split_heads(qkv, heads), key_bias,
+        dout.unflatten(-1, (heads, -1)), lse, delta, q_scale)
+    return torch.cat([g.flatten(2) for g in grads], dim=-1)
 
 
-def row_delta(dout, out, heads):
-    """delta = rowsum(dout·out) per head, (B, N, C) → (B, H, N) f32: the
-    softmax-VJP row term, computed outside the kernel as JAX does."""
-    B, N, C = out.shape
+def row_delta(dout, out, heads=None):
+    """delta = rowsum(dout·out) per head → (B, H, N) f32: the softmax-VJP
+    row term, computed outside the kernel as JAX does. Takes (B, N, C)
+    tensors with ``heads``, or (B, N, H, D) ones without."""
     prod = dout.float() * out.float()
-    return prod.reshape(B, N, heads, C // heads).sum(-1).transpose(1, 2) \
-        .contiguous()
+    if heads is not None:
+        prod = prod.unflatten(-1, (heads, -1))
+    return prod.sum(-1).transpose(1, 2).contiguous()
 
 
 def flash_attention_packed(qkv, key_bias, heads, q_scale=None):
@@ -134,14 +187,13 @@ def flash_attention_packed(qkv, key_bias, heads, q_scale=None):
     tensor); otherwise it launches K1. The TPU version's ``block_q``,
     ``head_group``, ``rope_cos``/``rope_sin`` and its scratch option are
     gone: the first three are Mosaic tiling rules (N a q-block multiple,
-    128-lane head groups), RoPE in the kernel was a branch no model path
-    takes, and the scratch buffer only bounded VMEM. The kernels mask
-    ragged N themselves.
+    128-lane head groups), RoPE in the kernel has no caller in the port
+    (ROADMAP.md §2: still to port), and the scratch buffer only bounded
+    VMEM. The kernels mask ragged N themselves.
 
-    On a CUDA tensor: bf16 only, D = C/heads in
-    :data:`SUPPORTED_HEAD_DIMS` (:data:`SUPPORTED_BWD_HEAD_DIMS` for a
-    gradient), contiguous 16-byte-aligned qkv and a contiguous f32 bias.
-    Anything else raises.
+    On a CUDA tensor: bf16 only, D = C/heads in :data:`SUPPORTED_HEAD_DIMS`,
+    contiguous 16-byte-aligned qkv and a contiguous f32 bias. Anything else
+    raises.
     """
     if torch.is_grad_enabled() and qkv.requires_grad:
         return FlashAttentionPacked.apply(qkv, key_bias, heads, q_scale)
@@ -189,49 +241,165 @@ class FlashAttentionPacked(torch.autograd.Function):
         return dqkv, None, None, None
 
 
-def _check(qkv, key_bias, heads, head_dims=SUPPORTED_HEAD_DIMS):
-    if qkv.device.type != "cuda":
-        raise ValueError(f"flash_attention_packed: no kernel for device "
-                         f"{qkv.device}")
-    if qkv.dtype != torch.bfloat16:
-        raise TypeError(f"flash_attention_packed: the CUDA kernel takes "
-                        f"bfloat16 qkv, got {qkv.dtype}")
+def flash_attention(q, k, v, key_bias=None):
+    """Full MHA, q/k/v (B, N, H, D) → (B, N, H, D): the port of JAX's
+    ``flash_attention`` (K8, and K9 for its gradient).
+
+    q is scaled by 1/√D in q's dtype, as JAX's wrapper does; ``key_bias``
+    (B, 1, N) is additive on the keys (None: no bias). JAX's ``block_q`` and
+    its padding are gone: the kernel masks ragged N itself, where JAX's
+    −1e9 pad keys got zero weight, so the result is the same.
+
+    When autograd needs a gradient of q, k or v this is
+    :class:`FlashAttention`, counted as K8 and K9; otherwise K8 on a CUDA
+    tensor and :func:`mha_reference` on a CPU tensor. On a CUDA tensor:
+    bf16, D in :data:`SUPPORTED_HEAD_DIMS`, each of q, k, v with a
+    contiguous head dim, 16-byte-aligned rows and strides that are
+    multiples of 8 (views of a packed projection qualify); anything else
+    raises.
+    """
+    global FLASH_LAUNCHES
+    B, N = q.shape[:2]
+    if key_bias is None:
+        key_bias = torch.zeros((B, 1, N), dtype=torch.float32,
+                               device=q.device)
+    key_bias = key_bias.to(torch.float32).contiguous()
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return FlashAttention.apply(q, k, v, key_bias, None, _K8_K9,
+                                    "flash_attention")
+    if q.device.type == "cpu":
+        return mha_reference(q, k, v, key_bias)
+    out = _launch_flash(q, k, v, key_bias, _softmax_scale(q))
+    FLASH_LAUNCHES += 1
+    return out
+
+
+def _count(counter):
+    """Add one to a launch counter given as (module, name of its global)."""
+    module, name = counter
+    setattr(module, name, getattr(module, name) + 1)
+
+
+_K8_K9 = ((sys.modules[__name__], "FLASH_LAUNCHES"),
+          (sys.modules[__name__], "FLASH_BWD_LAUNCHES"))
+
+
+class FlashAttention(torch.autograd.Function):
+    """The training rule on (B, N, H, D) tensors: the port of
+    ``_fa_fwd``/``_fa_bwd`` for :func:`flash_attention` and of
+    ``_wa_fwd``/``_wa_bwd`` for
+    :func:`tpu3dssf_torch.kernels.window_attention.window_attention`.
+
+    ``apply(q, k, v, key_bias, query_mask, counters, name)``. The forward
+    launches the forward kernel with its LSE, zeroes the query rows that
+    ``query_mask`` (broadcastable to the output, in its dtype; None keeps
+    every row) drops, and saves (q, k, v, key_bias, query_mask, lse, out).
+    The backward masks the incoming gradient the same way, takes delta =
+    rowsum(g·out) per head in plain torch and launches the backward kernel,
+    which the TPU kernel fed from a full-row recompute instead (the same
+    gradient). ``counters`` are the (forward, backward) launch counters as
+    :func:`_count` takes them: K8/K9 for :func:`flash_attention`, K4/K5 for
+    the window route. ``name`` names the caller in errors. ``key_bias``
+    gets no gradient (JAX returns zeros for it).
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_bias, query_mask, counters, name):
+        scale = _softmax_scale(q)
+        if q.device.type == "cpu":
+            out, lse = flash_attention_lse_reference(q, k, v, key_bias,
+                                                     scale)
+        else:
+            out, lse = _launch_flash(q, k, v, key_bias, scale, with_lse=True,
+                                     name=name)
+            _count(counters[0])
+        if query_mask is not None:
+            out = out * query_mask
+        ctx.save_for_backward(q, k, v, key_bias, query_mask, lse, out)
+        ctx.counter, ctx.name = counters[1], name
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, key_bias, query_mask, lse, out = ctx.saved_tensors
+        if query_mask is not None:
+            g = g * query_mask
+        delta = row_delta(g, out)
+        scale = _softmax_scale(q)
+        if q.device.type == "cpu":
+            grads = flash_attention_bwd_reference(q, k, v, key_bias, g, lse,
+                                                  delta, scale)
+        else:
+            grads = _launch_flash_bwd(q, k, v, key_bias, g.contiguous(), lse,
+                                      delta, scale, name=ctx.name)
+            _count(ctx.counter)
+        return (*grads, None, None, None, None)
+
+
+def _softmax_scale(q):
+    return 1.0 / (q.shape[-1] ** 0.5)
+
+
+def _check(qkv, heads):
+    """The packed layout's contract; :func:`_check_views` checks the rest on
+    the q, k, v views."""
     if qkv.dim() != 3 or qkv.shape[-1] % 3:
         raise ValueError(f"flash_attention_packed: qkv must be (B, N, 3C), "
                          f"got {tuple(qkv.shape)}")
-    B, N, C3 = qkv.shape
-    C = C3 // 3
-    if C % heads or C // heads not in head_dims:
+    C = qkv.shape[-1] // 3
+    if C % heads:
         raise ValueError(f"flash_attention_packed: head dim C/heads = "
-                         f"{C}/{heads} must be one of {head_dims}")
-    if not qkv.is_contiguous() or qkv.data_ptr() % 16:
-        raise ValueError("flash_attention_packed: qkv must be contiguous "
-                         "and 16-byte aligned")
-    if (key_bias.device != qkv.device or key_bias.dtype != torch.float32
+                         f"{C}/{heads} is not an integer")
+    if not qkv.is_contiguous():
+        raise ValueError("flash_attention_packed: qkv must be contiguous")
+
+
+def _check_views(name, views, key_bias):
+    """The kernels' contract on (B, N, H, D) views; raises on the first
+    breach."""
+    q = views[0]
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {q.device}")
+    for x in views:
+        if x.dtype != torch.bfloat16:
+            raise TypeError(f"{name}: the CUDA kernel takes bfloat16 "
+                            f"tensors, got {x.dtype}")
+        if x.dim() != 4 or x.shape != q.shape or x.device != q.device:
+            raise ValueError(f"{name}: every tensor must be (B, N, H, D) = "
+                             f"{tuple(q.shape)} on {q.device}, got "
+                             f"{tuple(x.shape)} on {x.device}")
+        if (x.stride(-1) != 1 or any(s % 8 for s in x.stride()[:3])
+                or x.data_ptr() % 16):
+            raise ValueError(f"{name}: each head's D channels must be "
+                             f"contiguous, with 16-byte-aligned rows and "
+                             f"strides a multiple of 8, got strides "
+                             f"{x.stride()}")
+    B, N, H, D = q.shape
+    if D not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {D} must be one of "
+                         f"{SUPPORTED_HEAD_DIMS}")
+    if (key_bias.device != q.device or key_bias.dtype != torch.float32
             or tuple(key_bias.shape) != (B, 1, N)
             or not key_bias.is_contiguous()):
-        raise ValueError(f"flash_attention_packed: key_bias must be a "
-                         f"contiguous float32 (B, 1, N) = {(B, 1, N)} tensor "
-                         f"on {qkv.device}, got {key_bias.dtype} "
-                         f"{tuple(key_bias.shape)} on {key_bias.device}")
+        raise ValueError(f"{name}: key_bias must be a contiguous float32 "
+                         f"(B, 1, N) = {(B, 1, N)} tensor on {q.device}, got "
+                         f"{key_bias.dtype} {tuple(key_bias.shape)} on "
+                         f"{key_bias.device}")
 
 
-def _check_stats(qkv, dout, lse, delta, heads):
-    B, N, C3 = qkv.shape
-    for name, x, shape, dtype in (
-            ("dout", dout, (B, N, C3 // 3), torch.bfloat16),
-            ("lse", lse, (B, heads, N), torch.float32),
-            ("delta", delta, (B, heads, N), torch.float32)):
-        if (x.device != qkv.device or x.dtype != dtype
-                or tuple(x.shape) != shape or not x.is_contiguous()
-                or x.data_ptr() % 16):
+def _check_stats(name, q, lse, delta):
+    B, N, H, _ = q.shape
+    for what, x in (("lse", lse), ("delta", delta)):
+        if (x.device != q.device or x.dtype != torch.float32
+                or tuple(x.shape) != (B, H, N) or not x.is_contiguous()):
             raise ValueError(
-                f"flash_attention_packed backward: {name} must be a "
-                f"contiguous 16-byte-aligned {dtype} {shape} tensor on "
-                f"{qkv.device}, got {x.dtype} {tuple(x.shape)} on {x.device}")
+                f"{name} backward: {what} must be a contiguous float32 "
+                f"{(B, H, N)} tensor on {q.device}, got {x.dtype} "
+                f"{tuple(x.shape)} on {x.device}")
 
 
 _PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_STRIDES = ctypes.POINTER(ctypes.c_longlong)
 
 
 def _bind(source, name, argtypes):
@@ -241,27 +409,76 @@ def _bind(source, name, argtypes):
     return fn
 
 
-def _lib():
-    return _bind(_SOURCE, "fap_forward_bf16",
-                 [_PTR] * 3 + [_INT] * 4 + [_FLOAT, _PTR])
-
-
-def _lib_lse():
-    return _bind(_SOURCE, "fap_forward_lse_bf16",
-                 [_PTR] * 4 + [_INT] * 4 + [_FLOAT, _PTR])
+def _lib_fwd():
+    return _bind(_SOURCE, "fa_forward_bf16",
+                 [_PTR] * 6 + [_STRIDES] + [_INT] * 4 + [_FLOAT, _PTR])
 
 
 def _lib_bwd():
-    return _bind(_BWD_SOURCE, "fap_backward_bf16",
-                 [_PTR] * 6 + [_INT] * 4 + [_FLOAT, _PTR])
+    return _bind(_BWD_SOURCE, "fa_backward_bf16",
+                 [_PTR] * 10 + [_STRIDES] + [_INT] * 4 + [_FLOAT, _PTR])
 
 
-def _raise_if_failed(err, what, qkv, heads):
+def _strides(*views):
+    """(batch, token, head) strides of each view, as the C entry points'
+    int64 array."""
+    flat = [s for x in views for s in x.stride()[:3]]
+    return (ctypes.c_longlong * len(flat))(*flat)
+
+
+def _raise_if_failed(err, name, what, q):
     if err != 0:
-        B, N, C3 = qkv.shape
-        raise RuntimeError(f"flash_attention_packed: {what} kernel launch "
-                           f"failed with cudaError_t {err} (B={B}, N={N}, "
-                           f"C={C3 // 3}, heads={heads})")
+        B, N, H, D = q.shape
+        raise RuntimeError(f"{name}: {what} kernel launch failed with "
+                           f"cudaError_t {err} (B={B}, N={N}, H={H}, D={D})")
+
+
+def _launch_flash(q, k, v, key_bias, q_scale, with_lse=False,
+                  name="flash_attention"):
+    """Launch the forward kernel on (B, N, H, D) views of q, k, v: out
+    (B, N, H, D) bf16, and with ``with_lse`` also lse (B, H, N) f32. It
+    serves K8, the window routes' K6 and K4, and the packed K1/K2; the
+    caller counts it."""
+    _check_views(name, (q, k, v), key_bias)
+    B, N, H, D = q.shape
+    out = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, H, N), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    fn = _lib_fwd()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 key_bias.data_ptr(), out.data_ptr(),
+                 None if lse is None else lse.data_ptr(),
+                 _strides(q, k, v, out), B, N, H, D, float(q_scale), stream)
+    _raise_if_failed(err, name, "forward-with-LSE" if with_lse else "forward",
+                     q)
+    return (out, lse) if with_lse else out
+
+
+def _launch_flash_bwd(q, k, v, key_bias, dout, lse, delta, q_scale,
+                      out=None, name="flash_attention"):
+    """Launch the backward kernel on (B, N, H, D) views: (dq, dk, dv),
+    written into ``out`` (three views) when given, else into new (B, N, H,
+    D) tensors. It serves K9, the window route's K5 and the packed K3; the
+    caller counts it."""
+    _check_views(name, (q, k, v, dout), key_bias)
+    _check_stats(name, q, lse, delta)
+    if out is None:
+        out = tuple(torch.empty_like(q, memory_format=torch.contiguous_format)
+                    for _ in range(3))
+    _check_views(name, out, key_bias)
+    B, N, H, D = q.shape
+    fn = _lib_bwd()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                 key_bias.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                 *(x.data_ptr() for x in out),
+                 _strides(q, k, v, dout, *out), B, N, H, D, float(q_scale),
+                 stream)
+    _raise_if_failed(err, name, "backward", q)
+    return out
 
 
 def _scale(q_scale):
@@ -269,48 +486,32 @@ def _scale(q_scale):
 
 
 def _launch(qkv, key_bias, heads, q_scale):
+    """Launch K1 on the packed layout and count it."""
     global LAUNCHES
-    _check(qkv, key_bias, heads)
-    B, N, C3 = qkv.shape
-    fn = _lib()
-    out = torch.empty((B, N, C3 // 3), dtype=qkv.dtype, device=qkv.device)
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(qkv.data_ptr(), key_bias.data_ptr(), out.data_ptr(), B, N,
-                 C3 // 3, heads, _scale(q_scale), stream)
-    _raise_if_failed(err, "forward", qkv, heads)
+    _check(qkv, heads)
+    out = _launch_flash(*_split_heads(qkv, heads), key_bias, _scale(q_scale),
+                        name="flash_attention_packed")
     LAUNCHES += 1
-    return out
+    return out.flatten(2)
 
 
 def _launch_lse(qkv, key_bias, heads, q_scale):
-    """Launch the forward-with-LSE kernel (K2/K4); the caller counts it."""
-    _check(qkv, key_bias, heads)
-    B, N, C3 = qkv.shape
-    fn = _lib_lse()
-    out = torch.empty((B, N, C3 // 3), dtype=qkv.dtype, device=qkv.device)
-    lse = torch.empty((B, heads, N), dtype=torch.float32, device=qkv.device)
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(qkv.data_ptr(), key_bias.data_ptr(), out.data_ptr(),
-                 lse.data_ptr(), B, N, C3 // 3, heads, _scale(q_scale),
-                 stream)
-    _raise_if_failed(err, "forward-with-LSE", qkv, heads)
-    return out, lse
+    """Launch the forward-with-LSE kernel (K2/K4) on the packed layout;
+    the caller counts it."""
+    _check(qkv, heads)
+    out, lse = _launch_flash(*_split_heads(qkv, heads), key_bias,
+                             _scale(q_scale), with_lse=True,
+                             name="flash_attention_packed")
+    return out.flatten(2), lse
 
 
 def _launch_bwd(qkv, key_bias, dout, lse, delta, heads, q_scale):
-    """Launch the backward kernel (K3/K5); the caller counts it."""
-    _check(qkv, key_bias, heads, SUPPORTED_BWD_HEAD_DIMS)
-    dout = dout.contiguous()
-    _check_stats(qkv, dout, lse, delta, heads)
-    B, N, C3 = qkv.shape
-    fn = _lib_bwd()
+    """Launch the backward kernel (K3/K5) on the packed layout, into one
+    packed dqkv (B, N, 3C); the caller counts it."""
+    _check(qkv, heads)
     dqkv = torch.empty_like(qkv)
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(qkv.data_ptr(), key_bias.data_ptr(), dout.data_ptr(),
-                 lse.data_ptr(), delta.data_ptr(), dqkv.data_ptr(), B, N,
-                 C3 // 3, heads, _scale(q_scale), stream)
-    _raise_if_failed(err, "backward", qkv, heads)
+    _launch_flash_bwd(*_split_heads(qkv, heads), key_bias,
+                      dout.contiguous().unflatten(-1, (heads, -1)), lse,
+                      delta, _scale(q_scale), out=_split_heads(dqkv, heads),
+                      name="flash_attention_packed")
     return dqkv

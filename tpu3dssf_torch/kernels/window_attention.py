@@ -1,33 +1,50 @@
 """Serialized-window attention for PTv3.
 
-Port of ``tpu3dssf.kernels.window_attention``: ``window_attention_packed``
-with its custom VJP (:class:`WindowAttentionPacked`, the training rule of
-the C ∈ {32, 64} stages) and the plain ``window_attention_reference``.
-Windows are batch rows of a full MHA, so the packed attention kernels serve
-every PTv3 stage, whatever its (C, heads): the inference forward is K1, and
-the training rule launches the forward-with-LSE and backward kernels of
+Port of ``tpu3dssf.kernels.window_attention``: ``window_attention`` on
+(W, K, H, D) windows, whose custom VJP is the (B, N, H, D) rule
+:class:`~tpu3dssf_torch.kernels.flash_attention.FlashAttention` with a
+query mask; ``window_attention_packed`` on the (W, K, 3C) projection with
+its custom VJP (:class:`WindowAttentionPacked`, the training rule of the
+C ∈ {32, 64} stages at a window that is a multiple of 128); and the plain
+``window_attention_reference``. Windows are batch rows of a full MHA, so
+both launch the strided attention kernels of
 :mod:`tpu3dssf_torch.kernels.flash_attention`, counted here as the TPU
-kernels they replace, K4 ``_attn_kernel_lse`` (:data:`LSE_LAUNCHES`) and
-K5 ``_attn_bwd_kernel`` (:data:`BWD_LAUNCHES`). The TPU version's separate
-(W, K, H, D) window kernels and its whole-3C and head-group layouts were
-Mosaic block rules.
+kernels they replace:
+
+* K6 ``_attn_kernel``, the inference forward of :func:`window_attention`
+  (:data:`LAUNCHES`);
+* K4 ``_attn_kernel_lse``, the training forward of both rules
+  (:data:`LSE_LAUNCHES`);
+* K5 ``_attn_bwd_kernel``, the backward of both rules
+  (:data:`BWD_LAUNCHES`).
+
+The inference forward of :func:`window_attention_packed` is K1, as in JAX.
+The (W, K, H, D) route takes q, k, v as the strided views PTv3 cuts from
+its projection: nothing is transposed or copied before the kernels. Its
+backward returns dq, dk and dv as three tensors, which autograd scatters
+into the projection's gradient (a zero fill and copy of the (W, K, 3C)
+buffer per block; the packed rule writes dqkv in place).
 """
 
 from __future__ import annotations
 
+import sys
+
 import torch
 
-from tpu3dssf_torch.kernels import flash_attention as fa
+from tpu3dssf_torch.kernels.modules import flash_attention as fa
 
 _NEG = -1e9
 
-# kernel launches made by WindowAttentionPacked in this process: K4 and K5
+# kernel launches made in this process: K6 by window_attention, and K4 and
+# K5 by the training rules of both window routes
+LAUNCHES = 0
 LSE_LAUNCHES = 0
 BWD_LAUNCHES = 0
 
 
 def window_attention_reference(q, k, v, key_mask):
-    """Plain within-window MHA.
+    """Plain within-window MHA: the plain version of K6.
 
     Args:
       q, k, v: (W, K, H, D) — windows, window size, heads, head dim.
@@ -51,6 +68,45 @@ def key_bias(key_mask):
         .contiguous()
 
 
+def _query_mask(key_mask, x):
+    """``key_mask`` broadcast over x's trailing dims, in x's dtype."""
+    return key_mask.reshape(key_mask.shape + (1,) * (x.dim() - 2)).to(x.dtype)
+
+
+def window_attention(q, k, v, key_mask):
+    """Windowed MHA on (W, K, H, D) windows → (W, K, H, D).
+
+    Port of JAX's ``window_attention`` with ``use_pallas=True``: the route
+    PTv3 takes when its window is not a multiple of 128, or when a stage
+    with more than 8 heads has no 128-aligned head group. ``key_mask``
+    (W, K) bool masks padding keys with a −1e9 bias; masked query rows come
+    back zeroed (the contract of :func:`window_attention_reference`).
+
+    When autograd needs a gradient of q, k or v this is
+    :class:`~tpu3dssf_torch.kernels.flash_attention.FlashAttention` with the
+    query mask, counted as K4 forward and K5 backward; otherwise K6 on a
+    CUDA tensor and the plain version on a CPU tensor. On a CUDA tensor q,
+    k and v follow :func:`flash_attention`'s contract (bf16, D in {16, 64},
+    strided views allowed); anything else raises.
+    """
+    global LAUNCHES
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return fa.FlashAttention.apply(q, k, v, key_bias(key_mask),
+                                       _query_mask(key_mask, q), _K4_K5,
+                                       "window_attention")
+    if q.device.type == "cpu":
+        return window_attention_reference(q, k, v, key_mask)
+    out = fa._launch_flash(q, k, v, key_bias(key_mask),
+                           1.0 / (q.shape[-1] ** 0.5),
+                           name="window_attention")
+    LAUNCHES += 1
+    return out * _query_mask(key_mask, out)
+
+
+_K4_K5 = ((sys.modules[__name__], "LSE_LAUNCHES"),
+          (sys.modules[__name__], "BWD_LAUNCHES"))
+
+
 def window_attention_packed(qkv, key_mask, heads):
     """Windowed MHA in the packed layout: (W, K, 3C) → (W, K, C).
 
@@ -64,7 +120,7 @@ def window_attention_packed(qkv, key_mask, heads):
     D = (qkv.shape[-1] // 3) // heads
     out = fa.flash_attention_packed(qkv, key_bias(key_mask), heads,
                                     1.0 / (D ** 0.5))
-    return out * key_mask[..., None].to(out.dtype)
+    return out * _query_mask(key_mask, out)
 
 
 class WindowAttentionPacked(torch.autograd.Function):
@@ -89,7 +145,7 @@ class WindowAttentionPacked(torch.autograd.Function):
         else:
             out, lse = fa._launch_lse(qkv, bias, heads, scale)
             LSE_LAUNCHES += 1
-        out = out * key_mask[..., None].to(out.dtype)
+        out = out * _query_mask(key_mask, out)
         ctx.save_for_backward(qkv, bias, key_mask, lse, out)
         ctx.heads, ctx.scale = heads, scale
         return out
@@ -98,7 +154,7 @@ class WindowAttentionPacked(torch.autograd.Function):
     def backward(ctx, g):
         global BWD_LAUNCHES
         qkv, bias, key_mask, lse, out = ctx.saved_tensors
-        g = g * key_mask[..., None].to(g.dtype)
+        g = g * _query_mask(key_mask, g)
         delta = fa.row_delta(g, out, ctx.heads)
         if qkv.device.type == "cpu":
             dqkv = fa.flash_attention_packed_bwd_reference(

@@ -7,15 +7,19 @@ follow the flax names (``enc0_blk0.attn.qkv``, ``pool1.norm``,
 parameter tree mechanically. Batched helpers take the batch dimension
 written out where the JAX package vmaps.
 
-Every block's windowed attention routes as in JAX: stages with
-C % 128 == 0 take :func:`tpu3dssf_torch.kernels.flash_attention_packed`,
-the others :func:`tpu3dssf_torch.kernels.window_attention_packed`. Without
-a gradient both launch the Hopper inference kernel (K1) on a CUDA tensor;
-in training they are the custom-VJP rules that launch K2/K3 and K4/K5.
-``PTv3Config.use_pallas`` is kept for config compatibility and selects
-nothing: a CPU tensor takes the plain versions and a CUDA tensor the
-kernels. DropPath draws from an explicit ``torch.Generator`` passed to the
-forward (None, like JAX's ``deterministic=True``, disables it). Not ported
+Every block's windowed attention takes the route JAX's takes
+(:func:`attention_route`), so the counterpart of the same TPU kernel runs:
+with a window K that is a multiple of 128, stages with C % 128 == 0 (and at
+most 8 heads, or a 128-aligned head group) take
+:func:`tpu3dssf_torch.kernels.flash_attention_packed` (K1; K2/K3 in
+training) and the other stages with at most 8 heads
+:func:`tpu3dssf_torch.kernels.window_attention_packed` (K1; K4/K5); every
+other stage takes :func:`tpu3dssf_torch.kernels.window_attention` on
+(W, K, H, D) views of the projection (K6; K4/K5). ``PTv3Config.use_pallas``
+is kept for config compatibility and selects nothing: a CPU tensor takes
+the plain versions and a CUDA tensor the kernels. DropPath draws from an
+explicit ``torch.Generator`` passed to the forward (None, like JAX's
+``deterministic=True``, disables it). Not ported
 here: ``scan_blocks`` (a TPU compile workaround; the unrolled model
 computes the same function), ``remat`` and ``remat_attention`` (they
 raise), and ``_pool_structure``, the pooling by a fresh sort that
@@ -31,8 +35,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tpu3dssf_torch.kernels.flash_attention import flash_attention_packed
+from tpu3dssf_torch.kernels.flash_attention import (flash_attention_packed,
+                                                    pick_head_group)
 from tpu3dssf_torch.kernels.window_attention import (key_bias,
+                                                     window_attention,
                                                      window_attention_packed)
 from tpu3dssf_torch.models.layers import Dense, LayerNorm, lecun_normal
 from tpu3dssf_torch.serialization import (
@@ -224,6 +230,22 @@ class SerializedCPE(nn.Module):
         return x + y * mask[..., None]
 
 
+def attention_route(channels, heads, window):
+    """The attention route of JAX's ``SerializedAttention``
+    (``tpu3dssf/models/ptv3.py:394-422``) for a stage of ``channels`` and
+    ``heads`` at window ``window``: "packed" (K1, or K2/K3 in training),
+    "window_packed" (K1, or K4/K5) or "window" (K6, or K4/K5). JAX's rules
+    are Mosaic's (128-lane blocks, at most 8 heads unrolled per body); the
+    port follows them so that the same TPU kernel's counterpart runs."""
+    group = pick_head_group(heads, channels) if heads > 8 else None
+    if (window % 128 == 0 and channels % 128 == 0
+            and (heads <= 8 or group is not None)):
+        return "packed"
+    if window % 128 == 0 and heads <= 8:
+        return "window_packed"
+    return "window"
+
+
 class SerializedAttention(nn.Module):
     """Windowed MHA over one serialization order."""
 
@@ -243,18 +265,20 @@ class SerializedAttention(nn.Module):
         else:
             mask_s = mask
         W = N // K
+        H = self.heads
         qkvw = qkv.reshape(B * W, K, 3 * C)
         key_mask = mask_s.reshape(B * W, K)
-        if C % 128 == 0:
-            # the JAX packed route (K1, or K2/K3 in training); JAX's extra
-            # K % 128 and head-group conditions were Mosaic's
-            D = C // self.heads
-            out = flash_attention_packed(qkvw, key_bias(key_mask), self.heads,
-                                         1.0 / (D ** 0.5))
+        route = attention_route(C, H, K)
+        if route == "packed":
+            out = flash_attention_packed(qkvw, key_bias(key_mask), H,
+                                         1.0 / ((C // H) ** 0.5))
             out = out * key_mask[..., None].to(out.dtype)
+        elif route == "window_packed":
+            out = window_attention_packed(qkvw, key_mask, H)
         else:
-            # small C (32/64): the window route (K1, or K4/K5 in training)
-            out = window_attention_packed(qkvw, key_mask, self.heads)
+            # strided (W, K, H, D) views of the projection: no copy
+            q, k, v = qkvw.unflatten(-1, (3, H, C // H)).unbind(2)
+            out = window_attention(q, k, v, key_mask)
         out = out.reshape(B, N, C)
         if inv is not None:
             out = permutation_gather(out, inv, perm)

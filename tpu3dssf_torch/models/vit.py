@@ -7,15 +7,21 @@ RoPE, register tokens and reference token-slice quirk
 the layers under ``blocks.N`` (``blocks.0.norm1``, ``blocks.0.qkv``), the
 layout of the JAX CLI's stacked ``blocks`` tree.
 
-Attention always goes through
-:func:`tpu3dssf_torch.kernels.flash_attention_packed` (the Hopper kernel on
-a CUDA tensor, the plain version on a CPU tensor): RoPE is applied to q
-and k of the patch tokens outside the kernel, q is pre-scaled by 1/√D and
-packed back, exactly like the JAX flash path. No sequence padding: the
-kernel masks ragged N itself. ``ViTConfig.use_flash`` is kept for config
-compatibility and selects nothing. Not ported: W8A8 (``QuantDense``,
-``quantize_vit``), tensor parallelism and ``make_looped_encode`` (a TPU
-compiler workaround).
+Attention routes as JAX's flash path (``ViTBlock``): RoPE is applied to q
+and k of the patch tokens outside the kernel, then
+* with at most 8 heads, or a 128-aligned head group and
+  ``ViTConfig.packed_head_groups`` (ViT-S, and ViT-L by default), q is
+  pre-scaled by 1/√D and packed back for
+  :func:`tpu3dssf_torch.kernels.flash_attention_packed` (K1);
+* otherwise (ViT-L with ``packed_head_groups=False``) q, k and v go as
+  (B, N, H, D) tensors to :func:`tpu3dssf_torch.kernels.flash_attention`,
+  which scales q itself (K8, and K9 for a gradient).
+Each is the Hopper kernel on a CUDA tensor and the plain version on a CPU
+tensor. No sequence padding: the kernels mask ragged N themselves.
+``ViTConfig.use_flash`` is kept for config compatibility and selects
+nothing. Not ported: W8A8 (``QuantDense``, ``quantize_vit``), tensor
+parallelism and ``make_looped_encode`` (a TPU compiler workaround; the
+CLI config's ``vit_looped`` is accepted and has no effect).
 """
 
 from __future__ import annotations
@@ -29,7 +35,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tpu3dssf_torch.kernels.flash_attention import flash_attention_packed
+from tpu3dssf_torch.kernels.flash_attention import (flash_attention,
+                                                    flash_attention_packed,
+                                                    pick_head_group)
 from tpu3dssf_torch.models.layers import Dense, LayerNorm
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -51,6 +59,9 @@ class ViTConfig:
     dtype: torch.dtype = torch.float32
     ln_eps: float = 1e-6
     rope_theta: float = 100.0
+    # many-head route (H > 8): True → the packed kernel (K1) when a
+    # 128-aligned head group exists; False → the (B, N, H, D) kernel (K8)
+    packed_head_groups: bool = True
 
     @property
     def grid_size(self) -> Tuple[int, int]:
@@ -151,10 +162,16 @@ class ViTBlock(nn.Module):
         if rope_angles is not None:
             q = _apply_rope(q, rope_angles, cfg.num_prefix_tokens)
             k = _apply_rope(k, rope_angles, cfg.num_prefix_tokens)
-        q = q * torch.tensor(1.0 / math.sqrt(D), dtype=q.dtype)
-        packed = torch.cat([q.reshape(B, N, C), k.reshape(B, N, C),
-                            qkv[..., 2 * C:]], dim=-1)
-        out = self.proj(flash_attention_packed(packed, key_bias, H))
+        if H > 8 and (pick_head_group(H, C) is None
+                      or not cfg.packed_head_groups):
+            v = qkv[..., 2 * C:].reshape(B, N, H, D)
+            out = flash_attention(q, k, v, key_bias).reshape(B, N, C)
+        else:
+            q = q * torch.tensor(1.0 / math.sqrt(D), dtype=q.dtype)
+            packed = torch.cat([q.reshape(B, N, C), k.reshape(B, N, C),
+                                qkv[..., 2 * C:]], dim=-1)
+            out = flash_attention_packed(packed, key_bias, H)
+        out = self.proj(out)
         if cfg.layerscale_init is not None:
             out = self.ls1(out)
         x = x + out.to(x.dtype)
