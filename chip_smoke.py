@@ -15,32 +15,39 @@ gradient, and ``configs/synthetic_convergence_lidar.yaml`` at window 48,
 where every PTv3 block takes the (W, K, H, D) window route. It checks, in
 order (any failure raises, exit code ≠ 0):
 
-1. a CUDA device is present; prints the card's name and power limit;
+1. a CUDA device is present; prints the card's name and power limit, and
+   its maximum SM clock, which sets the exp's rate in the bounds;
 2. (with 6 and 12) every kernel source builds from ``tpu3dssf_torch/csrc``,
    all three nvcc processes started together (one thread each); build
    times and ptxas registers, shared memory and spills;
-3. the attention kernel agrees with its plain PyTorch version (max abs
-   error < 0.05, bf16) at every attention shape of the slice; kernel,
-   plain version and ``scaled_dot_product_attention`` (the library call
-   computing the same function) timed with CUDA events (median of 20
-   after warm-up), beside the bound of each call;
+3. the isolated attention checker (``check_attention``, one case of
+   ``check_flash_shape`` per shape and route): K1 at every inference shape
+   of the slice (max abs error < 0.05, bf16); at D = 64 beside the ViT-S
+   one, K8 (with its LSE) and K9 at the ViT-L/16 encoder's shape (B = 12
+   images, N = 2845 tokens, H = 16) and K8, K9 and K1 at ragged N = 1, 77,
+   130 with the trailing keys masked; K6 and the window route's K4/K5 at
+   every window-48 shape of the LiDAR config; K2/K4 and K3/K5 at every
+   training shape (see 7). Every row: kernel, plain version and the
+   library call computing the same function (``scaled_dot_product_
+   attention``, with a gradient pending or its backward) timed with CUDA
+   events (median of 20 after warm-up), beside the bound of that call;
+   every row is also held within 2% of its max |plain| (``REL_TOL``);
 4. the slice runs through the CLI's own entry point with the kernel's
    launch count up by exactly 34 per batch (12 ViT layers + 22 PTv3
    blocks), no k-NN launch and finite metrics; then one batch is timed end
    to end, and the kernel inside that batch: its device time and exactly
    34 launches per batch from the profiler, and the plain version's time
-   and the kernel's error on the very inputs the batch gave the kernel;
+   and the kernel's error on the very inputs the batch gave the kernel
+   (within 0.05 and within 2% of each call's max |plain|);
 5. a small model gives the same logits on the card (bf16, kernels) as on
    the CPU (f32, plain versions), within 5% of the logit scale;
 6. (the backward kernel's build, in 2);
-7. the training kernels agree with their plain versions at every training
-   shape (random bf16, 30% padding keys, one all-padding window): the
-   forward-with-LSE (K2 at C ≥ 128, K4 at C ∈ {32, 64}) within 0.05 and its
-   LSE within 1e-3 on rows with a valid key; the backward (K3, K5) within
-   0.05 · max(1, max |plain|), and exactly 0 in the all-padding window;
-   kernel, plain version and the library pair (SDPA's forward with a
-   gradient pending, and its autograd backward) timed with CUDA events,
-   beside the bound of each call;
+7. (in 3) the training kernels against their plain versions at every
+   training shape (random bf16, 30% padding keys, one all-padding window):
+   the forward-with-LSE (K2 at C ≥ 128, K4 at C ∈ {32, 64}) within 0.05 and
+   its LSE within 1e-3 on rows with a valid key; the backward (K3, K5)
+   within 0.05 · max(1, max |plain|), and exactly 0 in the all-padding
+   window; both also within 2% of their max |plain|, as every row of 3;
 8. one epoch of training through the CLI's own entry point (24 steps, 6
    val batches) on a temporary copy of the config with exact launch counts
    (per step K1 12, K2 14, K3 14, K4 8, K5 8; K1 34 per val batch; no
@@ -49,15 +56,15 @@ order (any failure raises, exit code ≠ 0):
 9. one train step (encode + forward + loss + backward + update) timed with
    CUDA events, its peak memory, K2–K5's device time inside it from the
    profiler, and their plain versions' time and the kernels' error on the
-   inputs that step gave them (within 0.05 · max(1, max |plain|), LSE
-   within 1e-3);
+   inputs that step gave them (within 0.05 · max(1, max |plain|) and 2% of
+   max |plain|, LSE within 1e-3);
 10. 10 steps on one fixed batch lower its loss;
 11. the small model's loss and gradient on the card (bf16, kernels) agree
     with the CPU's (f32, plain versions): loss within 5%, cosine of the
     whole gradient ≥ 0.98;
 12. (the k-NN kernel's build, in 2);
 13. K1 against its plain version at every attention shape of the parity
-    config (22 PTv3 blocks at batch 4), as in 3; then the k-NN kernel K7
+    config (22 PTv3 blocks at batch 4), by the checker of 3; then the k-NN kernel K7
     is bit-identical to its plain version (distances
     and indices) on both calls of a parity batch at full size (B = 4,
     Q = R = 34,816; knn5 k = 5, nearest k = 1), a ragged case (k = 8) and
@@ -76,21 +83,20 @@ order (any failure raises, exit code ≠ 0):
     2 launches per batch from the profiler, and on the inputs that batch
     gave them the plain versions' time and the kernels' error (K1 within
     0.05, K7 bit for bit), for K7 also cdist + topk's time and the bound;
-16. the (B, N, H, D) kernels against their plain versions: K8 (and its
-    training forward with LSE) and K9 at the ViT-L/16 encoder's shape
-    (B = 12 images, N = 2845 tokens, H = 16, D = 64) and at ragged N = 1,
-    77, 130 with the trailing keys masked; K6 and the window route's K4/K5
-    at every window-48 shape of the LiDAR config (random padding keys, one
-    all-padding window). Outputs within 0.05, LSE within 1e-3, gradients
-    within 0.05 · max(1, max |plain|) and exactly 0 in the all-padding
-    window; besides, every output within 2% of its max |plain|, and dq, dk,
-    dv within 2% of their largest |plain| value (``REL_TOL``); each timed
-    beside SDPA (its backward for K5/K9) and the bound;
+16. (in 3) the (B, N, H, D) kernels against their plain versions: K8
+    (and its training forward with LSE) and K9 at the ViT-L/16 shape and
+    ragged N; K6 and the window route's K4/K5 at every window-48 shape
+    (random padding keys, one all-padding window). Outputs within 0.05,
+    LSE within 1e-3, gradients within 0.05 · max(1, max |plain|) and
+    exactly 0 in the all-padding window; besides, every output within 2%
+    of its max |plain|, and dq, dk, dv within 2% of their largest |plain|
+    value (``REL_TOL``);
 17. ``main_infer`` over the fusion config with ``image_encoder:
     dinov3_large`` (ViT-L/16, a temporary copy): exactly 46 K1 launches per
     batch (24 ViT layers + 22 PTv3 blocks) and no other kernel over its 6
     test batches (2 scenes, 12 images at 640 x 1138 each), finite metrics;
-    one batch timed end to end with its peak memory;
+    one batch timed end to end with its peak memory, and K1 inside it as in
+    4 (46 launches per batch);
 18. the same encoder, weights and images with ``packed_head_groups=False``:
     exactly 24 K8 launches and no K1 per encode, its patch tokens within
     1% of the largest token of the K1 route's, and K8 inside the encode as
@@ -101,7 +107,9 @@ order (any failure raises, exit code ≠ 0):
     tokens with respect to every parameter, one sample of 6 images:
     exactly 24 K8 and 24 K9 launches; card kernels vs the plain versions on
     the card, per-parameter cosine ≥ 0.98; K9 inside the backward (two
-    device kernels per call) as K8 in 18, within 0.05 · max(1, max |plain|)
+    device kernels per call: the one-pass ``fap_bwd_d64_kernel`` and
+    ``fap_bwd_d64_dq_kernel``, which scales and casts its f32 dq) as K8 in
+    18, within 0.05 · max(1, max |plain|)
     and within 2% of the call's largest |plain| gradient value;
 20. ``main_infer`` over the LiDAR-only config at window 48 (a temporary
     copy, voxel capacity 726 x 48): exactly 22 K6 launches per batch and no
@@ -113,9 +121,11 @@ Every kernel record has ``launches`` (from its path's run), ``max_abs_err``
 (the largest error of its checks), ``ms`` (device time inside the path),
 ``plain_ms``, ``bound_ms`` and ``bound_by`` (the least time the card could
 take: bytes at 3.35 TB/s or operations at 989 TFLOP/s bf16 / 67 TFLOP/s
-f32) and ``library_ms`` (the PyTorch call named in ``library``). K1's
+f32 / one exp per score at 16 per clock per SM, at the card's
+maximum SM clock; ``bound_term`` says which, "exp" counting as operations
+in ``bound_by``) and ``library_ms`` (the PyTorch call named in ``library``). K1's
 numbers are per inference batch (step 4, 6 batches; ``parity`` holds its
-time per parity batch, step 15); K2–K5's per train step (step 9; launches
+time per parity batch, step 15, and ``vitl`` per ViT-L batch, step 17); K2–K5's per train step (step 9; launches
 from the one-epoch run of step 8); K7's per parity batch (step 15;
 launches from step 14's main_infer run); K6's per window-48 batch (step
 20), K8's per ViT-L encode (step 18) and K9's per ViT-L backward (step
@@ -148,6 +158,10 @@ PARITY_LAUNCHES = {"K1": 22, "K7": 2}
 # H100 SXM peaks from NVIDIA's datasheet: bf16 tensor cores, f32
 # outside the tensor cores, HBM
 BF16_FLOPS, F32_FLOPS, HBM_BYTES = 989e12, 67e12, 3.35e12
+# the exp's rate (see exp_rate) at the H100 SXM's maximum SM clock of
+# 1980 MHz; main() sets it from the card's own clocks.max.sm
+H100_SMS = 132
+EXP_RATE = 16 * H100_SMS * 1980e6
 # per train step: K1 (frozen ViT), K2/K3 (14 blocks at C >= 128), K4/K5
 # (8 blocks at C in {32, 64})
 TRAIN_LAUNCHES = {"K1": 12, "K2": 14, "K3": 14, "K4": 8, "K5": 8}
@@ -158,11 +172,12 @@ VITL_LAUNCHES, VITL_LAYERS = 24 + 22, 24
 # block on the (W, K, H, D) route, K6 per batch and K4 + K5 per train step
 LIDAR_CONFIG = "configs/synthetic_convergence_lidar.yaml"
 WINDOW, WINDOW_CAPACITY, WINDOW_LAUNCHES = 48, 726 * 48, 22
-# phases 16-20 also hold each compared output to max |kernel - plain| <=
-# REL_TOL * max |plain| (see rel_err): the absolute limits above are as
-# large as a typical value at the ViT-L shape (|out| ~ sqrt(e / N) ~ 0.03
-# for unit-variance scores), and far above the gradients that reach K9 in
-# the ViT-L backward; one bf16 ulp is at most 2**-7 of a value
+# every kernel comparison also holds each compared output to
+# max |kernel - plain| <= REL_TOL * max |plain| (see rel_err): the absolute
+# limits above are as large as a typical value over a long key row (|out|
+# ~ sqrt(e / N) ~ 0.05 at N = 1024 for unit-variance scores), so a lost or
+# mis-rescaled key tile would pass them, and far above the gradients that
+# reach K9 in the ViT-L backward; one bf16 ulp is at most 2**-7 of a value
 REL_TOL = 0.02
 # K8 route vs K1 route patch tokens, max abs error over max |token|: both
 # run the same kernel body on the same bf16 values, q·bf16(1/8) is exact
@@ -196,44 +211,68 @@ def card_line():
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def bound(flops, f32_ops, nbytes):
-    """(least ms, "operations" or "bytes"): bf16 tensor-core FLOPs and f32
-    operations at their peaks (whichever takes longer), bytes at the HBM
-    rate; the larger of the two sets the bound."""
-    ops_s = max(flops / BF16_FLOPS, f32_ops / F32_FLOPS)
-    bytes_s = nbytes / HBM_BYTES
-    return (max(ops_s, bytes_s) * 1e3,
-            "operations" if ops_s >= bytes_s else "bytes")
+def sm_clock_mhz():
+    """The SM clock's maximum, as ``nvidia-smi --query-gpu=clocks.max.sm``
+    reports it (MHz)."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
+
+
+def exp_rate(clock_mhz):
+    """exps per second on the special-function units: 16 ``ex2`` per clock
+    on each of the 132 SMs of an H100 SXM."""
+    return 16 * H100_SMS * clock_mhz * 1e6
+
+
+def bound(flops, f32_ops, nbytes, exps=0):
+    """(least ms, "operations", "exp" or "bytes"): bf16 tensor-core FLOPs,
+    f32 operations and exps (on the special-function units, at
+    :data:`EXP_RATE`) each at its peak, and bytes at the HBM rate; the
+    longest of them sets the bound and names it ("exp" where the exps
+    take longer than the rest)."""
+    times = {"operations": max(flops / BF16_FLOPS, f32_ops / F32_FLOPS),
+             "exp": exps / EXP_RATE, "bytes": nbytes / HBM_BYTES}
+    by = max(times, key=times.get)
+    return times[by] * 1e3, by
 
 
 def attention_bound(B, N, C, H, kind):
     """Bound of one packed-attention call on (B, N, 3C) bf16 qkv. kind
-    "fwd" (K1), "lse" (K2/K4) or "bwd" (K3/K5). Operations: the products
-    (QKᵀ and PV, 4·N²·C per row block; the backward recomputes QKᵀ and
-    takes four more, 10·N²·C) and 4 f32 operations per score (max, subtract,
-    exp, sum; backward: exp(s − lse), subtract, multiply, scale). Bytes:
-    each input read once, each output written once."""
+    "fwd" (K1, K6, K8), "lse" (K2/K4, K8 with its LSE) or "bwd" (K3/K5,
+    K9). Operations: the products (QKᵀ and PV, 4·N²·C per row block; the
+    backward recomputes QKᵀ and takes four more, 10·N²·C) and 4 f32
+    operations per score (max, subtract, exp, sum; backward: exp(s − lse),
+    subtract, multiply, scale). Exps: one per score in every kind; the
+    backward's p = exp(s − lse) needs no more (the two-pass D = 16 backward
+    spends a second, which the bound does not count). Bytes: each input read
+    once, each output written once."""
     rows = B * N
+    scores = B * H * N * N
     mm = (10 if kind == "bwd" else 4) * B * N * N * C
     if kind == "bwd":   # qkv, bias, dout, lse, delta → dqkv
         nbytes = rows * (6 * C + 4 + 2 * C + 8 * H + 6 * C)
     else:               # qkv, bias → out (+ lse)
         nbytes = rows * (6 * C + 4 + 2 * C + (4 * H if kind == "lse" else 0))
-    return bound(mm, 4 * B * H * N * N, nbytes)
+    return bound(mm, 4 * scores, nbytes, scores)
 
 
-def sdpa_inputs(qkv, key_bias, heads, masked, grad=False):
-    """(q, k, v, attn_mask) for ``scaled_dot_product_attention`` as views of
-    ``qkv`` (a leaf that requires grad when ``grad``); the additive bias in
-    the inputs' dtype where keys are masked, else None."""
-    import torch
-    B, N, C3 = qkv.shape
-    C = C3 // 3
-    leaf = qkv.detach().requires_grad_(grad)
-    q, k, v = (x.view(B, N, heads, C // heads).transpose(1, 2)
-               for x in leaf.split(C, dim=-1))
-    mask = key_bias[:, None].to(qkv.dtype) if masked else None
-    return leaf, q, k, v, mask
+def bound_term(rows):
+    """The term ("operations", "exp" or "bytes") that sets most of the
+    summed bound of ``rows`` (each with ``bound_ms`` and ``bound_by``)."""
+    ms = {}
+    for r in rows:
+        ms[r["bound_by"]] = ms.get(r["bound_by"], 0.0) + r["bound_ms"]
+    return max(ms, key=ms.get)
+
+
+def record_bound_by(term):
+    """The kernels line's ``bound_by``: the exp runs on the SM's special-
+    function units, so an exp bound is one of operations there."""
+    return "bytes" if term == "bytes" else "operations"
+
+
 
 
 def slice_attention_shapes(cfg):
@@ -266,54 +305,6 @@ def slice_attention_shapes(cfg):
     return shapes
 
 
-def check_kernel(shapes):
-    """Phase 3: K1 vs its plain version at every inference shape; per call
-    its time, the plain version's, ``scaled_dot_product_attention``'s (the
-    library call computing the same function) and the bound."""
-    import torch
-    import torch.nn.functional as F
-    from tpu3dssf_torch.kernels.modules import flash_attention as fa
-    from tpu3dssf_torch.utils import cuda_ms
-
-    gen = torch.Generator().manual_seed(0)
-    rows = []
-    for name, B, N, C, H, q_scale, masked, n in shapes:
-        qkv = torch.randn(B, N, 3 * C, generator=gen).to("cuda",
-                                                         torch.bfloat16)
-        if masked:   # random padding keys and one all-padding window
-            keep = torch.rand(B, N, generator=gen) > 0.3
-            keep[-1] = False
-            bias = torch.where(keep, 0.0, -1e9)[:, None, :]
-        else:
-            bias = torch.zeros(B, 1, N)
-        bias = bias.to("cuda", torch.float32).contiguous()
-        out = fa.flash_attention_packed(qkv, bias, H, q_scale)
-        torch.cuda.synchronize()
-        ref = fa.flash_attention_packed_reference(qkv, bias, H, q_scale)
-        if not torch.isfinite(out.float()).all():
-            raise AssertionError(f"{name}: kernel output is not finite")
-        err = (out.float() - ref.float()).abs().max().item()
-        ms = cuda_ms(lambda: fa.flash_attention_packed(qkv, bias, H,
-                                                       q_scale))
-        plain_ms = cuda_ms(lambda: fa.flash_attention_packed_reference(
-            qkv, bias, H, q_scale))
-        _, q, k, v, mask = sdpa_inputs(qkv, bias, H, masked)
-        scale = 1.0 if q_scale is None else q_scale
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, scale=scale))
-        bound_ms, bound_by = attention_bound(B, N, C, H, "fwd")
-        row = dict(shape=name, B=B, N=N, C=C, H=H, launches_per_batch=n,
-                   max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                   library_ms=library_ms, bound_ms=bound_ms,
-                   bound_by=bound_by)
-        print("kernel " + json.dumps(row), flush=True)
-        if not err < KERNEL_TOL:
-            raise AssertionError(f"{name}: max abs error {err} ≥ "
-                                 f"{KERNEL_TOL}")
-        rows.append(row)
-        del qkv, bias, out, ref, q, k, v, mask
-        torch.cuda.empty_cache()
-    return rows
 
 
 def run_slice(card):
@@ -386,7 +377,8 @@ def k1_spec(launches):
                 plain=fa.flash_attention_packed_reference,
                 error=lambda got, want: (got.float() - want.float()).abs()
                 .max().item(),
-                ok=lambda err: err < KERNEL_TOL, launches=launches)
+                ok=lambda err: err < KERNEL_TOL, relative=True,
+                launches=launches)
 
 
 def k7_spec():
@@ -489,7 +481,7 @@ def time_kernels_in_path(frame, specs):
             raise AssertionError(f"{tag}: {len(calls)} calls in one batch")
         row = dict(ms=ms, launches=n / per, plain_ms=0.0, max_abs_err=0.0)
         library, bound = spec.get("library"), spec.get("bound")
-        by = set()
+        by = []
         for args, got in calls:
             plain = functools.partial(spec["plain"], *args)
             want = plain()
@@ -506,10 +498,10 @@ def time_kernels_in_path(frame, specs):
             if bound:
                 b_ms, b_by = bound(*args)
                 row["bound_ms"] = row.get("bound_ms", 0.0) + b_ms
-                by.add(b_by)
+                by.append(dict(bound_ms=b_ms, bound_by=b_by))
             torch.cuda.empty_cache()
         if by:
-            row["bound_by"] = "operations" if "operations" in by else "bytes"
+            row["bound_by"] = bound_term(by)
         del calls
         torch.cuda.empty_cache()
         print(f"{tag} inside the batch, on its own inputs: "
@@ -588,7 +580,8 @@ def check_small_model():
 def print_build(what, info):
     print(f"build {what}: nvcc {info['seconds']:.2f} s")
     for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
+        if any(w in line for w in ("registers", "spill", "Compiling",
+                                   "warning")):
             print("  ptxas:" + line.split(":", 1)[-1])
 
 
@@ -615,14 +608,6 @@ def train_attention_shapes(cfg):
                                        key=lambda kv: kv[0][1])]
 
 
-def masked_inputs(gen, W, K, C):
-    """Random bf16 qkv, 30% padding keys and an all-padding last window."""
-    import torch
-    qkv = torch.randn(W, K, 3 * C, generator=gen).to("cuda", torch.bfloat16)
-    keep = torch.rand(W, K, generator=gen) > 0.3
-    keep[-1] = False
-    bias = torch.where(keep, 0.0, -1e9)[:, None, :].to("cuda").contiguous()
-    return qkv, bias, keep.to("cuda")
 
 
 def grad_error(got, ref):
@@ -631,87 +616,6 @@ def grad_error(got, ref):
     return err, KERNEL_TOL * max(1.0, ref.float().abs().max().item())
 
 
-def check_train_kernels(shapes):
-    """Phase 7: K2/K4 and K3/K5 vs their plain versions at every training
-    shape, with the library pair's time (SDPA forward and its backward)
-    and the bound per call; returns {TPU kernel: [row, ...]}."""
-    import torch
-    import torch.nn.functional as F
-    from tpu3dssf_torch.kernels.modules import flash_attention as fa
-    from tpu3dssf_torch.utils import cuda_ms
-
-    gen = torch.Generator().manual_seed(1)
-    rows = {k: [] for k in ("K2", "K3", "K4", "K5")}
-    for (kf, kb), name, W, K, C, H, n in shapes:
-        scale = (C // H) ** -0.5
-        qkv, bias, keep = masked_inputs(gen, W, K, C)
-        out, lse = fa._launch_lse(qkv, bias, H, scale)
-        torch.cuda.synchronize()
-        ref, ref_lse = fa.flash_attention_packed_lse_reference(qkv, bias, H,
-                                                               scale)
-        err = (out.float() - ref.float()).abs().max().item()
-        live = keep.any(-1)                  # windows with a valid key
-        lse_err = (lse - ref_lse)[live].abs().max().item()
-        # the library's training pair: SDPA's forward with a gradient
-        # pending (it keeps its LSE) and that forward's autograd backward
-        leaf, q, k, v, mask = sdpa_inputs(qkv, bias, H, True, grad=True)
-
-        def lib_fwd():
-            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                                  scale=scale)
-        lib_out = lib_fwd()
-        lib_dout = torch.randn_like(lib_out)   # keeps ``gen``'s stream
-        lib_fwd_ms = cuda_ms(lib_fwd)
-        lib_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
-            lib_out, leaf, lib_dout, retain_graph=True))
-        del leaf, q, k, v, mask, lib_out, lib_dout
-        fwd_bound = attention_bound(W, K, C, H, "lse")
-        bwd_bound = attention_bound(W, K, C, H, "bwd")
-        fwd = dict(shape=name, W=W, K=K, C=C, H=H, launches_per_step=n,
-                   max_abs_err=err, lse_err=lse_err,
-                   library_ms=lib_fwd_ms, bound_ms=fwd_bound[0],
-                   bound_by=fwd_bound[1],
-                   ms=cuda_ms(lambda: fa._launch_lse(qkv, bias, H, scale)),
-                   plain_ms=cuda_ms(
-                       lambda: fa.flash_attention_packed_lse_reference(
-                           qkv, bias, H, scale), reps=5, warmup=1))
-        print(f"kernel {kf} " + json.dumps(fwd), flush=True)
-        if not (torch.isfinite(out.float()).all() and err < KERNEL_TOL
-                and lse_err < LSE_TOL):
-            raise AssertionError(f"{kf} {name}: output error {err}, LSE "
-                                 f"error {lse_err}")
-        rows[kf].append(fwd)
-
-        dout = torch.randn(W, K, C, generator=gen).to("cuda")
-        dout = (dout * keep[..., None]).to(torch.bfloat16)
-        out = out * keep[..., None].to(out.dtype)
-        delta = fa.row_delta(dout, out, H)
-        got = fa._launch_bwd(qkv, bias, dout, lse, delta, H, scale)
-        torch.cuda.synchronize()
-        ref = fa.flash_attention_packed_bwd_reference(qkv, bias, dout, lse,
-                                                      delta, H, scale)
-        err, limit = grad_error(got, ref)
-        padded = got[-1].abs().max().item()
-        bwd = dict(shape=name, W=W, K=K, C=C, H=H, launches_per_step=n,
-                   max_abs_err=err, limit=limit, all_padding_max=padded,
-                   library_ms=lib_bwd_ms, bound_ms=bwd_bound[0],
-                   bound_by=bwd_bound[1],
-                   ms=cuda_ms(lambda: fa._launch_bwd(qkv, bias, dout, lse,
-                                                     delta, H, scale)),
-                   plain_ms=cuda_ms(
-                       lambda: fa.flash_attention_packed_bwd_reference(
-                           qkv, bias, dout, lse, delta, H, scale),
-                       reps=5, warmup=1))
-        print(f"kernel {kb} " + json.dumps(bwd), flush=True)
-        if not (torch.isfinite(got.float()).all() and err < limit
-                and padded == 0.0):
-            raise AssertionError(f"{kb} {name}: dqkv error {err} (limit "
-                                 f"{limit}), all-padding window max "
-                                 f"{padded}")
-        rows[kb].append(bwd)
-        del qkv, bias, out, ref, dout, got, lse, ref_lse, delta
-        torch.cuda.empty_cache()
-    return rows
 
 
 def counters():
@@ -922,7 +826,8 @@ def time_train_step(card):
         torch.cuda.synchronize()
     # on the step's own inputs: bf16 outputs reach |out| ≥ 4, where one
     # bf16 ulp is 0.03, so both directions take the scaled rule
-    # 0.05 · max(1, max |plain|); rel_err is the error over max |plain|
+    # 0.05 · max(1, max |plain|); rel_err, the error over max |plain|, is
+    # held to REL_TOL
     inside = {}
     for k, calls in cap.calls.items():
         plain_ms, err, rel, lse_err = 0.0, 0.0, 0.0, 0.0
@@ -943,10 +848,10 @@ def time_train_step(card):
                 e, limit = grad_error(out, ref)
                 scale = ref.float().abs().max().item()
             err, rel = max(err, e), max(rel, e / max(scale, 1e-30))
-            if not (e < limit and lse_err < LSE_TOL):
+            if not (e < limit and rel <= REL_TOL and lse_err < LSE_TOL):
                 raise AssertionError(f"{k} on the train step's inputs: "
-                                     f"error {e} (limit {limit}), LSE "
-                                     f"error {lse_err}")
+                                     f"error {e} (limit {limit}, relative "
+                                     f"{rel}), LSE error {lse_err}")
             plain_ms += cuda_ms(plain, reps=5, warmup=1)
         inside[k] = dict(ms=device_ms[k], plain_ms=plain_ms,
                          max_abs_err=err, rel_err=rel, calls=len(calls))
@@ -1315,22 +1220,36 @@ def grads_err(got, want):
             else float("inf"))
 
 
-def check_flash_shape(gen, name, B, N, H, D, keys, n, window):
-    """One shape of phase 16. ``keys``: "all" live, "trailing" (the last 5
-    keys masked) or "windows" (30% padding keys, an all-padding last
-    window). ``window``: the (W, K, H, D) route (K6 forward, K4 with its
-    LSE, K5) instead of K8 (its training forward with LSE) and K9. Each
-    output and each of dq, dk, dv is held to the absolute limits and to
-    :func:`rel_err` <= REL_TOL. Returns {kernel: row} with each call's
-    error, max |plain|, time, plain and library time and bound."""
+def check_flash_shape(gen, name, B, N, H, D, keys, route, tags, n, q_scale):
+    """One case of the isolated attention checker (:func:`check_attention`)
+    on one random bf16 (B, N, 3C) projection and its (B, N, H, D) views.
+
+    ``keys``: "all" live, "trailing" (the last 5 keys masked) or "windows"
+    (30% padding keys, an all-padding last window). ``route``: "packed"
+    (K1 through ``flash_attention_packed``, q scaled by ``q_scale``, None:
+    pre-scaled), "packed_train" (the forward with LSE and the backward
+    through the packed launchers: K2/K3, or K4/K5 at C < 128), "bhnd" (K8
+    through ``flash_attention``, its forward with LSE, K9) or "window" (K6
+    through ``window_attention``, K4, K5). ``tags``: the (forward, forward
+    with LSE, backward) kernels of the case, None where it has none; K8's
+    forward with LSE is its row's ``lse_forward``. ``n``: calls per path
+    run. Outputs are held within KERNEL_TOL, the LSE within LSE_TOL on rows
+    with a live key, gradients within 0.05 · max(1, max |plain|) (one limit
+    over dqkv on the packed route) and to exactly 0 in an all-padding
+    window; each output and gradient (dqkv, or dq, dk, dv together) also
+    within REL_TOL of its max |plain| (:func:`rel_err`). Every row is
+    timed beside its plain version, the library call computing the same
+    function (SDPA; with a gradient pending for a forward with LSE; its
+    autograd backward for a backward) and the bound of that call. Returns
+    {tag: row}."""
     import torch
     import torch.nn.functional as F
     from tpu3dssf_torch.utils import cuda_ms
     from tpu3dssf_torch.kernels.modules import flash_attention as fa
     from tpu3dssf_torch.kernels.modules import window_attention as wa
 
-    qkv = torch.randn(B, N, 3 * H * D, generator=gen).to("cuda",
-                                                         torch.bfloat16)
+    C = H * D
+    qkv = torch.randn(B, N, 3 * C, generator=gen).to("cuda", torch.bfloat16)
     q, k, v = qkv.unflatten(-1, (3, H, D)).unbind(2)
     keep = torch.ones(B, N, dtype=torch.bool)
     if keys == "trailing":
@@ -1340,121 +1259,189 @@ def check_flash_shape(gen, name, B, N, H, D, keys, n, window):
         keep[-1] = False
     keep = keep.to("cuda")
     bias = wa.key_bias(keep)
-    scale = D ** -0.5
-    # the window routes zero masked query rows and their gradient; K8 has
-    # no query mask
-    qmask = (keep if window else torch.ones_like(keep))[..., None, None]
+    scale = 1.0 if q_scale is None else q_scale
+    packed = route.startswith("packed")
+    # the window route zeroes masked query rows and their gradient, and the
+    # packed training rule's callers their incoming gradient; K1 and K8
+    # have no query mask
+    qmask = (keep if route in ("window", "packed_train")
+             else torch.ones_like(keep))[..., None, None]
     dout = torch.randn(B, N, H, D, generator=gen).to("cuda")
     dout = (dout * qmask).to(torch.bfloat16)
-    common = dict(shape=name, B=B, N=N, H=H, D=D, calls_per_path=n)
-    fwd, lse_tag, bwd = ("K6", "K4", "K5") if window else ("K8", None, "K9")
-    rows = {}
-
-    if window:
-        got, want = (wa.window_attention(q, k, v, keep),
-                     wa.window_attention_reference(q, k, v, keep))
-    else:
-        got, want = (fa.flash_attention(q, k, v, bias),
-                     fa.mha_reference(q, k, v, bias))
-    torch.cuda.synchronize()
+    count = {"packed": "launches_per_batch",
+             "packed_train": "launches_per_step"}.get(route, "calls_per_path")
+    common = {"shape": name, "route": route, "B": B, "N": N, "C": C, "H": H,
+              "D": D, count: n}
     _, (qt, kt, vt), mask = sdpa_views(q, k, v, bias)
-    rows[fwd] = dict(common, max_abs_err=max_err(got, want),
-                     rel_err=rel_err(got, want), max_abs_plain=peak(want),
-                     ms=cuda_ms(lambda: fa._launch_flash(q, k, v, bias,
-                                                         scale)),
-                     plain_ms=cuda_ms(lambda: mha_plain(q, k, v, bias),
-                                      reps=5, warmup=1),
-                     library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                         qt, kt, vt, attn_mask=mask, scale=scale)))
-    rows[fwd]["bound_ms"], rows[fwd]["bound_by"] = attention_bound(
-        B, N, H * D, H, "fwd")
-    finite = bool(torch.isfinite(got.float()).all())
+    fwd_tag, lse_tag, bwd_tag = tags
+    rows, checks = {}, {}
 
-    out, lse = fa._launch_flash(q, k, v, bias, scale, with_lse=True)
-    torch.cuda.synchronize()
-    ref, ref_lse = fa.flash_attention_lse_reference(q, k, v, bias, scale)
-    live = keep.any(-1)
-    lse_err = (lse - ref_lse)[live].abs().max().item()
-    lse_row = dict(common, max_abs_err=max_err(out, ref),
-                   rel_err=rel_err(out, ref), max_abs_plain=peak(ref),
-                   lse_err=lse_err)
+    def held(row, got):
+        return (bool(torch.isfinite(got.float()).all())
+                and row["max_abs_err"] < KERNEL_TOL
+                and row["rel_err"] <= REL_TOL)
+
+    if fwd_tag:
+        if route == "packed":
+            def run():
+                return fa.flash_attention_packed(qkv, bias, H, q_scale)
+
+            def plain():
+                return fa.flash_attention_packed_reference(qkv, bias, H,
+                                                           q_scale)
+            got = run()
+        else:
+            def run():
+                return fa._launch_flash(q, k, v, bias, scale)
+
+            def plain():
+                return mha_plain(q, k, v, bias)
+            got = (fa.flash_attention(q, k, v, bias) if route == "bhnd"
+                   else wa.window_attention(q, k, v, keep))
+        torch.cuda.synchronize()
+        want = (wa.window_attention_reference(q, k, v, keep)
+                if route == "window" else plain())
+        row = dict(common, max_abs_err=max_err(got, want),
+                   rel_err=rel_err(got, want), max_abs_plain=peak(want),
+                   ms=cuda_ms(run), plain_ms=cuda_ms(plain, reps=5, warmup=1),
+                   library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                       qt, kt, vt, attn_mask=mask, scale=scale)))
+        row["bound_ms"], row["bound_by"] = attention_bound(B, N, C, H, "fwd")
+        rows[fwd_tag] = row
+        checks[fwd_tag] = held(row, got)
+        del got, want
+
     if lse_tag:
-        lse_row["ms"] = cuda_ms(lambda: fa._launch_flash(
-            q, k, v, bias, scale, with_lse=True))
-        lse_row["plain_ms"] = cuda_ms(
-            lambda: fa.flash_attention_lse_reference(q, k, v, bias, scale),
-            reps=5, warmup=1)
-        leaves, (ql, kl, vl), _ = sdpa_views(q, k, v, bias, grad=True)
-        lse_row["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
-            ql, kl, vl, attn_mask=mask, scale=scale))
-        lse_row["bound_ms"], lse_row["bound_by"] = attention_bound(
-            B, N, H * D, H, "lse")
-        rows[lse_tag] = lse_row
-        del leaves, ql, kl, vl
-    else:   # K8's training forward: held to the same tolerances
-        rows[fwd]["lse_forward"] = lse_row
+        if packed:
+            def run():
+                return fa._launch_lse(qkv, bias, H, scale)
 
-    out = out * qmask.to(out.dtype)
-    delta = fa.row_delta(dout, out)
-    grads = fa._launch_flash_bwd(q, k, v, bias, dout, lse, delta, scale)
-    torch.cuda.synchronize()
-    want = fa.flash_attention_bwd_reference(q, k, v, bias, dout, lse, delta,
+            def plain():
+                return fa.flash_attention_packed_lse_reference(qkv, bias, H,
+                                                               scale)
+        else:
+            def run():
+                return fa._launch_flash(q, k, v, bias, scale, with_lse=True)
+
+            def plain():
+                return fa.flash_attention_lse_reference(q, k, v, bias, scale)
+        out, lse = run()
+        torch.cuda.synchronize()
+        ref, ref_lse = plain()
+        live = keep.any(-1)
+        leaves, (ql, kl, vl), _ = sdpa_views(q, k, v, bias, grad=True)
+        row = dict(common, max_abs_err=max_err(out, ref),
+                   rel_err=rel_err(out, ref), max_abs_plain=peak(ref),
+                   lse_err=(lse - ref_lse)[live].abs().max().item(),
+                   ms=cuda_ms(run), plain_ms=cuda_ms(plain, reps=5, warmup=1),
+                   library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                       ql, kl, vl, attn_mask=mask, scale=scale)))
+        row["bound_ms"], row["bound_by"] = attention_bound(B, N, C, H, "lse")
+        if lse_tag == fwd_tag:
+            rows[fwd_tag]["lse_forward"] = row
+        else:
+            rows[lse_tag] = row
+        checks["forward with LSE"] = held(row, out)
+        checks["LSE"] = row["lse_err"] < LSE_TOL
+        del leaves, ql, kl, vl, ref, ref_lse
+
+    if bwd_tag:
+        out = (out.unflatten(-1, (H, D)) if packed else out) * qmask.to(
+            out.dtype)
+        delta = fa.row_delta(dout, out)
+        if packed:
+            dflat = dout.flatten(2)
+
+            def run():
+                return fa._launch_bwd(qkv, bias, dflat, lse, delta, H, scale)
+
+            def plain():
+                return fa.flash_attention_packed_bwd_reference(
+                    qkv, bias, dflat, lse, delta, H, scale)
+            got, want = run(), plain()
+            errs = [grad_error(got, want)]
+            got, want = fa._split_heads(got, H), fa._split_heads(want, H)
+        else:
+            def run():
+                return fa._launch_flash_bwd(q, k, v, bias, dout, lse, delta,
                                             scale)
-    errs = [grad_error(a, b) for a, b in zip(grads, want)]
-    padded = (max(g[-1].abs().max().item() for g in grads) if window
-              else 0.0)
-    rows[bwd] = dict(common, max_abs_err=max(e for e, _ in errs),
-                     limit=min(lim for _, lim in errs),
-                     rel_err=rel_err(grads, want),
-                     max_abs_plain=[peak(x) for x in want],
-                     all_padding_max=padded,
-                     ms=cuda_ms(lambda: fa._launch_flash_bwd(
-                         q, k, v, bias, dout, lse, delta, scale)),
-                     plain_ms=cuda_ms(lambda: bwd_plain(
-                         q, k, v, bias, dout, lse, delta, scale),
-                         reps=5, warmup=1),
-                     library_ms=cuda_ms(flash_bwd_library(
-                         q, k, v, bias, dout, lse, delta, scale)))
-    rows[bwd]["bound_ms"], rows[bwd]["bound_by"] = attention_bound(
-        B, N, H * D, H, "bwd")
+
+            def plain():
+                return bwd_plain(q, k, v, bias, dout, lse, delta, scale)
+            got, want = run(), plain()
+            errs = [grad_error(a, b) for a, b in zip(got, want)]
+        torch.cuda.synchronize()
+        padded = (max(g[-1].abs().max().item() for g in got)
+                  if keys == "windows" else 0.0)
+        row = dict(common, max_abs_err=max(e for e, _ in errs),
+                   limit=min(lim for _, lim in errs),
+                   rel_err=rel_err(got, want),
+                   max_abs_plain=[peak(x) for x in want],
+                   all_padding_max=padded, ms=cuda_ms(run),
+                   plain_ms=cuda_ms(plain, reps=5, warmup=1),
+                   library_ms=cuda_ms(flash_bwd_library(
+                       q, k, v, bias, dout, lse, delta, scale)))
+        row["bound_ms"], row["bound_by"] = attention_bound(B, N, C, H, "bwd")
+        rows[bwd_tag] = row
+        checks[bwd_tag] = (all(torch.isfinite(g.float()).all() for g in got)
+                           and all(e < lim for e, lim in errs)
+                           and row["rel_err"] <= REL_TOL)
+        checks["all-padding window"] = padded == 0.0
+        del got, want, delta
     for tag, row in rows.items():
         print(f"kernel {tag} " + json.dumps(row), flush=True)
-    checks = {fwd: (rows[fwd]["max_abs_err"] < KERNEL_TOL and finite
-                    and rows[fwd]["rel_err"] <= REL_TOL),
-              "forward with LSE": (lse_row["max_abs_err"] < KERNEL_TOL
-                                   and lse_row["rel_err"] <= REL_TOL),
-              "LSE": lse_err < LSE_TOL,
-              bwd: (all(e < lim for e, lim in errs)
-                    and rows[bwd]["rel_err"] <= REL_TOL),
-              "all-padding window": padded == 0.0}
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
-        raise AssertionError(f"{name}: {bad} out of tolerance: "
+        raise AssertionError(f"{name} ({route}): {bad} out of tolerance: "
                              f"{json.dumps(rows)}")
-    del qkv, q, k, v, dout, got, want, out, lse, grads, qt, kt, vt
-    torch.cuda.empty_cache()
     return rows
 
 
-def check_flash_kernels(window_shapes):
-    """Phase 16: K8 and K9 at the ViT-L encoder's shape (B = 12 images,
-    N = 2845 tokens, H = 16, D = 64) and at ragged N (1, 77, 130) with the
-    trailing keys masked; K6 and the window route's K4/K5 at every
-    attention shape of the window-48 LiDAR config (``window_shapes``, from
-    :func:`slice_attention_shapes`; random padding keys, one all-padding
-    window). Returns {kernel: [row, ...]}."""
-    import torch
-    gen = torch.Generator().manual_seed(2)
-    rows = {k: [] for k in ("K4", "K5", "K6", "K8", "K9")}
-    cases = [("vitl", 12, 2845, 16, 64, "all", VITL_LAYERS, False)]
-    cases += [(f"ragged_n{n}", 2, n, 16, 64, "trailing", 0, False)
-              for n in (1, 77, 130)]
-    cases += [(name, W, K, H, C // H, "windows", n, True)
+def inference_cases(shapes):
+    """Cases of :func:`check_flash_shape` for K1 at every inference shape
+    (:func:`slice_attention_shapes`)."""
+    return [(name, B, N, H, C // H, "windows" if masked else "all", "packed",
+             ("K1", None, None), n, q_scale)
+            for name, B, N, C, H, q_scale, masked, n in shapes]
+
+
+def train_cases(shapes):
+    """Cases for K2/K3 (C ≥ 128) and K4/K5 at every training shape
+    (:func:`train_attention_shapes`) on the packed launchers."""
+    return [(name, W, K, H, C // H, "windows", "packed_train", (None, kf, kb),
+             n, (C // H) ** -0.5)
+            for (kf, kb), name, W, K, C, H, n in shapes]
+
+
+def flash_cases(window_shapes):
+    """Cases at D = 64 beside the ViT-S one of :func:`inference_cases`: K8
+    (with its LSE) and K9 at the ViT-L/16 encoder's shape (B = 12 images,
+    N = 2845, H = 16) and at ragged N = 1, 77, 130 with the trailing keys
+    masked, and K1 at those ragged N (ViT-S heads); then K6 and the window
+    route's K4/K5 at every window-48 shape (``window_shapes``)."""
+    cases = [("vitl", 12, 2845, 16, 64, "all", "bhnd", ("K8", "K8", "K9"),
+              VITL_LAYERS, 0.125)]
+    cases += [(f"ragged_n{n}", 2, n, 16, 64, "trailing", "bhnd",
+               ("K8", "K8", "K9"), 0, 0.125) for n in (1, 77, 130)]
+    cases += [(f"ragged_n{n}_packed", 2, n, 6, 64, "trailing", "packed",
+               ("K1", None, None), 0, None) for n in (1, 77, 130)]
+    cases += [(name, W, K, H, C // H, "windows", "window", ("K6", "K4", "K5"),
+               n, (C // H) ** -0.5)
               for name, W, K, C, H, _, _, n in window_shapes]
-    for name, B, N, H, D, keys, n, window in cases:
-        for tag, row in check_flash_shape(gen, name, B, N, H, D, keys, n,
-                                          window).items():
-            rows[tag].append(row)
+    return cases
+
+
+def check_attention(cases, seed):
+    """The isolated attention checker (phases 3 and 13): every case of
+    :func:`check_flash_shape` on seeded inputs; returns {(tag, route):
+    [row, ...]}."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    rows = {}
+    for case in cases:
+        for tag, row in check_flash_shape(gen, *case).items():
+            rows.setdefault((tag, case[6]), []).append(row)
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1509,8 +1496,10 @@ def run_vitl_frame(card, tmp):
     """Phase 17: ``main_infer`` over the fusion config with the ViT-L/16
     encoder (its 6 test batches of 2 scenes, 12 images at 640 x 1138), with
     exactly 46 K1 launches per batch (24 ViT layers + 22 PTv3 blocks) and no
-    other kernel; then one batch timed end to end with its peak memory.
-    Returns (K1 launches, frame record, (vit, vit_cfg, encode, images))."""
+    other kernel; then one batch timed end to end with its peak memory, and
+    K1 inside it (device time from the profiler; its error and the plain
+    version's time on its own inputs). Returns (K1 launches, frame record,
+    (vit, vit_cfg, encode, images))."""
     import numpy as np
     import torch
     from tpu3dssf_torch.cli import common, main_infer
@@ -1550,11 +1539,14 @@ def run_vitl_frame(card, tmp):
           f"{images.shape[0] * images.shape[1]} images, {points:,} valid "
           f"points): {frame_ms:.3f} ms -> {points / frame_ms * 1e3:,.0f} "
           f"points/s; peak allocated {peak / 2**30:.3f} GiB [{card}]")
+    inside, total = time_kernels_in_path(frame,
+                                         {"K1": k1_spec(VITL_LAUNCHES)})
     del model
     torch.cuda.empty_cache()
     return launches["K1"], dict(
         frame_ms=frame_ms, points=points, points_per_s=points / frame_ms * 1e3,
-        peak_bytes=peak, batches=n, main_infer_s=seconds), (
+        peak_bytes=peak, batches=n, main_infer_s=seconds,
+        device_kernel_ms=total, k1=inside["K1"]), (
         vit, vit_cfg, encode, images)
 
 
@@ -1767,8 +1759,13 @@ def main():
     from tpu3dssf_torch.cli.common import load_config
     from tpu3dssf_torch.kernels import _build
 
+    global EXP_RATE
     card = card_line()
     print(card)
+    clock = sm_clock_mhz()
+    EXP_RATE = exp_rate(clock)
+    print(f"SM clock max {clock:g} MHz (nvidia-smi clocks.max.sm): exp bound "
+          f"at 16 per clock per SM x {H100_SMS} SMs = {EXP_RATE:.4g}/s")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}, "
           f"{torch.cuda.device_count()} device(s)")
@@ -1781,13 +1778,37 @@ def main():
           "s wall, one nvcc each, all started together")
     for source in SOURCES:
         print_build(source, _build.BUILD_INFO[source])
+    for source, fn in (
+            ("flash_attention_packed.cu", "fa_forward_d64_smem_bytes"),
+            ("flash_attention_packed_bwd.cu", "fa_backward_d64_smem_bytes")):
+        print(f"  {source}: the D = 64 kernel takes "
+              f"{getattr(_build.load_library(source), fn)()} bytes of "
+              "dynamic shared memory")
 
+    # phase 3: the isolated attention checker (K1 at the fusion config's
+    # inference shapes, D = 64 beside them, K2-K5 at its training shapes,
+    # K6/K4/K5 at the window-48 shapes)
     cfg = load_config(CONFIG)
-    rows = check_kernel(slice_attention_shapes(cfg))
+    tmp = tempfile.mkdtemp(prefix="tpu3dssf_smoke_")
+    try:
+        window_cfg = load_config(config_copy(
+            LIDAR_CONFIG, tmp, "w48.yaml", tpu=dict(
+                window_size=WINDOW, voxel_capacity=WINDOW_CAPACITY))[0])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    iso = check_attention(
+        inference_cases(slice_attention_shapes(cfg))
+        + flash_cases(slice_attention_shapes(window_cfg))
+        + train_cases(train_attention_shapes(cfg)), seed=0)
+    rows = iso[("K1", "packed")]
+    train_rows = {k: iso[(k, "packed_train")] for k in ("K2", "K3", "K4",
+                                                         "K5")}
+    flash_rows = {k: iso[(k, route)] for k, route in (
+        ("K4", "window"), ("K5", "window"), ("K6", "window"), ("K8", "bhnd"),
+        ("K9", "bhnd"))}
     launches, k1, frame = run_slice(card)
     check_small_model()
 
-    train_rows = check_train_kernels(train_attention_shapes(cfg))
     tmp = tempfile.mkdtemp(prefix="tpu3dssf_smoke_")
     try:
         train_launches, steps = run_training(tmp)
@@ -1797,8 +1818,8 @@ def main():
     overfit_one_batch()
     check_small_model_grad()
 
-    parity_rows = check_kernel(
-        slice_attention_shapes(load_config(PARITY_CONFIG)))
+    parity_rows = check_attention(inference_cases(slice_attention_shapes(
+        load_config(PARITY_CONFIG))), seed=13)[("K1", "packed")]
     knn_rows = check_knn(card)
     tmp = tempfile.mkdtemp(prefix="tpu3dssf_smoke_")
     try:
@@ -1809,10 +1830,6 @@ def main():
 
     tmp = tempfile.mkdtemp(prefix="tpu3dssf_smoke_")
     try:
-        window_cfg = load_config(config_copy(
-            LIDAR_CONFIG, tmp, "w48.yaml", tpu=dict(
-                window_size=WINDOW, voxel_capacity=WINDOW_CAPACITY))[0])
-        flash_rows = check_flash_kernels(slice_attention_shapes(window_cfg))
         vitl_k1, vitl_frame, (vit, vit_cfg, encode, images) = \
             run_vitl_frame(card, tmp)
         k8_launches, k8, route = run_vitl_k8(vit, encode, images)
@@ -1835,13 +1852,16 @@ def main():
         # bound and library call summed over its 34 calls
         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": per_path(rows, "bound_ms", "launches_per_batch"),
-        "bound_by": ("operations" if all(r["bound_by"] == "operations"
-                                         for r in rows) else "bytes"),
+        "bound_by": record_bound_by(bound_term(rows)),
+        "bound_term": bound_term(rows),
         "library_ms": per_path(rows, "library_ms", "launches_per_batch"),
         "library": "scaled_dot_product_attention",
         "per": "inference batch", "train_launches": train_launches["K1"],
         "parity_launches": parity["main_infer"][0]["K1"],
         "vitl_launches": vitl_k1,
+        # per ViT-L fusion batch (phase 17), on that batch's own inputs
+        "vitl": dict(ms=vitl_frame["k1"]["ms"],
+                     plain_ms=vitl_frame["k1"]["plain_ms"]),
         # per parity batch, likewise
         "parity": dict(
             ms=in_parity["K1"]["ms"], plain_ms=in_parity["K1"]["plain_ms"],
@@ -1864,9 +1884,8 @@ def main():
             "ms": inside[k]["ms"], "plain_ms": inside[k]["plain_ms"],
             "bound_ms": per_path(train_rows[k], "bound_ms",
                                  "launches_per_step"),
-            "bound_by": ("operations" if all(
-                r["bound_by"] == "operations" for r in train_rows[k])
-                else "bytes"),
+            "bound_by": record_bound_by(bound_term(train_rows[k])),
+            "bound_term": bound_term(train_rows[k]),
             "library_ms": per_path(train_rows[k], "library_ms",
                                    "launches_per_step"),
             "library": ("scaled_dot_product_attention"
@@ -1876,7 +1895,7 @@ def main():
         }
         if k in ("K4", "K5"):
             # the (W, K, H, D) route: launches per window-48 train step, and
-            # the isolated calls (phase 16) summed over that step's calls
+            # the isolated calls (phase 3) summed over that step's calls
             record["window_route"] = dict(
                 launches=step_launches[k],
                 **{key: per_path(flash_rows[k], key, "calls_per_path")
@@ -1893,7 +1912,8 @@ def main():
         # per parity batch (a knn5 and a nearest call), on that batch's own
         # inputs
         "ms": k7["ms"], "plain_ms": k7["plain_ms"],
-        "bound_ms": k7["bound_ms"], "bound_by": k7["bound_by"],
+        "bound_ms": k7["bound_ms"], "bound_by": record_bound_by(
+            k7["bound_by"]), "bound_term": k7["bound_by"],
         "library_ms": k7["library_ms"], "library": "cdist + topk",
         "cdist_topk_ms": k7["library_ms"], "per": "parity batch",
         "parity_launches": {n: (c["K7"], b) for n, (c, b) in parity.items()},
@@ -1916,8 +1936,10 @@ def main():
             "max_abs_err": max([row["max_abs_err"]]
                                + [r["max_abs_err"] for r in flash_rows[k]]),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
-            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"], "library": library, "per": per,
+            "bound_ms": row["bound_ms"],
+            "bound_by": record_bound_by(row["bound_by"]),
+            "bound_term": row["bound_by"], "library_ms": row["library_ms"],
+            "library": library, "per": per,
         })
     records.sort(key=lambda r: next(k for k, v in KERNELS.items()
                                     if v[2] == r["replaces"]))

@@ -384,3 +384,89 @@ def test_parity_modes_launch_the_knn_kernel(cuda):
     torch.cuda.synchronize()
     assert knn.LAUNCHES == before + 2
     assert torch.isfinite(vox.voxel_raw).all() and vals.grad.abs().sum() > 0
+
+
+# The D = 64 kernels (wgmma, TMA, a K/V ring; the backward in one pass with
+# dq summed by f32 atomics, so its last bits vary from run to run): ragged
+# N around the 64-query and 128-key tiles, packed and (B, N, H, D) views,
+# q pre-scaled (1), scaled by 1/8 or by 0.3 (the forward rounds q_s in
+# shared memory; the backward folds bf16(q_scale) into its f32 products,
+# exact for a power of two and about 2**-9 of a value off for 0.3)
+D64_N = [1, 63, 64, 65, 127, 128, 129, 2845]
+
+
+def _d64_inputs(cuda, N, packed, seed=0):
+    """q, k, v views at D = 64 (B = 2, H = 6) of one bf16 (B, N, 3C)
+    projection, packed (head h at channel 64 h of each third) or as
+    (B, N, 3, H, D); a bias masking the last 5 keys of batch row 0 with
+    -1e9 and every key of batch row 1 with -inf, so row 1 is all-masked
+    (out 0, LSE +inf); an upstream gradient."""
+    B, H, D = 2, 6, 64
+    gen = torch.Generator().manual_seed(seed)
+    qkv = torch.randn(B, N, 3 * H * D, generator=gen).to(cuda, torch.bfloat16)
+    if packed:
+        q, k, v = fa._split_heads(qkv, H)
+    else:
+        q, k, v = qkv.unflatten(-1, (3, H, D)).unbind(2)
+    bias = torch.zeros(B, 1, N)
+    if N > 5:
+        bias[0, :, -5:] = -1e9
+    bias[1] = -float("inf")
+    dout = torch.randn(B, N, H, D, generator=gen).to(cuda, torch.bfloat16)
+    return q, k, v, bias.to(cuda), dout
+
+
+def _close(got, want, what):
+    """Within 0.05 · max(1, max |plain|) and 2% of max |plain| (one bf16
+    ulp is at most 2**-7 of a value)."""
+    err = (got.float() - want.float()).abs().max().item()
+    top = want.float().abs().max().item()
+    assert torch.isfinite(got.float()).all(), what
+    assert err < TOL * max(1.0, top) and err <= 0.02 * top + 1e-6, \
+        (what, err, top)
+
+
+@pytest.mark.parametrize("N", D64_N)
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("q_scale", [1.0, 0.125, 0.3])
+def test_d64_forward_and_backward_match_their_plain_versions(cuda, N, packed,
+                                                             q_scale):
+    q, k, v, bias, dout = _d64_inputs(cuda, N, packed)
+    out, lse = fa._launch_flash(q, k, v, bias, q_scale, with_lse=True)
+    plain = fa._launch_flash(q, k, v, bias, q_scale)
+    torch.cuda.synchronize()
+    ref, ref_lse = fa.flash_attention_lse_reference(q, k, v, bias, q_scale)
+    _close(out[0], ref[0], "out")
+    _close(plain[0], ref[0], "out without LSE")
+    assert (lse[0] - ref_lse[0]).abs().max().item() < 1e-3
+    assert out[1].abs().max().item() == 0.0 == plain[1].abs().max().item()
+    assert bool((lse[1] == float("inf")).all())
+    delta = fa.row_delta(dout, out)
+    got = fa._launch_flash_bwd(q, k, v, bias, dout, lse, delta, q_scale)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_bwd_reference(q, k, v, bias, dout, lse, delta,
+                                            q_scale)
+    top = max(w[0].float().abs().max().item() for w in want)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        err = (a[0].float() - b[0].float()).abs().max().item()
+        assert torch.isfinite(a.float()).all(), name
+        # dq and dk are 0 up to rounding at N = 1: one scale for the three
+        assert err < TOL * max(1.0, top) and err <= 0.02 * top + 1e-6, \
+            (name, err, top)
+        assert a[1].abs().max().item() == 0.0, name   # the all-masked row
+
+
+def test_d64_launches_count_once_each(cuda):
+    """A D = 64 call counts once as K1 (packed), K8 and K9."""
+    q, k, v, bias, dout = _d64_inputs(cuda, 300, packed=True)
+    qkv = torch.randn(2, 300, 3 * 384, device=cuda).to(torch.bfloat16)
+    before = (fa.LAUNCHES, fa.FLASH_LAUNCHES, fa.FLASH_BWD_LAUNCHES)
+    fa.flash_attention_packed(qkv, bias, 6)
+    after = (fa.LAUNCHES, fa.FLASH_LAUNCHES, fa.FLASH_BWD_LAUNCHES)
+    assert [a - b for a, b in zip(after, before)] == [1, 0, 0]
+    fa.flash_attention(q, k, v, bias)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    fa.flash_attention(*leaves, bias).backward(dout)
+    torch.cuda.synchronize()
+    final = (fa.LAUNCHES, fa.FLASH_LAUNCHES, fa.FLASH_BWD_LAUNCHES)
+    assert [a - b for a, b in zip(final, after)] == [0, 2, 1]

@@ -1,7 +1,7 @@
 // Strided flash attention forward for Hopper (sm_90a), bf16 in/out.
 //
-// One kernel replaces four TPU kernels that compute the same function and
-// differ only in layout and Mosaic block rules:
+// Replaces four TPU kernels that compute the same function and differ only
+// in layout and Mosaic block rules:
 //   * tpu3dssf/kernels/flash_attention.py::_packed_kernel, its
 //     with_lse=False forward (K1) and, with the kLse flag, its with_lse=True
 //     training forward (K2);
@@ -24,38 +24,65 @@
 // and the output is normalised after the PV product by max(denominator,
 // 1e-20), as the TPU kernels do.
 //
-// Design. One CTA of four warps per (64-row query tile, head, batch row);
-// each warp owns 16 query rows. The CTA walks the keys in tiles of 64 with an
-// online softmax (running max, running sum, f32 output accumulator in
-// registers), so no score block ever leaves the SM: the TPU kernels instead
-// kept all N keys of a head resident in VMEM, which at N = 2845, D = 64 is
-// more than the 227 KB of shared memory a block may use. Both products run
-// on the tensor cores as mma.sync m16n8k16 bf16 with f32 accumulation; the
-// S accumulator fragment is re-packed in registers as the A operand of the
-// PV product, so probabilities never touch shared memory. Ragged edges are
-// masked in the kernel (keys past N score -inf, query rows past N are not
-// stored), so N need not be a multiple of any tile: a 48-slot PTv3 window
-// is one CTA per (window, head) with 16 idle rows and keys.
+// Two kernels, chosen by the head dimension D at the C entry point.
 //
-// With kLse the kernel also writes the per-(b, h, query row) log-sum-exp in
-// natural-log units, lse[b, h, n] = m + log(max(l, 1e-20)) as f32 (B, H, N),
-// converted once per row on the store from the running max m and sum l.
+// D = 16 (the PTv3 stages: K1, K2, K4, K6), fap_fwd_kernel. One CTA of four
+// warps per (64-row query tile, head, batch row); each warp owns 16 query
+// rows. The CTA walks the keys in tiles of 64 with an online softmax
+// (running max, running sum, f32 output accumulator in registers), so no
+// score block ever leaves the SM: the TPU kernels instead kept all N keys
+// of a head resident in VMEM. Both products run as mma.sync m16n8k16 bf16
+// with f32 accumulation; the S accumulator fragment is re-packed in
+// registers as the A operand of the PV product. Ragged edges are masked in
+// the kernel (keys past N score -inf, query rows past N are not stored), so
+// a 48-slot PTv3 window is one CTA per (window, head) with 16 idle rows and
+// keys. Each key brings 2 x 16 x 2 bytes of K and V for 2 x 16
+// multiply-adds per query row, and every score one exp: at window 1024 the
+// exp on the special-function units (16 per clock per SM) is the tightest
+// limit, about 3.7 times the products; thousands of CTAs hide the latency
+// of the plain loads.
 //
-// What bounds it. At D = 16 (the PTv3 stages) each key brings 2 x 16 x 2
-// bytes of K and V for 2 x 16 multiply-adds per query row: arithmetic
-// intensity is low, and the kernel is bound by memory and latency (global
-// loads, the exp of every score, shuffles). The 64-row query tile amortises
-// each K/V tile over 64 rows, and one CTA per (tile, head, window) gives
-// thousands of CTAs to hide the load latency. At D = 64 (the ViT) the
-// products dominate and the bound is the tensor-core issue rate of mma.sync;
-// keeping S and P in registers and padding the shared-memory rows to avoid
-// bank conflicts keeps the MMA pipe fed. wgmma, TMA and a pipelined
-// multi-stage K/V ring are the next steps.
+// D = 64 (the ViT: K1 at every ViT-S layer, K8 and K8's forward with LSE on
+// the ViT-L route), fap_fwd_kernel_d64. One score costs 256 product flops
+// and one exp: at 989 TFLOP/s and 16 exps per clock on 132 SMs at 1.98 GHz
+// the tensor cores and the exp are about equally tight (ViT-L, B = 12:
+// products 0.40 ms, exps 0.37 ms). So the kernel keeps both busy at once:
+//   * one CTA per (128 query rows, head, batch row) of three warpgroups:
+//     two consumers of 64 rows each (setmaxnreg up to 232 registers) and a
+//     producer (down to 40) of which one warp works;
+//   * the producer loads Q once and streams K and V in tiles of 192 keys
+//     (fewer per-tile waits, shuffles and rescales than 128) through a
+//     ring of three stages with TMA (4-D tensor maps over (D, H, N, B) from
+//     each view's strides, so the packed (B, N, 3C) layout and (B, N, H, D)
+//     tensors are both just strides; 128-byte swizzle), with full/empty
+//     mbarrier pairs; its lanes stage the f32 key bias beside each tile,
+//     -inf past N (TMA fills keys past N with zeros, which would score 0),
+//     and flag a tile whose biases are all 0 (the unmasked ViT), whose
+//     softmax then reads none: shared-memory reads after the wait on S sit
+//     on the softmax's critical path;
+//   * S = q_s K^T is wgmma m64n192k16 from shared memory; O += P V is wgmma
+//     m64n64k16 with P as the A operand from registers (the S accumulator
+//     re-packed to bf16) and V read MN-major (the transpose flag), so V is
+//     never transposed by hand;
+//   * within a warpgroup, the products of key tile j (S_j) and of tile j-1
+//     (P V) are in flight together while the softmax of S_j runs, so its
+//     exps overlap the PV product; across the two warpgroups the tensor
+//     cores take one's products while the other runs its softmax;
+//   * q * bf16(q_scale) is rounded to bf16 once per CTA on the Q tile in
+//     shared memory (each warpgroup its half), the TPU kernels' rounding.
+// A row whose every score is -inf (only with -inf biases) gives output 0
+// and, with kLse, LSE +inf.
+//
+// With kLse both write the per-(b, h, query row) log-sum-exp in natural-log
+// units, lse[b, h, n] = m + log(max(l, 1e-20)) as f32 (B, H, N), converted
+// once per row on the store from the running max m and sum l.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -283,13 +310,305 @@ __global__ void __launch_bounds__(kThreads) fap_fwd_kernel(const FwdArgs a) {
   }
 }
 
+// ---- D = 64: wgmma, TMA and a K/V ring (see the head of the file) -------
+
+namespace d64 {
+
+constexpr int kRows = 128;    // query rows per CTA, 64 per consumer warpgroup
+constexpr int kKeys = 192;    // keys per tile
+constexpr int kStages = 3;    // K/V ring depth
+constexpr int kThreads = 384; // consumer warpgroups 0 and 1, producer 2
+constexpr int kTile = 128 * 128;  // bytes of the Q tile: 128 rows of 64 bf16
+constexpr int kKVTile = kKeys * 128;  // bytes of a K or V tile
+// dynamic shared memory, from a 1024-byte-aligned base: Q, the ring's K and
+// V tiles, the ring's key biases and their all-zero flags, then the
+// barriers
+constexpr int kBiasOff = kTile + kKVTile * 2 * kStages;
+constexpr int kFlagOff = kBiasOff + kStages * kKeys * 4;
+constexpr int kBarOff = kFlagOff + 16;  // the barriers 8-byte aligned
+static_assert(kStages * 4 <= 16, "the flags fit before the barriers");
+constexpr int kSmemBytes = kBarOff + (1 + 2 * kStages) * 8 + 1024;
+constexpr float kLn2 = 0.6931471805599453f;
+
 template <bool kLse>
-void launch(const FwdArgs& a, int B, int H, int D, cudaStream_t s) {
+__global__ void __launch_bounds__(kThreads, 1)
+    fap_fwd_kernel_d64(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const FwdArgs a) {
+  using namespace sm90;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sQ = smem;
+  float* sBias = reinterpret_cast<float*>(smem + kBiasOff);
+  int* sZero = reinterpret_cast<int*>(smem + kFlagOff);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + kBarOff);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
+  auto sK = [&](int s) { return smem + kTile + kKVTile * 2 * s; };
+  auto sV = [&](int s) { return smem + kTile + kKVTile * (2 * s + 1); };
+
+  const int q0 = blockIdx.x * kRows;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int N = a.N;
+  const int tiles = (N + kKeys - 1) / kKeys;
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 32);  // the producer warp's lanes
+      mbar_init(&empty[s], 8);  // the consumer warps
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // producer: one warp keeps the ring full; lane 0 issues the TMA loads,
+    // every lane stages six key biases in log2 units (-inf past N: the
+    // mask of the ragged edge, since TMA fills keys past N with zeros), and
+    // the tile is flagged when all of them are 0 (an unmasked ViT), so the
+    // consumers skip reading them
+    reg_dealloc<40>();
+    if (threadIdx.x >= 256 + 32) return;
+    const int lane = threadIdx.x & 31;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(q_full, kTile);
+      tma_load_4d(sQ, &tq, q_full, 0, h, q0, b);
+    }
+    const float* bias_b = a.bias + (int64_t)b * N;
+    for (int j = 0; j < tiles; ++j) {
+      const int s = j % kStages;
+      if (j >= kStages) mbar_wait(&empty[s], (j / kStages - 1) & 1);
+      float* bs = sBias + s * kKeys;
+      bool zero = true;
+      for (int i = lane; i < kKeys; i += 32) {
+        const int n = j * kKeys + i;
+        bs[i] = n < N ? bias_b[n] * kLog2e : -INFINITY;
+        zero = zero && bs[i] == 0.0f;
+      }
+      zero = __all_sync(0xffffffffu, zero);
+      if (lane == 0) {
+        sZero[s] = zero;
+        mbar_arrive_expect_tx(&full[s], 2 * kKVTile);
+        tma_load_4d(sK(s), &tk, &full[s], 0, h, j * kKeys, b);
+        tma_load_4d(sV(s), &tv, &full[s], 0, h, j * kKeys, b);
+      } else {
+        mbar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63
+  reg_alloc<232>();
+  const int tid = threadIdx.x & 127;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  uint8_t* sQw = sQ + wg * (kTile / 2);
+  mbar_wait(q_full, 0);
+  // q * q_scale rounded to bf16, the TPU kernels' q * bf16(scale), once on
+  // this warpgroup's half of the tile (the swizzle does not matter here)
+  const float qs = __bfloat162float(__float2bfloat16(a.q_scale));
+  if (qs != 1.0f) {
+    uint4* chunk = reinterpret_cast<uint4*>(sQw) + tid * 4;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      uint4 v = chunk[c];
+      __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&v);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        e[i] = __float2bfloat16(__bfloat162float(e[i]) * qs);
+      chunk[c] = v;
+    }
+    fence_proxy_async();
+    named_barrier(1 + wg, 128);
+  }
+  const uint64_t dq = desc_sw128(sQw);
+
+  float o[32], s[kKeys / 2];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.0f;
+  uint32_t p[kKeys / 16][4];  // the previous tile's P, bf16
+  // running max in log2 units, rows g and g + 8
+  float m0 = -INFINITY, m1 = -INFINITY;
+  float l0 = 0.0f, l1 = 0.0f;             // this thread's share of the sums
+
+  // S = q_s K^T for the tile in stage `st`
+  auto issue_s = [&](int st) {
+    const uint64_t dk = desc_sw128(sK(st));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss_n192<0, 0>(s, desc_add(dq, 32 * kk), desc_add(dk, 32 * kk),
+                          kk > 0);
+  };
+  // O += P V for the tile in stage `st` (V is MN-major: transpose flag)
+  auto issue_pv = [&](int st) {
+    const uint64_t dv = desc_sw128(sV(st));
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk)
+      wgmma_rs_n64<1>(o, p[kk], desc_add(dv, 2048 * kk));
+  };
+  // s becomes (s + bias) log2(e), one FFMA a score; online-softmax update
+  // of m, l; s becomes exp2(s - m), the subtraction exact where s = m (so
+  // a row of equal -1e9 scores gives p = 1, as the TPU kernels do); returns
+  // the factors that rescale the rows' earlier sums
+  auto softmax = [&](int st, float& a0, float& a1) {
+    const float* bs = sBias + st * kKeys;
+    const bool zero = sZero[st];
+    float t0 = -INFINITY, t1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < kKeys / 8; ++j) {
+      const float2 bb = zero ? make_float2(0.0f, 0.0f)
+          : *reinterpret_cast<const float2*>(bs + 8 * j + 2 * t);
+      s[4 * j] = fmaf(s[4 * j], kLog2e, bb.x);
+      s[4 * j + 1] = fmaf(s[4 * j + 1], kLog2e, bb.y);
+      s[4 * j + 2] = fmaf(s[4 * j + 2], kLog2e, bb.x);
+      s[4 * j + 3] = fmaf(s[4 * j + 3], kLog2e, bb.y);
+      t0 = fmaxf(t0, fmaxf(s[4 * j], s[4 * j + 1]));
+      t1 = fmaxf(t1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+    }
+    t0 = fmaxf(t0, __shfl_xor_sync(0xffffffffu, t0, 1));
+    t0 = fmaxf(t0, __shfl_xor_sync(0xffffffffu, t0, 2));
+    t1 = fmaxf(t1, __shfl_xor_sync(0xffffffffu, t1, 1));
+    t1 = fmaxf(t1, __shfl_xor_sync(0xffffffffu, t1, 2));
+    const float mn0 = fmaxf(m0, t0);
+    const float mn1 = fmaxf(m1, t1);
+    // a row can only see -inf everywhere if the caller passed -inf biases;
+    // keep it NaN-free (its output is then 0)
+    const float ms0 = mn0 == -INFINITY ? 0.0f : mn0;
+    const float ms1 = mn1 == -INFINITY ? 0.0f : mn1;
+    a0 = exp2_approx(m0 - ms0);  // 0 on the first tile
+    a1 = exp2_approx(m1 - ms1);
+    m0 = mn0;
+    m1 = mn1;
+    float r0 = 0.0f, r1 = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kKeys / 8; ++j) {
+      s[4 * j] = exp2_approx(s[4 * j] - ms0);
+      s[4 * j + 1] = exp2_approx(s[4 * j + 1] - ms0);
+      s[4 * j + 2] = exp2_approx(s[4 * j + 2] - ms1);
+      s[4 * j + 3] = exp2_approx(s[4 * j + 3] - ms1);
+      r0 += s[4 * j] + s[4 * j + 1];
+      r1 += s[4 * j + 2] + s[4 * j + 3];
+    }
+    l0 = l0 * a0 + r0;
+    l1 = l1 * a1 + r1;
+  };
+  auto pack_p = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk) {
+      p[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+      p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+  };
+  auto release = [&](int st) {
+    if (lane == 0) mbar_arrive(&empty[st]);
+  };
+
+  // tile 0, then for each later tile j: S_j and P_{j-1} V_{j-1} in flight
+  // together, the softmax of S_j under the PV product
+  float a0, a1;
+  mbar_wait(&full[0], 0);
+  wgmma_fence();
+  issue_s(0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(s);
+  softmax(0, a0, a1);
+  pack_p();
+  for (int j = 1; j < tiles; ++j) {
+    const int st = j % kStages;
+    const int prev = (j - 1) % kStages;
+    mbar_wait(&full[st], (j / kStages) & 1);
+      wgmma_fence();
+    issue_s(st);
+    wgmma_commit();
+    issue_pv(prev);
+    wgmma_commit();
+      wgmma_wait<1>();
+    fence_regs(s);
+    softmax(st, a0, a1);
+    wgmma_wait<0>();
+    fence_regs(o);
+    release(prev);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      o[4 * i] *= a0;
+      o[4 * i + 1] *= a0;
+      o[4 * i + 2] *= a1;
+      o[4 * i + 3] *= a1;
+    }
+    pack_p();
+  }
+  wgmma_fence();
+  issue_pv((tiles - 1) % kStages);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(o);
+  release((tiles - 1) % kStages);
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float d0 = fmaxf(l0, 1e-20f);
+  const float d1 = fmaxf(l1, 1e-20f);
+  const int r0 = q0 + 64 * wg + 16 * warp + g;
+  const int r1 = r0 + 8;
+  __nv_bfloat16* ob = a.out + b * a.o_s[0] + h * a.o_s[2];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    if (r0 < N)
+      *reinterpret_cast<uint32_t*>(ob + r0 * a.o_s[1] + col) =
+          pack_bf16(o[4 * j] / d0, o[4 * j + 1] / d0);
+    if (r1 < N)
+      *reinterpret_cast<uint32_t*>(ob + r1 * a.o_s[1] + col) =
+          pack_bf16(o[4 * j + 2] / d1, o[4 * j + 3] / d1);
+  }
+  if constexpr (kLse) {
+    // a row whose every score was -inf (only with -inf biases) gets +inf,
+    // so the backward's exp(s - lse) is 0 there and not NaN
+    float* lb = a.lse + ((int64_t)b * gridDim.y + h) * N;
+    if (t == 0 && r0 < N)
+      lb[r0] = m0 == -INFINITY ? INFINITY : (m0 + log2f(d0)) * kLn2;
+    if (t == 0 && r1 < N)
+      lb[r1] = m1 == -INFINITY ? INFINITY : (m1 + log2f(d1)) * kLn2;
+  }
+}
+
+template <bool kLse>
+cudaError_t launch(const FwdArgs& a, int B, int H, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  if (!sm90::make_head_map(&tq, a.q, a.q_s, B, a.N, H, kRows) ||
+      !sm90::make_head_map(&tk, a.k, a.k_s, B, a.N, H, kKeys) ||
+      !sm90::make_head_map(&tv, a.v, a.v_s, B, a.N, H, kKeys))
+    return cudaErrorInvalidValue;
+  // above 48 KB of dynamic shared memory on the current device
+  const cudaError_t err = cudaFuncSetAttribute(
+      fap_fwd_kernel_d64<kLse>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.N + kRows - 1) / kRows, H, B);
+  fap_fwd_kernel_d64<kLse><<<grid, kThreads, kSmemBytes, stream>>>(tq, tk,
+                                                                  tv, a);
+  return cudaGetLastError();
+}
+
+}  // namespace d64
+
+template <bool kLse>
+cudaError_t launch(const FwdArgs& a, int B, int H, int D, cudaStream_t s) {
+  if (D == 64) return d64::launch<kLse>(a, B, H, s);
   const dim3 grid((a.N + kBlockQ - 1) / kBlockQ, H, B);
-  if (D == 16)
-    fap_fwd_kernel<16, kLse><<<grid, kThreads, 0, s>>>(a);
-  else
-    fap_fwd_kernel<64, kLse><<<grid, kThreads, 0, s>>>(a);
+  fap_fwd_kernel<16, kLse><<<grid, kThreads, 0, s>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -301,7 +620,8 @@ void launch(const FwdArgs& a, int B, int H, int D, cudaStream_t s) {
 // head contiguous. bias (B, 1, N) f32 contiguous. lse (B, H, N) f32
 // contiguous, or null for the forward without LSE. Returns the cudaError_t
 // of the launch; cudaErrorInvalidValue for an unsupported head dimension
-// (16 and 64 are built) or empty shape.
+// (16 and 64 are built), an empty shape, or (D = 64) a view that
+// cuTensorMapEncodeTiled refuses.
 extern "C" int fa_forward_bf16(const void* q, const void* k, const void* v,
                                const void* bias, void* out, void* lse,
                                const long long* strides, int B, int N, int H,
@@ -324,9 +644,9 @@ extern "C" int fa_forward_bf16(const void* q, const void* k, const void* v,
   a.N = N;
   a.q_scale = q_scale;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (lse != nullptr)
-    launch<true>(a, B, H, D, s);
-  else
-    launch<false>(a, B, H, D, s);
-  return (int)cudaGetLastError();
+  return (int)(lse != nullptr ? launch<true>(a, B, H, D, s)
+                              : launch<false>(a, B, H, D, s));
 }
+
+// Dynamic shared memory of the D = 64 kernel in bytes (for build reports).
+extern "C" int fa_forward_d64_smem_bytes() { return d64::kSmemBytes; }

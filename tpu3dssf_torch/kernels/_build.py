@@ -4,8 +4,12 @@ Each source under ``tpu3dssf_torch/csrc/`` exposes a plain C interface and
 is compiled on its own into a shared library (no PyTorch headers, so a
 build takes seconds), then bound with :mod:`ctypes`. Libraries go to
 ``build/tpu3dssf_torch/`` at the repository root, named by a hash of the
-source and the compiler flags, so an edited source rebuilds and an
-unchanged one is reused. Nothing is built at import time.
+source, the headers beside it (``csrc/*.cuh``) and the compiler flags, so
+an edited source or header rebuilds and an unchanged one is reused. The
+Hopper kernels encode their TMA tensor maps with the
+``cuTensorMapEncodeTiled`` that the CUDA runtime hands out
+(``cudaGetDriverEntryPoint``), so no library links ``-lcuda``. Nothing is
+built at import time.
 """
 
 from __future__ import annotations
@@ -46,9 +50,13 @@ def find_nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
+    """The library of ``source``, named by a hash of it, of every header
+    under ``csrc/`` (a source may include one) and of the flags."""
     src = CSRC_DIR / source
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        src.read_bytes() + headers
+        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}-{digest}.so"
 
 

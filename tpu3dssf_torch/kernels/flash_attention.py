@@ -18,9 +18,12 @@ have a Hopper counterpart here, each with its own launch counter:
 * K9, its backward ``_flash_bwd_kernel``, counted in
   :data:`FLASH_BWD_LAUNCHES`: the backward of :class:`FlashAttention`.
 
-Two CUDA kernels carry all five: ``fap_fwd_kernel`` in
-``csrc/flash_attention_packed.cu`` (with a compile-time LSE flag) and the
-two-pass ``fap_bwd_*_kernel`` in ``csrc/flash_attention_packed_bwd.cu``.
+Two C entry points carry all five, each dispatching on the head dimension:
+``fa_forward_bf16`` in ``csrc/flash_attention_packed.cu`` (with a
+compile-time LSE flag; ``fap_fwd_kernel`` at D = 16, the wgmma/TMA
+``fap_fwd_kernel_d64`` at D = 64) and ``fa_backward_bf16`` in
+``csrc/flash_attention_packed_bwd.cu`` (the two-pass ``fap_bwd_*_kernel``
+at D = 16, the one-pass ``fap_bwd_d64_kernel`` and its dq cast at D = 64).
 Each takes q, k, v (and do, dq, dk, dv) as separate pointers with their own
 (batch, token, head) strides, so the packed layout is one stride set and
 (B, N, H, D) another; the launchers here pass views and never repack. The
@@ -416,7 +419,7 @@ def _lib_fwd():
 
 def _lib_bwd():
     return _bind(_BWD_SOURCE, "fa_backward_bf16",
-                 [_PTR] * 10 + [_STRIDES] + [_INT] * 4 + [_FLOAT, _PTR])
+                 [_PTR] * 11 + [_STRIDES] + [_INT] * 4 + [_FLOAT, _PTR])
 
 
 def _strides(*views):
@@ -461,7 +464,8 @@ def _launch_flash_bwd(q, k, v, key_bias, dout, lse, delta, q_scale,
     """Launch the backward kernel on (B, N, H, D) views: (dq, dk, dv),
     written into ``out`` (three views) when given, else into new (B, N, H,
     D) tensors. It serves K9, the window route's K5 and the packed K3; the
-    caller counts it."""
+    caller counts it. At D = 64 the kernel sums dq over its key tiles in a
+    zeroed f32 (B, H, N rounded up to 64, 64) scratch taken here."""
     _check_views(name, (q, k, v, dout), key_bias)
     _check_stats(name, q, lse, delta)
     if out is None:
@@ -469,12 +473,15 @@ def _launch_flash_bwd(q, k, v, key_bias, dout, lse, delta, q_scale,
                     for _ in range(3))
     _check_views(name, out, key_bias)
     B, N, H, D = q.shape
+    scratch = (torch.zeros((B, H, -(-N // 64) * 64, 64), dtype=torch.float32,
+                           device=q.device) if D == 64 else None)
     fn = _lib_bwd()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
                  key_bias.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                  *(x.data_ptr() for x in out),
+                 None if scratch is None else scratch.data_ptr(),
                  _strides(q, k, v, dout, *out), B, N, H, D, float(q_scale),
                  stream)
     _raise_if_failed(err, name, "backward", q)
