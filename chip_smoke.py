@@ -25,7 +25,12 @@ order (any failure raises, exit code ≠ 0):
    of the slice (max abs error < 0.05, bf16); at D = 64 beside the ViT-S
    one, K8 (with its LSE) and K9 at the ViT-L/16 encoder's shape (B = 12
    images, N = 2845 tokens, H = 16) and K8, K9 and K1 at ragged N = 1, 77,
-   130 with the trailing keys masked; K6 and the window route's K4/K5 at
+   130 with the trailing keys masked; K1's RoPE branch at q_scale 1/8 at
+   the ViT-S and ViT-L shapes with DINOv3's own tables (grid 40 x 71, 5
+   identity prefix rows) and at ragged N = 1, 77, 130 with random tables
+   (identity prefix rows, trailing keys masked), each also timed beside
+   the route before the branch (rotation outside, ``torch.cat``, K1) and
+   SDPA on q and k rotated beforehand; K6 and the window route's K4/K5 at
    every window-48 shape of the LiDAR config; K2/K4 and K3/K5 at every
    training shape (see 7). Every row: kernel, plain version and the
    library call computing the same function (``scaled_dot_product_
@@ -36,9 +41,11 @@ order (any failure raises, exit code ≠ 0):
    launch count up by exactly 34 per batch (12 ViT layers + 22 PTv3
    blocks), no k-NN launch and finite metrics; then one batch is timed end
    to end, and the kernel inside that batch: its device time and exactly
-   34 launches per batch from the profiler, and the plain version's time
-   and the kernel's error on the very inputs the batch gave the kernel
-   (within 0.05 and within 2% of each call's max |plain|);
+   34 launches per batch from the profiler (46 device kernels: each of the
+   12 ViT layers takes the RoPE branch, whose k rotation is a kernel of its
+   own), and the plain version's time and the kernel's error on the very
+   inputs the batch gave the kernel, RoPE tables included (within 0.05 and
+   within 2% of each call's max |plain|);
 5. a small model gives the same logits on the card (bf16, kernels) as on
    the CPU (f32, plain versions), within 5% of the logit scale;
 6. (the backward kernel's build, in 2);
@@ -96,10 +103,11 @@ order (any failure raises, exit code ≠ 0):
     batch (24 ViT layers + 22 PTv3 blocks) and no other kernel over its 6
     test batches (2 scenes, 12 images at 640 x 1138 each), finite metrics;
     one batch timed end to end with its peak memory, and K1 inside it as in
-    4 (46 launches per batch);
+    4 (46 launches, 70 device kernels per batch);
 18. the same encoder, weights and images with ``packed_head_groups=False``:
-    exactly 24 K8 launches and no K1 per encode, its patch tokens within
-    1% of the largest token of the K1 route's, and K8 inside the encode as
+    exactly 24 K8 launches and no K1 per encode, its patch tokens (q and k
+    rotated outside the kernel) within 1% of the largest token of the K1
+    route's (rotated inside), and K8 inside the encode as
     K1 in 4 (device time, then the plain version, SDPA and the bound on
     each call's own inputs; each call within 0.05 and within 2% of its max
     |plain|);
@@ -114,7 +122,11 @@ order (any failure raises, exit code ≠ 0):
 20. ``main_infer`` over the LiDAR-only config at window 48 (a temporary
     copy, voxel capacity 726 x 48): exactly 22 K6 launches per batch and no
     other kernel, finite metrics; one batch timed end to end with K6 inside
-    it as K8 in 18; one train step: exactly 22 K4 and 22 K5, a finite loss.
+    it as K8 in 18; one train step: exactly 22 K4 and 22 K5, a finite loss;
+21. the gradient of 19 on the K1 route, through the training rule of K1's
+    RoPE branch (its forward with LSE, then K9 on the rotated q and k):
+    exactly 24 K1 and 24 K9 launches and no other kernel, per-parameter
+    cosine ≥ 0.98 against the plain versions on the card.
 
 The last two lines are a JSON record of the kernels and the device line.
 Every kernel record has ``launches`` (from its path's run), ``max_abs_err``
@@ -125,7 +137,9 @@ f32 / one exp per score at 16 per clock per SM, at the card's
 maximum SM clock; ``bound_term`` says which, "exp" counting as operations
 in ``bound_by``) and ``library_ms`` (the PyTorch call named in ``library``). K1's
 numbers are per inference batch (step 4, 6 batches; ``parity`` holds its
-time per parity batch, step 15, and ``vitl`` per ViT-L batch, step 17); K2–K5's per train step (step 9; launches
+time per parity batch, step 15, ``vitl`` per ViT-L batch, step 17, and
+``rope`` the RoPE branch per call at the ViT-S and ViT-L shapes, step 3,
+with the launches of step 21); K2–K5's per train step (step 9; launches
 from the one-epoch run of step 8); K7's per parity batch (step 15;
 launches from step 14's main_infer run); K6's per window-48 batch (step
 20), K8's per ViT-L encode (step 18) and K9's per ViT-L backward (step
@@ -179,8 +193,10 @@ WINDOW, WINDOW_CAPACITY, WINDOW_LAUNCHES = 48, 726 * 48, 22
 # mis-rescaled key tile would pass them, and far above the gradients that
 # reach K9 in the ViT-L backward; one bf16 ulp is at most 2**-7 of a value
 REL_TOL = 0.02
-# K8 route vs K1 route patch tokens, max abs error over max |token|: both
-# run the same kernel body on the same bf16 values, q·bf16(1/8) is exact
+# K8 route vs K1 route patch tokens, max abs error over max |token|: the K1
+# route rotates q·(1/8) and k inside its kernel, the K8 route rotates them
+# outside in plain torch and scales q in its kernel; both round once, the
+# attention runs the same kernel body, so they differ by rounding at most
 VITL_ROUTE_TOL = 0.01
 KERNELS = {  # name, source, the TPU kernel it replaces
     "K1": ("flash_attention_packed", "flash_attention_packed.cu",
@@ -238,7 +254,7 @@ def bound(flops, f32_ops, nbytes, exps=0):
     return times[by] * 1e3, by
 
 
-def attention_bound(B, N, C, H, kind):
+def attention_bound(B, N, C, H, kind, rope=False):
     """Bound of one packed-attention call on (B, N, 3C) bf16 qkv. kind
     "fwd" (K1, K6, K8), "lse" (K2/K4, K8 with its LSE) or "bwd" (K3/K5,
     K9). Operations: the products (QKᵀ and PV, 4·N²·C per row block; the
@@ -247,7 +263,10 @@ def attention_bound(B, N, C, H, kind):
     subtract, multiply, scale). Exps: one per score in every kind; the
     backward's p = exp(s − lse) needs no more (the two-pass D = 16 backward
     spends a second, which the bound does not count). Bytes: each input read
-    once, each output written once."""
+    once, each output written once. With ``rope`` (K1's RoPE branch, a
+    forward): rotating q and each key once, 6 f32 operations per channel
+    pair (4 products, 2 sums) and 2 more for q's scale, so 7·C per token;
+    the two (N, C/H/2) f32 tables read once, 4·N·C/H bytes."""
     rows = B * N
     scores = B * H * N * N
     mm = (10 if kind == "bwd" else 4) * B * N * N * C
@@ -255,7 +274,11 @@ def attention_bound(B, N, C, H, kind):
         nbytes = rows * (6 * C + 4 + 2 * C + 8 * H + 6 * C)
     else:               # qkv, bias → out (+ lse)
         nbytes = rows * (6 * C + 4 + 2 * C + (4 * H if kind == "lse" else 0))
-    return bound(mm, 4 * scores, nbytes, scores)
+    f32_ops = 4 * scores
+    if rope:
+        f32_ops += 7 * rows * C
+        nbytes += 4 * N * (C // H)
+    return bound(mm, f32_ops, nbytes, scores)
 
 
 def bound_term(rows):
@@ -362,23 +385,27 @@ def run_slice(card):
           f"valid points): {frame_ms:.3f} ms -> "
           f"{points / frame_ms * 1e3:,.0f} points/s; peak allocated "
           f"{peak / 2**30:.3f} GiB [{card}]")
-    inside, _ = time_kernels_in_path(frame,
-                                     {"K1": k1_spec(LAUNCHES_PER_BATCH)})
+    inside, total = time_kernels_in_path(frame, {"K1": k1_spec(
+        LAUNCHES_PER_BATCH, rope=vit_cfg.num_layers)})
     return launches, inside["K1"], dict(frame_ms=frame_ms, points=points,
                                         points_per_s=points / frame_ms * 1e3,
-                                        peak_bytes=peak)
+                                        peak_bytes=peak,
+                                        device_kernel_ms=total)
 
 
-def k1_spec(launches):
-    """K1 inside a batch: its launcher, its plain version and its tolerance
-    (see :func:`time_kernels_in_path`)."""
+def k1_spec(launches, rope=0):
+    """K1 inside a batch: its launcher, its plain version (on each call's
+    own inputs, RoPE tables included) and its tolerance (see
+    :func:`time_kernels_in_path`). ``rope`` of the ``launches`` take the
+    RoPE branch (the ViT's layers), each two device kernels: k's rotation
+    (``fap_fwd_kernel_rope_k``) and the attention."""
     from tpu3dssf_torch.kernels.modules import flash_attention as fa
     return dict(pattern="fap_fwd_kernel", module=fa, attr="_launch",
                 plain=fa.flash_attention_packed_reference,
                 error=lambda got, want: (got.float() - want.float()).abs()
                 .max().item(),
                 ok=lambda err: err < KERNEL_TOL, relative=True,
-                launches=launches)
+                launches=launches, device_kernels=launches + rope)
 
 
 def k7_spec():
@@ -443,18 +470,20 @@ def time_kernels_in_path(frame, specs):
 
     ``specs``: {tag: dict(pattern (in the kernel's name), module and attr
     (its launcher), plain, error(got, want), ok(error), launches per batch,
-    optional kernels_per_launch (device kernels per call, default 1),
-    library(*inputs) -> callable, bound(*inputs) -> (ms, by) and relative
-    (also hold each call to :func:`rel_err` <= REL_TOL))}. Returns ({tag:
-    row}, the batch's device kernel time in ms)."""
+    optional device_kernels (device kernels the pattern matches per batch,
+    default one a launch), library(*inputs) -> callable, bound(*inputs) ->
+    (ms, by) and relative (also hold each call to :func:`rel_err` <=
+    REL_TOL))}. Each row also splits its device time by kernel name
+    (``by_name``). Returns ({tag: row}, the batch's device kernel time in
+    ms)."""
     import functools
     import torch
     from tpu3dssf_torch.utils import cuda_ms, profile_kernels
 
     def short(counts):
         return [tag for tag, (ms, n) in counts.items() if not (
-            ms > 0 and n == specs[tag]["launches"]
-            * specs[tag].get("kernels_per_launch", 1))]
+            ms > 0 and n == specs[tag].get("device_kernels",
+                                           specs[tag]["launches"]))]
 
     _, kernels, _ = profile_kernels(frame, reps=3)
     if short(profiled_counts(kernels, specs)):
@@ -471,15 +500,17 @@ def time_kernels_in_path(frame, specs):
     rows = {}
     for tag, spec in specs.items():
         ms, n = counts[tag]
-        per = spec.get("kernels_per_launch", 1)
         if tag in short(counts):
-            raise AssertionError(f"profiler saw {n:g} {tag} device kernels "
-                                 f"and {ms} ms per batch, expected "
-                                 f"{spec['launches']} x {per} and > 0")
+            raise AssertionError(
+                f"profiler saw {n:g} {tag} device kernels and {ms} ms per "
+                f"batch, expected {spec.get('device_kernels')} device kernels "
+                f"for {spec['launches']} launches and > 0")
         calls = capture_calls(spec["module"], spec["attr"], frame)
         if len(calls) != spec["launches"]:
             raise AssertionError(f"{tag}: {len(calls)} calls in one batch")
-        row = dict(ms=ms, launches=n / per, plain_ms=0.0, max_abs_err=0.0)
+        row = dict(ms=ms, launches=len(calls), device_kernels=n, by_name={
+            name[:90]: us / 1e3 for name, (us, _) in kernels.items()
+            if spec["pattern"] in name}, plain_ms=0.0, max_abs_err=0.0)
         library, bound = spec.get("library"), spec.get("bound")
         by = []
         for args, got in calls:
@@ -730,13 +761,13 @@ class Capture:
         import torch
         fa = self.fa
 
-        def lse(qkv, bias, heads, q_scale):
+        def lse(qkv, bias, heads, q_scale, *rope):
             k = "K2" if (qkv.shape[-1] // 3) % 128 == 0 else "K4"
             with torch.profiler.record_function(f"smoke::{k}"):
-                out = self.lse(qkv, bias, heads, q_scale)
+                out = self.lse(qkv, bias, heads, q_scale, *rope)
             if self.record:
                 self.calls[k].append(((qkv.clone(), bias.clone(), heads,
-                                       q_scale),
+                                       q_scale, *rope),
                                       tuple(o.clone() for o in out)))
             return out
 
@@ -1220,6 +1251,27 @@ def grads_err(got, want):
             else float("inf"))
 
 
+def rope_inputs(gen, N):
+    """(angles (N − n_prefix, 32), n_prefix, cos, sin) of the RoPE rows: at
+    N = 2845 DINOv3's own, the 40 x 71 patch grid of 640 x 1138 images at
+    D = 64 behind 5 prefix tokens; at any other N random angles in (−3, 3)
+    behind min(5, N) prefix rows. cos and sin are the (N, 32) f32 tables on
+    the card, identity (1, 0) on the prefix rows."""
+    import torch
+    from tpu3dssf_torch.models import vit
+    if N == 2845:
+        cfg = vit.dinov3_small()
+        angles = vit._rope_angles(*cfg.grid_size, 64, cfg.rope_theta)
+        cos, sin = vit.rope_tables(cfg)
+        return angles.cuda(), cfg.num_prefix_tokens, cos.cuda(), sin.cuda()
+    n_prefix = min(5, N)
+    angles = torch.rand(N - n_prefix, 32, generator=gen) * 6 - 3
+    ones = torch.ones(n_prefix, 32)
+    cos = torch.cat([ones, torch.cos(angles)])
+    sin = torch.cat([ones * 0, torch.sin(angles)])
+    return angles.cuda(), n_prefix, cos.cuda(), sin.cuda()
+
+
 def check_flash_shape(gen, name, B, N, H, D, keys, route, tags, n, q_scale):
     """One case of the isolated attention checker (:func:`check_attention`)
     on one random bf16 (B, N, 3C) projection and its (B, N, H, D) views.
@@ -1227,7 +1279,11 @@ def check_flash_shape(gen, name, B, N, H, D, keys, route, tags, n, q_scale):
     ``keys``: "all" live, "trailing" (the last 5 keys masked) or "windows"
     (30% padding keys, an all-padding last window). ``route``: "packed"
     (K1 through ``flash_attention_packed``, q scaled by ``q_scale``, None:
-    pre-scaled), "packed_train" (the forward with LSE and the backward
+    pre-scaled), "packed_rope" (K1's RoPE branch with the tables of
+    :func:`rope_inputs`, also timed beside the route before the branch,
+    ``time_attention.rope_outside``, and SDPA on the pre-rotated q and k),
+    "packed_train" (the forward with LSE and
+    the backward
     through the packed launchers: K2/K3, or K4/K5 at C < 128), "bhnd" (K8
     through ``flash_attention``, its forward with LSE, K9) or "window" (K6
     through ``window_attention``, K4, K5). ``tags``: the (forward, forward
@@ -1244,6 +1300,7 @@ def check_flash_shape(gen, name, B, N, H, D, keys, route, tags, n, q_scale):
     {tag: row}."""
     import torch
     import torch.nn.functional as F
+    from tpu3dssf_torch.cli.time_attention import rope_outside
     from tpu3dssf_torch.utils import cuda_ms
     from tpu3dssf_torch.kernels.modules import flash_attention as fa
     from tpu3dssf_torch.kernels.modules import window_attention as wa
@@ -1268,11 +1325,20 @@ def check_flash_shape(gen, name, B, N, H, D, keys, route, tags, n, q_scale):
              else torch.ones_like(keep))[..., None, None]
     dout = torch.randn(B, N, H, D, generator=gen).to("cuda")
     dout = (dout * qmask).to(torch.bfloat16)
-    count = {"packed": "launches_per_batch",
-             "packed_train": "launches_per_step"}.get(route, "calls_per_path")
+    count = {"packed": "launches_per_batch", "packed_rope":
+             "launches_per_batch", "packed_train": "launches_per_step"}.get(
+                 route, "calls_per_path")
     common = {"shape": name, "route": route, "B": B, "N": N, "C": C, "H": H,
               "D": D, count: n}
-    _, (qt, kt, vt), mask = sdpa_views(q, k, v, bias)
+    rope = route == "packed_rope"
+    if rope:   # SDPA takes q and k rotated beforehand (not timed)
+        angles, n_prefix, cos, sin = rope_inputs(gen, N)
+        _, (qt, kt, vt), mask = sdpa_views(fa.rope_rotate(q, cos, sin),
+                                           fa.rope_rotate(k, cos, sin), v,
+                                           bias)
+        common["q_scale"] = q_scale
+    else:
+        _, (qt, kt, vt), mask = sdpa_views(q, k, v, bias)
     fwd_tag, lse_tag, bwd_tag = tags
     rows, checks = {}, {}
 
@@ -1290,6 +1356,19 @@ def check_flash_shape(gen, name, B, N, H, D, keys, route, tags, n, q_scale):
                 return fa.flash_attention_packed_reference(qkv, bias, H,
                                                            q_scale)
             got = run()
+        elif rope:
+            def run():
+                return fa.flash_attention_packed(qkv, bias, H, q_scale, cos,
+                                                 sin)
+
+            def plain():
+                return fa.flash_attention_packed_reference(qkv, bias, H,
+                                                           q_scale, cos, sin)
+
+            def outside():
+                return rope_outside(fa, qkv, bias, H, angles, n_prefix,
+                                    q_scale)
+            got = run()
         else:
             def run():
                 return fa._launch_flash(q, k, v, bias, scale)
@@ -1306,7 +1385,11 @@ def check_flash_shape(gen, name, B, N, H, D, keys, route, tags, n, q_scale):
                    ms=cuda_ms(run), plain_ms=cuda_ms(plain, reps=5, warmup=1),
                    library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
                        qt, kt, vt, attn_mask=mask, scale=scale)))
-        row["bound_ms"], row["bound_by"] = attention_bound(B, N, C, H, "fwd")
+        row["bound_ms"], row["bound_by"] = attention_bound(B, N, C, H, "fwd",
+                                                           rope=rope)
+        if rope:
+            row["outside_route_ms"] = cuda_ms(outside)
+            row["outside_route_max_abs_err"] = max_err(outside(), want)
         rows[fwd_tag] = row
         checks[fwd_tag] = held(row, got)
         del got, want
@@ -1425,10 +1508,24 @@ def flash_cases(window_shapes):
                ("K8", "K8", "K9"), 0, 0.125) for n in (1, 77, 130)]
     cases += [(f"ragged_n{n}_packed", 2, n, 6, 64, "trailing", "packed",
                ("K1", None, None), 0, None) for n in (1, 77, 130)]
+    cases += rope_cases()
     cases += [(name, W, K, H, C // H, "windows", "window", ("K6", "K4", "K5"),
                n, (C // H) ** -0.5)
               for name, W, K, C, H, _, _, n in window_shapes]
     return cases
+
+
+def rope_cases():
+    """K1's RoPE branch at q_scale 1/8: the ViT-S/16 (H = 6, 12 per fusion
+    batch) and ViT-L/16 (H = 16, 24 per ViT-L batch) encoders' shape with
+    DINOv3's own tables, and ragged N = 1, 77, 130 with random tables and
+    the trailing keys masked."""
+    cases = [(f"vit{size}_rope", 12, 2845, H, 64, "all", "packed_rope",
+              ("K1", None, None), layers, 0.125)
+             for size, H, layers in (("s", 6, 12), ("l", 16, VITL_LAYERS))]
+    return cases + [(f"ragged_n{n}_rope", 2, n, 6, 64, "trailing",
+                     "packed_rope", ("K1", None, None), 0, 0.125)
+                    for n in (1, 77, 130)]
 
 
 def check_attention(cases, seed):
@@ -1539,8 +1636,8 @@ def run_vitl_frame(card, tmp):
           f"{images.shape[0] * images.shape[1]} images, {points:,} valid "
           f"points): {frame_ms:.3f} ms -> {points / frame_ms * 1e3:,.0f} "
           f"points/s; peak allocated {peak / 2**30:.3f} GiB [{card}]")
-    inside, total = time_kernels_in_path(frame,
-                                         {"K1": k1_spec(VITL_LAUNCHES)})
+    inside, total = time_kernels_in_path(frame, {"K1": k1_spec(
+        VITL_LAUNCHES, rope=VITL_LAYERS)})
     del model
     torch.cuda.empty_cache()
     return launches["K1"], dict(
@@ -1590,20 +1687,22 @@ def run_vitl_k8(vit, encode, images):
     return launches["K8"], inside["K8"], agree
 
 
-def run_vitl_grad(vit, vit_cfg, images):
-    """Phase 19: the gradient, with respect to every ViT-L parameter, of a
-    fixed random projection of its patch tokens on the K8 route, for one
-    sample of 6 images at full width: exactly 24 K8 and 24 K9 launches; the
-    card's kernels against the plain versions on the card (per-parameter
-    cosine ≥ GRAD_COSINE); K9 inside the backward (device time, and on
-    each call's own inputs the plain version's error and time, SDPA's
-    backward and the bound). Returns (launches, K9 row, cosines)."""
+def vitl_gradient(vit, vit_cfg, images, packed):
+    """The gradient, with respect to every ViT-L parameter, of a fixed
+    random projection of its patch tokens for one sample of 6 images at full
+    width, on the K1 route (``packed``: K1's RoPE branch with its LSE
+    forward, K9) or the K8 route (K8 with LSE, K9): exactly 24 launches of
+    each of the two kernels and no other; the card's kernels against the
+    plain versions on the card (the forward and backward launchers swapped
+    for them), per-parameter cosine ≥ GRAD_COSINE. Returns (launches,
+    cosine summary, grads), ``grads`` the function that takes the
+    gradient."""
     import torch
     import torch.nn.functional as F
     from tpu3dssf_torch.models.vit import preprocess_images
     from tpu3dssf_torch.kernels.modules import flash_attention as fa
 
-    set_vit_route(vit, False)
+    set_vit_route(vit, packed)
     with torch.no_grad():
         x = preprocess_images(images[:1], vit_cfg.image_size,
                               dtype=vit_cfg.dtype).flatten(0, 1)
@@ -1617,27 +1716,35 @@ def run_vitl_grad(vit, vit_cfg, images):
             tokens = vit(x)["patch_features"]
             return torch.autograd.grad((tokens.float() * proj).sum(), params)
 
+    route = "K1" if packed else "K8"
     reset_counters()
     got = grads()
     torch.cuda.synchronize()
     launches = counters()
-    want = {k: VITL_LAYERS if k in ("K8", "K9") else 0 for k in launches}
+    want = {k: VITL_LAYERS if k in (route, "K9") else 0 for k in launches}
 
     def plain_fwd(q, k, v, bias, scale, with_lse=False, name=None):
         out, lse = fa.flash_attention_lse_reference(q, k, v, bias, scale)
         return (out, lse) if with_lse else out
 
+    def plain_lse(qkv, bias, heads, q_scale, cos=None, sin=None):
+        return fa.flash_attention_packed_lse_reference(qkv, bias, heads,
+                                                       q_scale, cos, sin)
+
     def plain_bwd(q, k, v, bias, dout, lse, delta, scale, out=None,
                   name=None):
         return bwd_plain(q, k, v, bias, dout, lse, delta, scale)
 
-    kernels = fa._launch_flash, fa._launch_flash_bwd
-    fa._launch_flash, fa._launch_flash_bwd = plain_fwd, plain_bwd
+    forward = "_launch_lse" if packed else "_launch_flash"
+    kernels = getattr(fa, forward), fa._launch_flash_bwd
+    setattr(fa, forward, plain_lse if packed else plain_fwd)
+    fa._launch_flash_bwd = plain_bwd
     try:
         ref = grads()
         torch.cuda.synchronize()
     finally:
-        fa._launch_flash, fa._launch_flash_bwd = kernels
+        setattr(fa, forward, kernels[0])
+        fa._launch_flash_bwd = kernels[1]
     cos = {n: F.cosine_similarity(a.flatten().double(), b.flatten().double(),
                                   dim=0, eps=1e-30).item()
            for n, a, b in zip(names, got, ref)}
@@ -1648,16 +1755,27 @@ def run_vitl_grad(vit, vit_cfg, images):
     finite = all(bool(torch.isfinite(a).all()) for a in got)
     summary = dict(min_cosine=cos[low], min_cosine_param=low,
                    whole_cosine=whole, params=len(cos))
-    print(f"ViT-L gradient on the K8/K9 route: launches {launches} "
+    print(f"ViT-L gradient on the {route}/K9 route: launches {launches} "
           f"(expected {want}); card kernels vs plain versions on the card "
           f"{json.dumps(summary)}")
     if launches != want or not finite or cos[low] < GRAD_COSINE:
-        raise AssertionError(f"ViT-L gradient: launches {launches}, finite "
-                             f"{finite}, {summary}")
+        raise AssertionError(f"ViT-L gradient ({route} route): launches "
+                             f"{launches}, finite {finite}, {summary}")
     del got, ref
     torch.cuda.empty_cache()
+    return launches, summary, grads
+
+
+def run_vitl_grad(vit, vit_cfg, images):
+    """Phase 19: :func:`vitl_gradient` on the K8 route (24 K8 + 24 K9),
+    then K9 inside the backward (device time, and on each call's own inputs
+    the plain version's error and time, SDPA's backward and the bound).
+    Returns (launches, K9 row, cosines)."""
+    from tpu3dssf_torch.kernels.modules import flash_attention as fa
+
+    launches, summary, grads = vitl_gradient(vit, vit_cfg, images, False)
     inside, _ = time_kernels_in_path(grads, {"K9": dict(
-        pattern="fap_bwd_", kernels_per_launch=2, module=fa,
+        pattern="fap_bwd_", device_kernels=2 * VITL_LAYERS, module=fa,
         attr="_launch_flash_bwd", plain=bwd_plain, error=grads_err,
         ok=lambda e: e < float("inf"), relative=True, launches=VITL_LAYERS,
         library=flash_bwd_library, bound=flash_bound("bwd"))})
@@ -1801,6 +1919,7 @@ def main():
         + flash_cases(slice_attention_shapes(window_cfg))
         + train_cases(train_attention_shapes(cfg)), seed=0)
     rows = iso[("K1", "packed")]
+    rope_rows = {r["shape"]: r for r in iso[("K1", "packed_rope")]}
     train_rows = {k: iso[(k, "packed_train")] for k in ("K2", "K3", "K4",
                                                          "K5")}
     flash_rows = {k: iso[(k, route)] for k, route in (
@@ -1834,6 +1953,10 @@ def main():
             run_vitl_frame(card, tmp)
         k8_launches, k8, route = run_vitl_k8(vit, encode, images)
         grad_launches, k9, grad = run_vitl_grad(vit, vit_cfg, images)
+        # phase 21: the same gradient on the K1 route (24 K1 + 24 K9)
+        # (its gradient function is dropped: it holds the encoder)
+        k1_grad_launches, k1_grad = vitl_gradient(vit, vit_cfg, images,
+                                                  True)[:2]
         del vit, encode, images
         torch.cuda.empty_cache()
         k6_launches, k6, window_frame, step_launches = run_window_path(card,
@@ -1846,8 +1969,10 @@ def main():
         "source": "tpu3dssf_torch/csrc/" + KERNELS["K1"][1],
         "replaces": KERNELS["K1"][2],
         "launches": launches,
-        "max_abs_err": max([k1["max_abs_err"], in_parity["K1"]["max_abs_err"]]
-                           + [r["max_abs_err"] for r in rows + parity_rows]),
+        "max_abs_err": max([k1["max_abs_err"], in_parity["K1"]["max_abs_err"],
+                            vitl_frame["k1"]["max_abs_err"]]
+                           + [r["max_abs_err"] for r in rows + parity_rows
+                              + list(rope_rows.values())]),
         # per batch of the inference path, on that batch's own inputs;
         # bound and library call summed over its 34 calls
         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
@@ -1862,6 +1987,19 @@ def main():
         # per ViT-L fusion batch (phase 17), on that batch's own inputs
         "vitl": dict(ms=vitl_frame["k1"]["ms"],
                      plain_ms=vitl_frame["k1"]["plain_ms"]),
+        # the RoPE branch (tpu3dssf/kernels/flash_attention.py:251-278), per
+        # call at the ViT-S and ViT-L shapes (phase 3, q_scale 1/8, DINOv3's
+        # tables): beside its bound, its plain version, the route before
+        # the branch (rotation outside, torch.cat, K1) and SDPA on q and k
+        # rotated beforehand
+        "rope": {
+            "replaces": "tpu3dssf/kernels/flash_attention.py:251",
+            "gradient_launches": k1_grad_launches["K1"],
+            **{f"vit{size}": {key: rope_rows[f"vit{size}_rope"][key]
+                              for key in (
+                "ms", "bound_ms", "bound_by", "plain_ms", "outside_route_ms",
+                "library_ms", "max_abs_err", "rel_err")}
+               for size in ("s", "l")}},
         # per parity batch, likewise
         "parity": dict(
             ms=in_parity["K1"]["ms"], plain_ms=in_parity["K1"]["plain_ms"],
@@ -1944,8 +2082,9 @@ def main():
     records.sort(key=lambda r: next(k for k, v in KERNELS.items()
                                     if v[2] == r["replaces"]))
     print("slice " + json.dumps(dict(frame, card=card)))
-    print("vitl_frame " + json.dumps(dict(vitl_frame, card=card,
-                                          k8_route=route, gradient=grad)))
+    print("vitl_frame " + json.dumps(dict(
+        vitl_frame, card=card, k8_route=route, gradient=grad,
+        k1_route_gradient=dict(k1_grad, launches=k1_grad_launches))))
     print("window48_batch " + json.dumps(dict(window_frame, card=card)))
     print("train_step " + json.dumps(dict(step, card=card)))
     print("parity_batch " + json.dumps(dict(parity_frame, card=card)))

@@ -16,16 +16,23 @@ import chip_smoke as cs
 EXP_RATE = 16 * 132 * 1980e6
 
 
-def by_hand(B, N, C, H, kind, exp=True):
+def by_hand(B, N, C, H, kind, exp=True, rope=False):
     """(ms, term) of one call, the arithmetic of the bound written out;
-    without the exp term where ``exp`` is False (the bound before it)."""
+    without the exp term where ``exp`` is False (the bound before it); with
+    ``rope`` the rotation of q (with its scale: 8 f32 operations per channel
+    pair) and of k (6) once per token, and the two f32 tables read once."""
     scores = B * H * N * N
     products = (10 if kind == "bwd" else 4) * B * N * N * C
     if kind == "bwd":
         nbytes = B * N * (6 * C + 4 + 2 * C + 8 * H + 6 * C)
     else:
         nbytes = B * N * (8 * C + 4 + (4 * H if kind == "lse" else 0))
-    times = {"operations": max(products / 989e12, 4 * scores / 67e12),
+    f32_ops = 4 * scores
+    if rope:
+        D = C // H
+        f32_ops += B * N * H * (8 + 6) * D // 2
+        nbytes += 2 * N * (D // 2) * 4
+    times = {"operations": max(products / 989e12, f32_ops / 67e12),
              "exp": scores / EXP_RATE if exp else 0.0,
              "bytes": nbytes / 3.35e12}
     term = max(times, key=times.get)
@@ -101,3 +108,18 @@ def test_bound_term_and_record():
     assert cs.bound_term(rows) == "operations"
     assert cs.record_bound_by("exp") == "operations"
     assert cs.record_bound_by("bytes") == "bytes"
+
+
+@pytest.mark.parametrize("shape", [VIT_S, VIT_L, (2, 77, 384, 6),
+                                   (2, 1, 384, 6)])
+def test_rope_term_by_hand(shape):
+    """K1's RoPE branch: the rotation's f32 operations and the tables'
+    bytes join the forward's; at the ViTs' shapes the products still bound
+    it (ViT-S: 9.2e7 rotation operations beside 2.3e9 for the scores)."""
+    ms, term = cs.attention_bound(*shape, "fwd", rope=True)
+    hand_ms, hand_term = by_hand(*shape, "fwd", rope=True)
+    assert ms == pytest.approx(hand_ms, rel=1e-12) and term == hand_term
+    assert ms >= cs.attention_bound(*shape, "fwd")[0]
+    if shape in (VIT_S, VIT_L):
+        assert term == "operations"
+        assert ms == pytest.approx(by_hand(*shape, "fwd")[0], rel=1e-12)

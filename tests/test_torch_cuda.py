@@ -470,3 +470,75 @@ def test_d64_launches_count_once_each(cuda):
     torch.cuda.synchronize()
     final = (fa.LAUNCHES, fa.FLASH_LAUNCHES, fa.FLASH_BWD_LAUNCHES)
     assert [a - b for a, b in zip(final, after)] == [0, 2, 1]
+
+
+# K1's RoPE branch (D = 64): q·q_scale (the f32 scale) rotated in the
+# kernel's pass over the Q tile, k rotated once by a pre-kernel into a
+# scratch; random tables with identity rows for min(5, N) prefix tokens
+def _rope_inputs(cuda, N, seed=0):
+    """A bf16 (2, N, 3·384) projection (H = 6), a bias masking the last 5
+    keys of batch row 0 with -1e9 and every key of row 1 with -inf (row 1
+    all-masked: out 0, LSE +inf), the (N, 32) tables and an upstream
+    gradient."""
+    gen = torch.Generator().manual_seed(seed)
+    qkv = torch.randn(2, N, 3 * 384, generator=gen).to(cuda, torch.bfloat16)
+    bias = torch.zeros(2, 1, N)
+    if N > 5:
+        bias[0, :, -5:] = -1e9
+    bias[1] = -float("inf")
+    n_pre = min(5, N)
+    angles = torch.rand(N - n_pre, 32, generator=gen) * 6 - 3
+    cos = torch.cat([torch.ones(n_pre, 32), torch.cos(angles)])
+    sin = torch.cat([torch.zeros(n_pre, 32), torch.sin(angles)])
+    dout = torch.randn(2, N, 384, generator=gen).to(cuda, torch.bfloat16)
+    return qkv, bias.to(cuda), cos.to(cuda), sin.to(cuda), dout
+
+
+@pytest.mark.parametrize("N", D64_N)
+@pytest.mark.parametrize("q_scale", [0.125, 0.3])
+def test_rope_forward_matches_its_plain_version(cuda, N, q_scale):
+    qkv, bias, cos, sin, _ = _rope_inputs(cuda, N)
+    before = fa.LAUNCHES
+    out = fa.flash_attention_packed(qkv, bias, 6, q_scale, cos, sin)
+    lse_out, lse = fa._launch_lse(qkv, bias, 6, q_scale, cos, sin)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == before + 1
+    ref, ref_lse = fa.flash_attention_packed_lse_reference(
+        qkv, bias, 6, q_scale, cos, sin)
+    _close(out[0], ref[0], "out")
+    _close(lse_out[0], ref[0], "out with LSE")
+    assert (lse[0] - ref_lse[0]).abs().max().item() < 1e-3
+    assert out[1].abs().max().item() == 0.0 == lse_out[1].abs().max().item()
+    assert bool((lse[1] == float("inf")).all())
+
+
+def test_rope_rule_launches_k1_and_k9(cuda):
+    """The training rule with tables: one K1 (its forward with LSE) and one
+    K9; the gradient vs autograd of the plain version in f32."""
+    qkv, bias, cos, sin, dout = _rope_inputs(cuda, 300)
+    bias[1] = 0.0                       # live rows: the plain autograd
+    counts = (fa.LAUNCHES, fa.LSE_LAUNCHES, fa.BWD_LAUNCHES,
+              fa.FLASH_LAUNCHES, fa.FLASH_BWD_LAUNCHES)
+    x = qkv.detach().requires_grad_()
+    fa.flash_attention_packed(x, bias, 6, 0.125, cos, sin).backward(dout)
+    torch.cuda.synchronize()
+    after = (fa.LAUNCHES, fa.LSE_LAUNCHES, fa.BWD_LAUNCHES,
+             fa.FLASH_LAUNCHES, fa.FLASH_BWD_LAUNCHES)
+    assert [a - b for a, b in zip(after, counts)] == [1, 0, 0, 0, 1]
+    f32 = qkv.detach().float().requires_grad_()
+    fa.flash_attention_packed_reference(f32, bias, 6, 0.125, cos,
+                                        sin).backward(dout.float())
+    _grads_close([x.grad], [f32.grad])
+
+
+def test_rope_refuses_what_it_does_not_take(cuda):
+    qkv, bias, cos, sin, _ = _rope_inputs(cuda, 64)
+    with pytest.raises(ValueError, match="head dim 64 only"):   # D = 16
+        fa.flash_attention_packed(qkv, bias, 24, 0.25, cos[:, :8].contiguous(),
+                                  sin[:, :8].contiguous())
+    with pytest.raises(ValueError, match="rope_cos/rope_sin"):
+        fa.flash_attention_packed(qkv, bias, 6, 0.125, cos.double(), sin)
+    with pytest.raises(ValueError, match="rope_cos/rope_sin"):
+        fa.flash_attention_packed(qkv, bias, 6, 0.125, cos[:-1], sin[:-1])
+    with pytest.raises(ValueError, match="both"):
+        fa.flash_attention_packed(qkv, bias, 6, 0.125, cos, None)

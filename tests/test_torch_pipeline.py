@@ -291,7 +291,8 @@ def test_port_imports_no_jax():
         " 'tpu3dssf_torch.cli.main_sample',"
         " 'tpu3dssf_torch.kernels.flash_attention',"
         " 'tpu3dssf_torch.kernels.window_attention',"
-        " 'tpu3dssf_torch.kernels.modules'}\n"
+        " 'tpu3dssf_torch.kernels.modules',"
+        " 'tpu3dssf_torch.models.vit_port'}\n"
         "assert new <= set(sys.modules), new - set(sys.modules)\n"
         "import tpu3dssf_torch.kernels as k\n"
         "names = ('flash_attention', 'mha_reference', 'window_attention')\n"

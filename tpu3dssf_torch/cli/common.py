@@ -4,7 +4,8 @@ Port of ``tpu3dssf.cli.common``. The dataset and loader builders are the
 JAX CLI's, over the port's own copies of the host modules
 (``tpu3dssf_torch.config``, ``tpu3dssf_torch.data``). The model build
 functions make the port's modules on an explicit ``device`` with seeded
-random weights (no pretrained weights are loaded yet).
+random weights; the image encoder loads a local DINO checkpoint where one
+exists (:mod:`tpu3dssf_torch.models.vit_port`).
 """
 
 from __future__ import annotations
@@ -102,32 +103,44 @@ def compute_dtype(cfg: Config) -> torch.dtype:
     return _DTYPES[cfg.tpu.compute_dtype]
 
 
-def build_image_encoder(cfg: Config, device, seed: int = 0):
-    """Frozen ViT + encode fn on ``device``; returns (encode_fn, vit_cfg),
-    or (None, None) for the LiDAR-only path.
+def build_vit(cfg: Config, device, seed: int = 0):
+    """The frozen ViT of ``cfg.image_encoder`` on ``device``: (vit,
+    vit_cfg).
 
-    No pretrained weights are loaded yet: the ViT gets the seeded flax-
-    style init, and its LayerScale (1e-5) is folded into the Dense weights
-    as the JAX CLI does for its frozen encoder.
+    Weights, as the JAX CLI takes them: a local DINO checkpoint where one
+    exists (``vit_port.try_load_pretrained``: ``TPU3DSSF_VIT_CHECKPOINT``,
+    ``$TPU3DSSF_WEIGHTS/<name>.{safetensors,bin,pth}`` with ``./weights``
+    by default, or the HF cache), else the seeded flax-style init; it says
+    which. Then LayerScale is folded into the Dense weights, as the JAX CLI
+    does for its frozen encoder.
     """
     from tpu3dssf_torch.models.layers import init_weights
     from tpu3dssf_torch.models.vit import (VisionTransformer, dinov2_small,
                                            dinov3_large, dinov3_small,
                                            fold_layerscale)
+    from tpu3dssf_torch.models.vit_port import try_load_pretrained
+
+    vit_cfg = {"dinov2": dinov2_small, "dinov3": dinov3_small,
+               "dinov3_large": dinov3_large}[cfg.image_encoder]()
+    vit_cfg = type(vit_cfg)(**{**vit_cfg.__dict__,
+                               "dtype": compute_dtype(cfg)})
+    vit = init_weights(VisionTransformer(vit_cfg), seed)
+    if try_load_pretrained(cfg.image_encoder, vit) is None:
+        print(f"[cli] no pretrained {cfg.image_encoder} weights found "
+              "locally — using the seeded random-init frozen ViT")
+    return fold_layerscale(vit).to(device).eval(), vit_cfg
+
+
+def build_image_encoder(cfg: Config, device, seed: int = 0):
+    """Frozen ViT (:func:`build_vit`) + encode fn on ``device``; returns
+    (encode_fn, vit_cfg), or (None, None) for the LiDAR-only path."""
     from tpu3dssf_torch.train.loop import make_image_encode_fn
 
     if cfg.image_encoder == "none":
         return None, None
-    dtype = compute_dtype(cfg)
-    vit_cfg = {"dinov2": dinov2_small, "dinov3": dinov3_small,
-               "dinov3_large": dinov3_large}[cfg.image_encoder]()
-    vit_cfg = type(vit_cfg)(**{**vit_cfg.__dict__, "dtype": dtype})
-    print(f"[cli] no pretrained {cfg.image_encoder} weights or checkpoints "
-          "are loaded by the port yet — using seeded random weights")
-    vit = init_weights(VisionTransformer(vit_cfg), seed)
-    vit = fold_layerscale(vit).to(device).eval()
-    encode = make_image_encode_fn(vit, vit_cfg.image_size, dtype)
-    return encode, vit_cfg
+    vit, vit_cfg = build_vit(cfg, device, seed)
+    return make_image_encode_fn(vit, vit_cfg.image_size,
+                                vit_cfg.dtype), vit_cfg
 
 
 def build_pipeline(cfg: Config, vit_cfg=None, device="cpu", seed: int = 1):

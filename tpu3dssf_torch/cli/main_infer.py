@@ -1,8 +1,11 @@
 """Streaming multi-scene inference on one GPU (the port's main path).
 
-Port of ``tpu3dssf.cli.main_infer`` for a single device: streams a split
-through the frozen ViT and the fusion pipeline and prints the metric block
-and the throughput line of the JAX CLI.
+Port of ``tpu3dssf.cli.main_infer`` for a single device: restores the
+latest checkpoint under ``test_params.checkpoint_path`` (else
+``checkpoint_path``) with ``train.checkpoint.restore_checkpoint``, streams
+a split through the frozen ViT and the fusion pipeline and prints the
+metric block and the throughput line of the JAX CLI. Without a checkpoint
+it evaluates the seeded random init and says so.
 
     python -m tpu3dssf_torch.cli.main_infer --config <yaml> [--split test]
 
@@ -37,6 +40,7 @@ def main(argv=None):
 
     from tpu3dssf_torch.cli import common
     from tpu3dssf_torch.metrics import format_metrics
+    from tpu3dssf_torch.train.checkpoint import restore_checkpoint
     from tpu3dssf_torch.train.loop import MetricAccumulator, make_eval_step
 
     cfg = common.load_config(args.config)
@@ -53,6 +57,14 @@ def main(argv=None):
     loaders = common.build_dataloaders(cfg, datasets)
     encode_fn, vit_cfg = common.build_image_encoder(cfg, device)
     model, _ = common.build_pipeline(cfg, vit_cfg, device)
+    state = common.init_state(cfg, model)
+    ckpt = cfg.test_checkpoint_path or cfg.checkpoint_path
+    try:
+        state, _, step = restore_checkpoint(ckpt, None, state)
+        print(f"loaded checkpoint step {step} from {ckpt}")
+    except FileNotFoundError:
+        print(f"[warn] no checkpoint in {ckpt}; random init")
+    model = state.model
     loss_fn = common.build_loss(cfg)
     eval_step = make_eval_step(loss_fn, cfg.mlp_class)
 
@@ -74,7 +86,8 @@ def main(argv=None):
 
     print(format_metrics(metrics))
     print(f"streamed {acc.it} batches, {total_points:,} valid points in "
-          f"{dt:.1f}s  ->  {total_points/dt:,.0f} points/s")
+          f"{dt:.1f}s  ->  {total_points/dt:,.0f} points/s "
+          f"({total_points/dt:,.0f} per chip)")
     return metrics
 
 

@@ -14,8 +14,9 @@ Flags: ``--config``, ``--resume`` (full train state from
 ``torch.profiler`` trace of train steps 10–13) and ``--device``, which
 defaults to ``cuda``: without a CUDA device the CLI raises (it never drops
 to the CPU). ``--device cpu`` runs the plain versions of the kernels, for
-tests on a tiny config. Weights are seeded random (no pretrained encoder
-is loaded yet).
+tests on a tiny config. The model starts from seeded random weights; the
+frozen image encoder from a local DINO checkpoint where one exists
+(``common.build_vit``).
 """
 
 from __future__ import annotations

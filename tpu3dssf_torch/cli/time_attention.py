@@ -9,8 +9,11 @@ Times the attention kernels of the ``tpu3dssf_torch`` package under
 K8, K8 with its LSE and K9 on the (B, N, H, D) views of ViT-L/16 (H = 16,
 q_scale 1/8), each beside ``scaled_dot_product_attention`` on the same
 inputs (its autograd backward for K9) and with its largest error against
-the package's plain version. Inputs are seeded bf16 normals, every key
-live.
+the package's plain version. Then the ViT's K1 route with DINOv3's RoPE at
+both widths (q_scale 1/8): rotating q and k outside the kernel, repacking
+with ``torch.cat`` and K1 (:func:`rope_outside`, the route before K1's
+RoPE branch), and, where the package has the branch, K1 rotating them
+itself. Inputs are seeded bf16 normals, every key live.
 
 Pointing ``--root`` at an unpacked older commit times that commit's
 kernels (each checkout builds its own sources into its own ``build/``), so
@@ -29,6 +32,33 @@ import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
+
+
+def rope_outside(fa, qkv, bias, H, angles, n_prefix, q_scale):
+    """The ViT's K1 route before K1's RoPE branch, on a packed (B, N, 3C)
+    projection: q and k of the patch tokens rotated outside the kernel in
+    f32 by the (N − n_prefix, D/2) ``angles`` (cos and sin taken on every
+    call), q pre-scaled in bf16, q, k and v packed back with ``torch.cat``,
+    then K1 without tables through the kernel module ``fa``."""
+    import torch
+    B, N, C3 = qkv.shape
+    C = C3 // 3
+    D = C // H
+
+    def rope(x):
+        prefix, patches = x[:, :n_prefix], x[:, n_prefix:]
+        cos = torch.cos(angles)[None, :, None, :]
+        sin = torch.sin(angles)[None, :, None, :]
+        p1, p2 = patches[..., :D // 2], patches[..., D // 2:]
+        rotated = torch.cat([p1 * cos - p2 * sin, p1 * sin + p2 * cos], -1)
+        return torch.cat([prefix, rotated.to(x.dtype)], dim=1)
+
+    q = rope(qkv[..., :C].reshape(B, N, H, D))
+    k = rope(qkv[..., C:2 * C].reshape(B, N, H, D))
+    q = q * torch.tensor(q_scale, dtype=q.dtype)
+    packed = torch.cat([q.reshape(B, N, C), k.reshape(B, N, C),
+                        qkv[..., 2 * C:]], dim=-1)
+    return fa._launch(packed, bias, H, None)
 
 
 def main(argv=None):
@@ -111,6 +141,30 @@ def main(argv=None):
             fa._launch_flash_bwd(q, k, v, bias, dout, lse, delta, scale),
             fa.flash_attention_bwd_reference(q, k, v, bias, dout, lse, delta,
                                              scale)))
+    del q, k, v, leaves, qt, kt, vt, out, lse, dout, delta, sdpa_out
+    torch.cuda.empty_cache()
+
+    # the ViT's K1 route with DINOv3's RoPE (grid 40 x 71, 5 prefix tokens)
+    from tpu3dssf_torch.models import vit
+    cfg = vit.dinov3_small()
+    angles = vit._rope_angles(*cfg.grid_size, 64, cfg.rope_theta).cuda()
+    branch = hasattr(fa, "rope_rotate")
+    if branch:
+        cos, sin = (x.cuda() for x in vit.rope_tables(cfg))
+    for name, H in (("vits", 6), ("vitl", 16)):
+        qkv = normal(B, N, 3 * 64 * H)
+        row = dict(outside_ms=cuda_ms(lambda: rope_outside(
+            fa, qkv, bias, H, angles, cfg.num_prefix_tokens, scale)))
+        if branch:
+            row["ms"] = cuda_ms(lambda: fa._launch(qkv, bias, H, scale, cos,
+                                                   sin))
+            row["max_abs_err"] = err(
+                fa._launch(qkv, bias, H, scale, cos, sin),
+                fa.flash_attention_packed_reference(qkv, bias, H, scale, cos,
+                                                    sin))
+        result[f"K1_rope_{name}"] = row
+        del qkv
+        torch.cuda.empty_cache()
     print(json.dumps(result), flush=True)
 
 

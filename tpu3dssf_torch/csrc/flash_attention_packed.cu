@@ -4,7 +4,8 @@
 // in layout and Mosaic block rules:
 //   * tpu3dssf/kernels/flash_attention.py::_packed_kernel, its
 //     with_lse=False forward (K1) and, with the kLse flag, its with_lse=True
-//     training forward (K2);
+//     training forward (K2); at D = 64 also its use_rope branch (kRope), the
+//     DINOv3 ViT's K1 with q and k rotated by axial-RoPE tables;
 //   * tpu3dssf/kernels/window_attention.py::_attn_kernel_lse (K4, kLse) and
 //     ::_attn_kernel (K6), the (W, K, H, D) window kernels;
 //   * tpu3dssf/kernels/flash_attention.py::_flash_kernel (K8), the
@@ -73,6 +74,27 @@
 // A row whose every score is -inf (only with -inf biases) gives output 0
 // and, with kLse, LSE +inf.
 //
+// RoPE (kRope, D = 64; the TPU kernel's use_rope branch): each head's q is
+// taken in f32 times q_scale (the f32 value, not bf16(q_scale)) and k in
+// f32, each rotated by its token's row n of the (N, 32) f32 tables,
+// (x1 cos - x2 sin, x1 sin + x2 cos) on channels [0, 32) and [32, 64),
+// and rounded to bf16 once; every head and batch row uses the same tables.
+// Products and sums are rounded one by one (no fused multiply-add), so the
+// rotated values are those of the plain PyTorch version bit for bit.
+//   * q is rotated by the consumers in the pass that scales the Q tile
+//     otherwise, in the 128-byte-swizzled tile itself: logical 16-byte chunk
+//     c of row r sits at physical chunk c ^ (r & 7), so its partner c + 4
+//     sits at that index ^ 4, and each thread takes two such pairs.
+//   * k is rotated once per call by a pre-kernel (fap_fwd_kernel_rope_k)
+//     into a contiguous (B, N, H, 64) bf16 scratch that the wrapper takes
+//     with torch.empty, and the attention kernel's K tensor map points at
+//     it. The other design, the producer's idle warps rotating each K tile
+//     after it lands, would rotate every key once per query tile and read
+//     the tables (128 bytes a token each) again per CTA, and a 192-key
+//     table tile (48 KB) fits beside the ring only once, not per stage; the
+//     pre-kernel moves each key twice more through HBM instead (about 4% of
+//     a ViT-L call).
+//
 // With kLse both write the per-(b, h, query row) log-sum-exp in natural-log
 // units, lse[b, h, n] = m + log(max(l, 1e-20)) as f32 (B, H, N), converted
 // once per row on the store from the running max m and sum l.
@@ -100,6 +122,8 @@ struct FwdArgs {
   const float* bias;   // (B, 1, N)
   __nv_bfloat16* out;
   float* lse;          // (B, H, N), written only with kLse
+  const float* rope_cos;  // (N, 32) RoPE tables, read only with kRope
+  const float* rope_sin;
   int64_t q_s[3], k_s[3], v_s[3], o_s[3];
   int N;
   float q_scale;
@@ -314,6 +338,54 @@ __global__ void __launch_bounds__(kThreads) fap_fwd_kernel(const FwdArgs a) {
 
 namespace d64 {
 
+// One chunk pair of a head row: lo holds channels 8c .. 8c + 7, hi channels
+// 32 + 8c ..; cs and sn point at the 8 table entries of c in the token's row.
+// x * scale, rotated, rounded to bf16 once; every step rounded on its own.
+__device__ __forceinline__ void rope_pair(uint4& lo, uint4& hi,
+                                          const float* cs, const float* sn,
+                                          float scale) {
+  const float4 c0 = reinterpret_cast<const float4*>(cs)[0];
+  const float4 c1 = reinterpret_cast<const float4*>(cs)[1];
+  const float4 s0 = reinterpret_cast<const float4*>(sn)[0];
+  const float4 s1 = reinterpret_cast<const float4*>(sn)[1];
+  const float cv[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+  const float sv[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+  __nv_bfloat16* x1 = reinterpret_cast<__nv_bfloat16*>(&lo);
+  __nv_bfloat16* x2 = reinterpret_cast<__nv_bfloat16*>(&hi);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float a1 = __fmul_rn(__bfloat162float(x1[j]), scale);
+    const float a2 = __fmul_rn(__bfloat162float(x2[j]), scale);
+    x1[j] = __float2bfloat16(
+        __fsub_rn(__fmul_rn(a1, cv[j]), __fmul_rn(a2, sv[j])));
+    x2[j] = __float2bfloat16(
+        __fadd_rn(__fmul_rn(a1, sv[j]), __fmul_rn(a2, cv[j])));
+  }
+}
+
+// k rotated once per call into the contiguous (B, N, H, 64) scratch `dst`:
+// one thread per (batch row, token, head, chunk pair c in 0..3), so a warp
+// reads and writes whole 128-byte head rows
+__global__ void __launch_bounds__(256)
+    fap_fwd_kernel_rope_k(const FwdArgs a, int H, __nv_bfloat16* dst,
+                          int64_t total) {
+  const int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const int c = i & 3;
+  const int64_t t = i >> 2;
+  const int h = t % H;
+  const int n = (t / H) % a.N;
+  const int64_t b = t / H / a.N;
+  const uint4* src = reinterpret_cast<const uint4*>(
+      a.k + b * a.k_s[0] + n * a.k_s[1] + h * a.k_s[2]);
+  uint4 lo = src[c], hi = src[c + 4];
+  rope_pair(lo, hi, a.rope_cos + (int64_t)n * 32 + 8 * c,
+            a.rope_sin + (int64_t)n * 32 + 8 * c, 1.0f);
+  uint4* out = reinterpret_cast<uint4*>(dst + ((b * a.N + n) * H + h) * 64);
+  out[c] = lo;
+  out[c + 4] = hi;
+}
+
 constexpr int kRows = 128;    // query rows per CTA, 64 per consumer warpgroup
 constexpr int kKeys = 192;    // keys per tile
 constexpr int kStages = 3;    // K/V ring depth
@@ -330,7 +402,7 @@ static_assert(kStages * 4 <= 16, "the flags fit before the barriers");
 constexpr int kSmemBytes = kBarOff + (1 + 2 * kStages) * 8 + 1024;
 constexpr float kLn2 = 0.6931471805599453f;
 
-template <bool kLse>
+template <bool kLse, bool kRope>
 __global__ void __launch_bounds__(kThreads, 1)
     fap_fwd_kernel_d64(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
@@ -410,10 +482,34 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int t = lane & 3;
   uint8_t* sQw = sQ + wg * (kTile / 2);
   mbar_wait(q_full, 0);
-  // q * q_scale rounded to bf16, the TPU kernels' q * bf16(scale), once on
-  // this warpgroup's half of the tile (the swizzle does not matter here)
+  if constexpr (kRope) {
+    // q * q_scale rotated and rounded once, in place on this warpgroup's 64
+    // rows: 64 x 4 chunk pairs, two a thread; rows past N (TMA's zeros)
+    // stay as they are
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int pair = tid + 128 * i;
+      const int r = pair >> 2;
+      const int c = pair & 3;
+      const int n = q0 + 64 * wg + r;
+      if (n < N) {
+        uint4* row = reinterpret_cast<uint4*>(sQw + r * 128);
+        const int lo_at = c ^ (r & 7);  // the swizzle; the partner: ^ 4
+        uint4 lo = row[lo_at], hi = row[lo_at ^ 4];
+        rope_pair(lo, hi, a.rope_cos + (int64_t)n * 32 + 8 * c,
+                  a.rope_sin + (int64_t)n * 32 + 8 * c, a.q_scale);
+        row[lo_at] = lo;
+        row[lo_at ^ 4] = hi;
+      }
+    }
+    fence_proxy_async();
+    named_barrier(1 + wg, 128);
+  }
+  // without RoPE: q * q_scale rounded to bf16, the TPU kernels' q *
+  // bf16(scale), once on this warpgroup's half of the tile (the swizzle
+  // does not matter here)
   const float qs = __bfloat162float(__float2bfloat16(a.q_scale));
-  if (qs != 1.0f) {
+  if (!kRope && qs != 1.0f) {
     uint4* chunk = reinterpret_cast<uint4*>(sQw) + tid * 4;
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
@@ -583,8 +679,20 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <bool kLse>
-cudaError_t launch(const FwdArgs& a, int B, int H, cudaStream_t stream) {
+template <bool kLse, bool kRope>
+cudaError_t launch(FwdArgs a, int B, int H, __nv_bfloat16* k_rot,
+                   cudaStream_t stream) {
+  if constexpr (kRope) {
+    const int64_t total = (int64_t)B * a.N * H * 4;
+    fap_fwd_kernel_rope_k<<<(unsigned)((total + 255) / 256), 256, 0,
+                            stream>>>(a, H, k_rot, total);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    a.k = k_rot;  // the attention kernel reads the rotated keys
+    a.k_s[0] = (int64_t)a.N * H * 64;
+    a.k_s[1] = (int64_t)H * 64;
+    a.k_s[2] = 64;
+  }
   CUtensorMap tq, tk, tv;
   if (!sm90::make_head_map(&tq, a.q, a.q_s, B, a.N, H, kRows) ||
       !sm90::make_head_map(&tk, a.k, a.k_s, B, a.N, H, kKeys) ||
@@ -592,20 +700,23 @@ cudaError_t launch(const FwdArgs& a, int B, int H, cudaStream_t stream) {
     return cudaErrorInvalidValue;
   // above 48 KB of dynamic shared memory on the current device
   const cudaError_t err = cudaFuncSetAttribute(
-      fap_fwd_kernel_d64<kLse>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemBytes);
+      fap_fwd_kernel_d64<kLse, kRope>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.N + kRows - 1) / kRows, H, B);
-  fap_fwd_kernel_d64<kLse><<<grid, kThreads, kSmemBytes, stream>>>(tq, tk,
-                                                                  tv, a);
+  fap_fwd_kernel_d64<kLse, kRope><<<grid, kThreads, kSmemBytes, stream>>>(
+      tq, tk, tv, a);
   return cudaGetLastError();
 }
 
 }  // namespace d64
 
 template <bool kLse>
-cudaError_t launch(const FwdArgs& a, int B, int H, int D, cudaStream_t s) {
-  if (D == 64) return d64::launch<kLse>(a, B, H, s);
+cudaError_t launch(const FwdArgs& a, int B, int H, int D,
+                   __nv_bfloat16* k_rot, cudaStream_t s) {
+  if (D == 64)
+    return a.rope_cos != nullptr ? d64::launch<kLse, true>(a, B, H, k_rot, s)
+                                 : d64::launch<kLse, false>(a, B, H, k_rot, s);
   const dim3 grid((a.N + kBlockQ - 1) / kBlockQ, H, B);
   fap_fwd_kernel<16, kLse><<<grid, kThreads, 0, s>>>(a);
   return cudaGetLastError();
@@ -618,15 +729,24 @@ cudaError_t launch(const FwdArgs& a, int B, int H, int D, cudaStream_t s) {
 // the (batch, token, head) strides of q, k, v, out in that order, each a
 // multiple of 8, with every pointer 16-byte aligned and the D channels of a
 // head contiguous. bias (B, 1, N) f32 contiguous. lse (B, H, N) f32
-// contiguous, or null for the forward without LSE. Returns the cudaError_t
+// contiguous, or null for the forward without LSE. rope_cos and rope_sin
+// (N, D/2) f32 contiguous, or both null for the forward without RoPE; with
+// them k_rot is a contiguous (B, N, H, D) bf16 scratch (two device kernels
+// then: k's rotation into k_rot, the attention). Returns the cudaError_t
 // of the launch; cudaErrorInvalidValue for an unsupported head dimension
-// (16 and 64 are built), an empty shape, or (D = 64) a view that
-// cuTensorMapEncodeTiled refuses.
+// (16 and 64 are built; RoPE at 64 only), an empty shape, or (D = 64) a
+// view that cuTensorMapEncodeTiled refuses.
 extern "C" int fa_forward_bf16(const void* q, const void* k, const void* v,
                                const void* bias, void* out, void* lse,
-                               const long long* strides, int B, int N, int H,
-                               int D, float q_scale, void* stream) {
+                               const void* rope_cos, const void* rope_sin,
+                               void* k_rot, const long long* strides, int B,
+                               int N, int H, int D, float q_scale,
+                               void* stream) {
   if (B <= 0 || N <= 0 || H <= 0 || (D != 16 && D != 64))
+    return (int)cudaErrorInvalidValue;
+  if ((rope_cos != nullptr || rope_sin != nullptr || k_rot != nullptr) &&
+      (D != 64 || rope_cos == nullptr || rope_sin == nullptr ||
+       k_rot == nullptr))
     return (int)cudaErrorInvalidValue;
   FwdArgs a;
   a.q = static_cast<const __nv_bfloat16*>(q);
@@ -635,6 +755,8 @@ extern "C" int fa_forward_bf16(const void* q, const void* k, const void* v,
   a.bias = static_cast<const float*>(bias);
   a.out = static_cast<__nv_bfloat16*>(out);
   a.lse = static_cast<float*>(lse);
+  a.rope_cos = static_cast<const float*>(rope_cos);
+  a.rope_sin = static_cast<const float*>(rope_sin);
   for (int i = 0; i < 3; ++i) {
     a.q_s[i] = strides[i];
     a.k_s[i] = strides[3 + i];
@@ -644,8 +766,9 @@ extern "C" int fa_forward_bf16(const void* q, const void* k, const void* v,
   a.N = N;
   a.q_scale = q_scale;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  return (int)(lse != nullptr ? launch<true>(a, B, H, D, s)
-                              : launch<false>(a, B, H, D, s));
+  __nv_bfloat16* kr = static_cast<__nv_bfloat16*>(k_rot);
+  return (int)(lse != nullptr ? launch<true>(a, B, H, D, kr, s)
+                              : launch<false>(a, B, H, D, kr, s));
 }
 
 // Dynamic shared memory of the D = 64 kernel in bytes (for build reports).

@@ -8,6 +8,9 @@ have a Hopper counterpart here, each with its own launch counter:
 * K1, the packed inference forward ``_packed_kernel`` (``with_lse=False``),
   counted in :data:`LAUNCHES`. It serves each ViT layer of the packed route
   and every PTv3 block of the packed routes when nothing needs a gradient.
+  Its RoPE branch (``use_rope``: q and k rotated by axial-RoPE cos/sin
+  tables inside the kernel) serves the DINOv3 ViT, and counts as K1 in its
+  training forward too, as JAX runs K1 there.
 * K2, the packed training forward ``_packed_kernel`` with ``with_lse=True``
   (``_fap_fwd``), counted in :data:`LSE_LAUNCHES`.
 * K3, the stats-fed packed backward ``_packed_bwd_kernel`` (``_fap_bwd``),
@@ -140,19 +143,58 @@ def flash_attention_bwd_reference(q, k, v, key_bias, dout, lse, delta,
     return tuple(x.to(q.dtype) for x in (dq, dk, dv))
 
 
-def flash_attention_packed_lse_reference(qkv, key_bias, heads, q_scale=None):
+def rope_rotate(x, rope_cos, rope_sin, scale=None, inverse=False):
+    """Axial RoPE on (B, N, H, D) ``x`` as the TPU kernel's ``use_rope``
+    branch rotates q and k: in f32, x times the f32 ``scale`` (None: 1),
+    then the halves [0, D/2) and [D/2, D) rotated by token n's row of the
+    (N, D/2) f32 tables, ``(x1·cos − x2·sin, x1·sin + x2·cos)`` (with
+    ``inverse`` by −sin: the transpose, for gradients), rounded to x.dtype
+    once. Every head and batch row uses the same tables; identity rows
+    (cos 1, sin 0) leave a token as it is."""
+    D2 = x.shape[-1] // 2
+    xf = x.float()
+    if scale is not None:
+        xf = xf * torch.tensor(scale, dtype=torch.float32)
+    cos = rope_cos.float()[:, None, :]
+    sin = rope_sin.float()[:, None, :]
+    if inverse:
+        sin = -sin
+    x1, x2 = xf[..., :D2], xf[..., D2:]
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                     dim=-1).to(x.dtype)
+
+
+def _rope_views(qkv, heads, q_scale, rope_cos, rope_sin):
+    """q, k, v (B, N, H, D) of the packed projection and the q_scale the
+    plain attention then takes: with tables, q rotated with its f32 scale
+    and k rotated, each rounded once (scale 1 after that); without, the
+    views and ``q_scale``."""
+    q, k, v = _split_heads(qkv, heads)
+    if rope_cos is None:
+        return q, k, v, q_scale
+    return (rope_rotate(q, rope_cos, rope_sin, q_scale),
+            rope_rotate(k, rope_cos, rope_sin), v, None)
+
+
+def flash_attention_packed_lse_reference(qkv, key_bias, heads, q_scale=None,
+                                         rope_cos=None, rope_sin=None):
     """:func:`flash_attention_lse_reference` on the packed layout: (out
-    (B, N, C) in qkv.dtype, lse (B, H, N) f32)."""
-    out, lse = flash_attention_lse_reference(*_split_heads(qkv, heads),
-                                             key_bias, q_scale)
+    (B, N, C) in qkv.dtype, lse (B, H, N) f32). With the (N, D/2) f32
+    tables ``rope_cos``/``rope_sin``, q and k are first rotated by
+    :func:`rope_rotate`, q with its f32 ``q_scale`` (the RoPE-free branch
+    multiplies by q_scale rounded to qkv.dtype): any D."""
+    *views, scale = _rope_views(qkv, heads, q_scale, rope_cos, rope_sin)
+    out, lse = flash_attention_lse_reference(*views, key_bias, scale)
     return out.flatten(2), lse
 
 
-def flash_attention_packed_reference(qkv, key_bias, heads, q_scale=None):
-    """Plain PyTorch version of K1: the output of
-    :func:`flash_attention_packed_lse_reference`."""
+def flash_attention_packed_reference(qkv, key_bias, heads, q_scale=None,
+                                     rope_cos=None, rope_sin=None):
+    """Plain PyTorch version of K1 (with or without its RoPE branch): the
+    output of :func:`flash_attention_packed_lse_reference`."""
     return flash_attention_packed_lse_reference(qkv, key_bias, heads,
-                                                q_scale)[0]
+                                                q_scale, rope_cos,
+                                                rope_sin)[0]
 
 
 def flash_attention_packed_bwd_reference(qkv, key_bias, dout, lse, delta,
@@ -175,7 +217,8 @@ def row_delta(dout, out, heads=None):
     return prod.sum(-1).transpose(1, 2).contiguous()
 
 
-def flash_attention_packed(qkv, key_bias, heads, q_scale=None):
+def flash_attention_packed(qkv, key_bias, heads, q_scale=None, rope_cos=None,
+                           rope_sin=None):
     """MHA straight off the qkv projection: (B, N, 3C) → (B, N, C).
 
     Args:
@@ -184,64 +227,105 @@ def flash_attention_packed(qkv, key_bias, heads, q_scale=None):
       key_bias: (B, 1, N) additive on the keys (−1e9 masks a key).
       heads: number of heads.
       q_scale: scale applied to q; ``None`` means q arrives pre-scaled.
+      rope_cos, rope_sin: (N, D/2) f32 axial-RoPE tables (both or
+        neither), the TPU kernel's ``use_rope`` branch: q·q_scale (the f32
+        value) and k are rotated by token n's row (:func:`rope_rotate`) and
+        rounded to bf16 once before the softmax. Every head and batch row
+        uses the same tables; prefix and padded tokens carry identity rows
+        (cos 1, sin 0). The tables get no gradient.
 
     When autograd needs a gradient of ``qkv`` this is
-    :class:`FlashAttentionPacked` (K2 forward, K3 backward on a CUDA
-    tensor); otherwise it launches K1. The TPU version's ``block_q``,
-    ``head_group``, ``rope_cos``/``rope_sin`` and its scratch option are
-    gone: the first three are Mosaic tiling rules (N a q-block multiple,
-    128-lane head groups), RoPE in the kernel has no caller in the port
-    (ROADMAP.md §2: still to port), and the scratch buffer only bounded
-    VMEM. The kernels mask ragged N themselves.
+    :class:`FlashAttentionPacked` (K2 forward and K3 backward on a CUDA
+    tensor; with tables K1's forward with its LSE and K9); otherwise it
+    launches K1. The TPU version's ``block_q``, ``head_group`` and its
+    scratch option are gone: the first two are Mosaic tiling rules (N a
+    q-block multiple, 128-lane head groups), and the scratch buffer only
+    bounded VMEM. The kernels mask ragged N themselves.
 
-    On a CUDA tensor: bf16 only, D = C/heads in :data:`SUPPORTED_HEAD_DIMS`,
-    contiguous 16-byte-aligned qkv and a contiguous f32 bias. Anything else
-    raises.
+    On a CUDA tensor: bf16 only, D = C/heads in :data:`SUPPORTED_HEAD_DIMS`
+    (64 with tables), contiguous 16-byte-aligned qkv, a contiguous f32 bias
+    and contiguous f32 tables on the same card. Anything else raises.
     """
     if torch.is_grad_enabled() and qkv.requires_grad:
-        return FlashAttentionPacked.apply(qkv, key_bias, heads, q_scale)
+        return FlashAttentionPacked.apply(qkv, key_bias, heads, q_scale,
+                                          rope_cos, rope_sin)
     if qkv.device.type == "cpu":
         return flash_attention_packed_reference(qkv, key_bias, heads,
-                                                q_scale)
-    return _launch(qkv, key_bias, heads, q_scale)
+                                                q_scale, rope_cos, rope_sin)
+    return _launch(qkv, key_bias, heads, q_scale, rope_cos, rope_sin)
 
 
 class FlashAttentionPacked(torch.autograd.Function):
     """The training rule of :func:`flash_attention_packed` (port of
-    ``_fap_fwd``/``_fap_bwd``, RoPE-free branch).
+    ``_fap_fwd``/``_fap_bwd``).
 
-    The forward launches K2 and saves (qkv, key_bias, lse, out); the
-    backward computes delta = rowsum(g·out) per head in plain torch, as
-    JAX does outside Pallas, and launches K3. ``key_bias`` gets no
-    gradient (JAX returns zeros for it).
+    RoPE-free: the forward launches K2 and saves (qkv, key_bias, lse, out);
+    the backward computes delta = rowsum(g·out) per head in plain torch, as
+    JAX does outside Pallas, and launches K3.
+
+    With tables: the forward launches K1's RoPE branch with its LSE,
+    counted as K1 (JAX runs K1 there). The backward follows JAX's RoPE
+    half in plain torch around K9: qs = rot(q)·q_scale and kr = rot(k),
+    rounded as the forward rounded them, K9 on their (B, N, H, D) views
+    with q_scale 1, the forward's LSE and delta, then dq = q_scale·rotᵀ(dqs)
+    and dk = rotᵀ(dkr); dv as K9 gives it. ``key_bias`` and the tables get
+    no gradient (JAX returns zeros for them).
     """
 
     @staticmethod
-    def forward(ctx, qkv, key_bias, heads, q_scale):
-        global LSE_LAUNCHES
+    def forward(ctx, qkv, key_bias, heads, q_scale, rope_cos, rope_sin):
+        global LAUNCHES, LSE_LAUNCHES
         if qkv.device.type == "cpu":
             out, lse = flash_attention_packed_lse_reference(
-                qkv, key_bias, heads, q_scale)
+                qkv, key_bias, heads, q_scale, rope_cos, rope_sin)
         else:
-            out, lse = _launch_lse(qkv, key_bias, heads, q_scale)
-            LSE_LAUNCHES += 1
-        ctx.save_for_backward(qkv, key_bias, lse, out)
+            out, lse = _launch_lse(qkv, key_bias, heads, q_scale, rope_cos,
+                                   rope_sin)
+            if rope_cos is None:
+                LSE_LAUNCHES += 1
+            else:
+                LAUNCHES += 1
+        ctx.save_for_backward(qkv, key_bias, lse, out, rope_cos, rope_sin)
         ctx.heads, ctx.q_scale = heads, q_scale
         return out
 
     @staticmethod
     def backward(ctx, g):
         global BWD_LAUNCHES
-        qkv, key_bias, lse, out = ctx.saved_tensors
+        qkv, key_bias, lse, out, rope_cos, rope_sin = ctx.saved_tensors
         delta = row_delta(g, out, ctx.heads)
-        if qkv.device.type == "cpu":
+        if rope_cos is not None:
+            dqkv = _rope_bwd(qkv, key_bias, g, lse, delta, ctx.heads,
+                             ctx.q_scale, rope_cos, rope_sin)
+        elif qkv.device.type == "cpu":
             dqkv = flash_attention_packed_bwd_reference(
                 qkv, key_bias, g, lse, delta, ctx.heads, ctx.q_scale)
         else:
             dqkv = _launch_bwd(qkv, key_bias, g, lse, delta, ctx.heads,
                                ctx.q_scale)
             BWD_LAUNCHES += 1
-        return dqkv, None, None, None
+        return dqkv, None, None, None, None, None
+
+
+def _rope_bwd(qkv, key_bias, g, lse, delta, heads, q_scale, rope_cos,
+              rope_sin):
+    """dqkv of the RoPE branch (see :class:`FlashAttentionPacked`): K9 on a
+    CUDA tensor, counted in :data:`FLASH_BWD_LAUNCHES`, its plain version
+    on a CPU tensor."""
+    global FLASH_BWD_LAUNCHES
+    qs, kr, v, _ = _rope_views(qkv, heads, q_scale, rope_cos, rope_sin)
+    dout = g.contiguous().unflatten(-1, (heads, -1))
+    if qkv.device.type == "cpu":
+        dqs, dkr, dv = flash_attention_bwd_reference(qs, kr, v, key_bias,
+                                                     dout, lse, delta)
+    else:
+        dqs, dkr, dv = _launch_flash_bwd(qs, kr, v, key_bias, dout, lse,
+                                         delta, 1.0,
+                                         name="flash_attention_packed")
+        FLASH_BWD_LAUNCHES += 1
+    dq = rope_rotate(dqs, rope_cos, rope_sin, q_scale, inverse=True)
+    dk = rope_rotate(dkr, rope_cos, rope_sin, inverse=True)
+    return torch.cat([dq.flatten(2), dk.flatten(2), dv.flatten(2)], dim=-1)
 
 
 def flash_attention(q, k, v, key_bias=None):
@@ -390,6 +474,23 @@ def _check_views(name, views, key_bias):
                          f"{key_bias.device}")
 
 
+def _check_rope(name, q, rope):
+    """The RoPE branch's contract: D = 64 (the D = 16 kernel has no RoPE
+    branch) and contiguous 16-byte-aligned (N, D/2) f32 tables on q's
+    card."""
+    B, N, H, D = q.shape
+    if D != 64:
+        raise ValueError(f"{name}: RoPE in the kernel is built for head dim "
+                         f"64 only, got {D} (the plain version takes any D)")
+    for x in rope:
+        if (x.device != q.device or x.dtype != torch.float32
+                or tuple(x.shape) != (N, D // 2) or not x.is_contiguous()
+                or x.data_ptr() % 16):
+            raise ValueError(f"{name}: rope_cos/rope_sin must be contiguous "
+                             f"float32 {(N, D // 2)} tables on {q.device}, "
+                             f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+
+
 def _check_stats(name, q, lse, delta):
     B, N, H, _ = q.shape
     for what, x in (("lse", lse), ("delta", delta)):
@@ -414,7 +515,7 @@ def _bind(source, name, argtypes):
 
 def _lib_fwd():
     return _bind(_SOURCE, "fa_forward_bf16",
-                 [_PTR] * 6 + [_STRIDES] + [_INT] * 4 + [_FLOAT, _PTR])
+                 [_PTR] * 9 + [_STRIDES] + [_INT] * 4 + [_FLOAT, _PTR])
 
 
 def _lib_bwd():
@@ -437,22 +538,30 @@ def _raise_if_failed(err, name, what, q):
 
 
 def _launch_flash(q, k, v, key_bias, q_scale, with_lse=False,
-                  name="flash_attention"):
+                  name="flash_attention", rope=None):
     """Launch the forward kernel on (B, N, H, D) views of q, k, v: out
     (B, N, H, D) bf16, and with ``with_lse`` also lse (B, H, N) f32. It
     serves K8, the window routes' K6 and K4, and the packed K1/K2; the
-    caller counts it."""
+    caller counts it. ``rope`` (cos, sin), D = 64 only: the RoPE branch,
+    q·q_scale rotated in the kernel's Q pass and k rotated once by a
+    pre-kernel into a (B, N, H, D) bf16 scratch taken here, which the
+    attention kernel then reads in place of k (two device kernels)."""
     _check_views(name, (q, k, v), key_bias)
     B, N, H, D = q.shape
+    if rope is not None:
+        _check_rope(name, q, rope)
     out = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, H, N), dtype=torch.float32, device=q.device)
            if with_lse else None)
+    k_rot = torch.empty_like(out) if rope is not None else None
     fn = _lib_fwd()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  key_bias.data_ptr(), out.data_ptr(),
                  None if lse is None else lse.data_ptr(),
+                 *((None,) * 3 if rope is None else
+                   (rope[0].data_ptr(), rope[1].data_ptr(), k_rot.data_ptr())),
                  _strides(q, k, v, out), B, N, H, D, float(q_scale), stream)
     _raise_if_failed(err, name, "forward-with-LSE" if with_lse else "forward",
                      q)
@@ -492,23 +601,33 @@ def _scale(q_scale):
     return 1.0 if q_scale is None else float(q_scale)
 
 
-def _launch(qkv, key_bias, heads, q_scale):
-    """Launch K1 on the packed layout and count it."""
+def _rope(rope_cos, rope_sin):
+    if (rope_cos is None) != (rope_sin is None):
+        raise ValueError("flash_attention_packed: pass both rope_cos and "
+                         "rope_sin, or neither")
+    return None if rope_cos is None else (rope_cos, rope_sin)
+
+
+def _launch(qkv, key_bias, heads, q_scale, rope_cos=None, rope_sin=None):
+    """Launch K1 (with tables: its RoPE branch) on the packed layout and
+    count it."""
     global LAUNCHES
     _check(qkv, heads)
     out = _launch_flash(*_split_heads(qkv, heads), key_bias, _scale(q_scale),
-                        name="flash_attention_packed")
+                        name="flash_attention_packed",
+                        rope=_rope(rope_cos, rope_sin))
     LAUNCHES += 1
     return out.flatten(2)
 
 
-def _launch_lse(qkv, key_bias, heads, q_scale):
-    """Launch the forward-with-LSE kernel (K2/K4) on the packed layout;
-    the caller counts it."""
+def _launch_lse(qkv, key_bias, heads, q_scale, rope_cos=None, rope_sin=None):
+    """Launch the forward-with-LSE kernel on the packed layout: K2/K4, or
+    with tables K1's RoPE branch; the caller counts it."""
     _check(qkv, heads)
     out, lse = _launch_flash(*_split_heads(qkv, heads), key_bias,
                              _scale(q_scale), with_lse=True,
-                             name="flash_attention_packed")
+                             name="flash_attention_packed",
+                             rope=_rope(rope_cos, rope_sin))
     return out.flatten(2), lse
 
 

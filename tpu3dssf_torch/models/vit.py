@@ -7,15 +7,21 @@ RoPE, register tokens and reference token-slice quirk
 the layers under ``blocks.N`` (``blocks.0.norm1``, ``blocks.0.qkv``), the
 layout of the JAX CLI's stacked ``blocks`` tree.
 
-Attention routes as JAX's flash path (``ViTBlock``): RoPE is applied to q
-and k of the patch tokens outside the kernel, then
+Attention routes as JAX's flash path (``ViTBlock``), from axial-RoPE cos/sin
+tables built once per forward (:func:`rope_tables`, identity rows for the
+prefix tokens):
 * with at most 8 heads, or a 128-aligned head group and
-  ``ViTConfig.packed_head_groups`` (ViT-S, and ViT-L by default), q is
-  pre-scaled by 1/√D and packed back for
-  :func:`tpu3dssf_torch.kernels.flash_attention_packed` (K1);
-* otherwise (ViT-L with ``packed_head_groups=False``) q, k and v go as
-  (B, N, H, D) tensors to :func:`tpu3dssf_torch.kernels.flash_attention`,
-  which scales q itself (K8, and K9 for a gradient).
+  ``ViTConfig.packed_head_groups`` (ViT-S, and ViT-L by default), the
+  projection's own qkv goes to
+  :func:`tpu3dssf_torch.kernels.flash_attention_packed` (K1) with q_scale
+  1/√D and the tables, so q and k are rotated inside the kernel (its
+  ``use_rope`` branch). JAX's ViT rotates outside the kernel and pre-scales
+  q instead, for a TPU reason (Mosaic lane relayouts made its in-kernel
+  rotation slower); the function is the same up to where q·1/√D is rounded;
+* otherwise (ViT-L with ``packed_head_groups=False``) q and k are rotated
+  outside, as JAX does, and q, k, v go as (B, N, H, D) tensors to
+  :func:`tpu3dssf_torch.kernels.flash_attention`, which scales q itself
+  (K8, and K9 for a gradient).
 Each is the Hopper kernel on a CUDA tensor and the plain version on a CPU
 tensor. No sequence padding: the kernels mask ragged N themselves.
 ``ViTConfig.use_flash`` is kept for config compatibility and selects
@@ -37,7 +43,8 @@ from torch import nn
 
 from tpu3dssf_torch.kernels.flash_attention import (flash_attention,
                                                     flash_attention_packed,
-                                                    pick_head_group)
+                                                    pick_head_group,
+                                                    rope_rotate)
 from tpu3dssf_torch.models.layers import Dense, LayerNorm
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -110,16 +117,17 @@ def _rope_angles(gh, gw, head_dim, theta=100.0, device=None):
     return ang.reshape(gh * gw, 2 * quarter)
 
 
-def _apply_rope(x, angles, n_prefix):
-    """Rotate the patch tokens' halves of q/k (B, N, H, D) by ``angles``
-    (num_patches, D/2) in f32; prefix tokens pass through."""
-    D = x.shape[-1]
-    prefix, patches = x[:, :n_prefix], x[:, n_prefix:]
-    cos = torch.cos(angles)[None, :, None, :]
-    sin = torch.sin(angles)[None, :, None, :]
-    p1, p2 = patches[..., :D // 2], patches[..., D // 2:]
-    rotated = torch.cat([p1 * cos - p2 * sin, p1 * sin + p2 * cos], dim=-1)
-    return torch.cat([prefix, rotated.to(x.dtype)], dim=1)
+def rope_tables(cfg: ViTConfig, device=None):
+    """(cos, sin) of every token, each (num_prefix + num_patches, D/2) f32:
+    the patches' rows from :func:`_rope_angles`, identity rows (cos 1, sin
+    0) for the prefix tokens, which RoPE passes through."""
+    gh, gw = cfg.grid_size
+    angles = _rope_angles(gh, gw, cfg.hidden_size // cfg.num_heads,
+                          cfg.rope_theta, device=device)
+    prefix = torch.zeros((cfg.num_prefix_tokens, angles.shape[1]),
+                         device=device)
+    return (torch.cat([prefix + 1.0, torch.cos(angles)]),
+            torch.cat([prefix, torch.sin(angles)]))
 
 
 class LayerScale(nn.Module):
@@ -151,26 +159,24 @@ class ViTBlock(nn.Module):
             self.ls1 = LayerScale(C, cfg.layerscale_init)
             self.ls2 = LayerScale(C, cfg.layerscale_init)
 
-    def forward(self, x, rope_angles, key_bias):
+    def forward(self, x, rope, key_bias):
+        """``rope``: the (cos, sin) tables of :func:`rope_tables`, or None
+        without RoPE."""
         cfg = self.cfg
         B, N, C = x.shape
         H = cfg.num_heads
         D = C // H
+        cos, sin = (None, None) if rope is None else rope
         qkv = self.qkv(self.norm1(x))
-        q = qkv[..., :C].reshape(B, N, H, D)
-        k = qkv[..., C:2 * C].reshape(B, N, H, D)
-        if rope_angles is not None:
-            q = _apply_rope(q, rope_angles, cfg.num_prefix_tokens)
-            k = _apply_rope(k, rope_angles, cfg.num_prefix_tokens)
         if H > 8 and (pick_head_group(H, C) is None
                       or not cfg.packed_head_groups):
-            v = qkv[..., 2 * C:].reshape(B, N, H, D)
+            q, k, v = (t.reshape(B, N, H, D) for t in qkv.split(C, dim=-1))
+            if rope is not None:
+                q, k = rope_rotate(q, cos, sin), rope_rotate(k, cos, sin)
             out = flash_attention(q, k, v, key_bias).reshape(B, N, C)
         else:
-            q = q * torch.tensor(1.0 / math.sqrt(D), dtype=q.dtype)
-            packed = torch.cat([q.reshape(B, N, C), k.reshape(B, N, C),
-                                qkv[..., 2 * C:]], dim=-1)
-            out = flash_attention_packed(packed, key_bias, H)
+            out = flash_attention_packed(qkv, key_bias, H, 1.0 / math.sqrt(D),
+                                         cos, sin)
         out = self.proj(out)
         if cfg.layerscale_init is not None:
             out = self.ls1(out)
@@ -229,8 +235,7 @@ class VisionTransformer(nn.Module):
         x = torch.cat(tokens + [x], dim=1)
         if not cfg.use_rope:
             x = x + self.pos_embed.to(dt)
-        rope = (_rope_angles(gh, gw, C // cfg.num_heads, cfg.rope_theta,
-                             device=x.device) if cfg.use_rope else None)
+        rope = rope_tables(cfg, x.device) if cfg.use_rope else None
         key_bias = torch.zeros((B, 1, x.shape[1]), dtype=torch.float32,
                                device=x.device)
         for block in self.blocks:
