@@ -19,7 +19,9 @@ order (any failure raises, exit code ≠ 0):
    its maximum SM clock, which sets the exp's rate in the bounds;
 2. (with 6 and 12) every kernel source builds from ``tpu3dssf_torch/csrc``,
    all three nvcc processes started together (one thread each); build
-   times and ptxas registers, shared memory and spills;
+   times and ptxas registers, shared memory and spills; the D = 16
+   backward's key block equals the one its wrapper sizes the dq partials
+   by;
 3. the isolated attention checker (``check_attention``, one case of
    ``check_flash_shape`` per shape and route): K1 at every inference shape
    of the slice (max abs error < 0.05, bf16); at D = 64 beside the ViT-S
@@ -32,7 +34,9 @@ order (any failure raises, exit code ≠ 0):
    the route before the branch (rotation outside, ``torch.cat``, K1) and
    SDPA on q and k rotated beforehand; K6 and the window route's K4/K5 at
    every window-48 shape of the LiDAR config; K2/K4 and K3/K5 at every
-   training shape (see 7). Every row: kernel, plain version and the
+   training shape (see 7); every key masked at window 48 (K6, K4, K5) and
+   1024 (K1, K2, K3). Every D = 16 backward (K3, K5) is launched twice and
+   must give the same bits. Every row: kernel, plain version and the
    library call computing the same function (``scaled_dot_product_
    attention``, with a gradient pending or its backward) timed with CUDA
    events (median of 20 after warm-up), beside the bound of that call;
@@ -62,7 +66,9 @@ order (any failure raises, exit code ≠ 0):
    epoch, which must start at epoch 1 with the optimizer state restored;
 9. one train step (encode + forward + loss + backward + update) timed with
    CUDA events, its peak memory, K2–K5's device time inside it from the
-   profiler, and their plain versions' time and the kernels' error on the
+   profiler (exactly one ``fap_fwd_d16_*`` kernel a forward with LSE, and a
+   ``fap_bwd_d16_kernel`` and its dq sum a backward at window 1024; no
+   kernel of the older D = 16 design in any profiled path), and their plain versions' time and the kernels' error on the
    inputs that step gave them (within 0.05 · max(1, max |plain|) and 2% of
    max |plain|, LSE within 1e-3);
 10. 10 steps on one fixed batch lower its loss;
@@ -218,6 +224,17 @@ KERNELS = {  # name, source, the TPU kernel it replaces
            "tpu3dssf/kernels/flash_attention.py:126"),
 }
 SOURCES = sorted({source for _, source, _ in KERNELS.values()})
+# device kernel names (regular expressions): K1's at D = 16 (PTv3) and at
+# D = 64 (the ViT, with the RoPE branch's k rotation); the D = 16 forward
+# with LSE (K2, K4) and backward (K3, K5: one kernel, and the dq sum where
+# N > 256); and the older D = 16 kernels that these replaced
+K1_KERNELS = r"fap_fwd_(d16|kernel_d64|kernel_rope_k)"
+D16_LSE_KERNELS = r"fap_fwd_d16_\w+<(\d+, ?)?true>"
+D16_BWD_KERNELS = r"fap_bwd_d16_"
+DELETED_D16 = re.compile(r"fap_fwd_kernel<|fap_bwd_(dkdv|dq)_kernel")
+# hold each D = 16 row of check_flash_shape to those kernels' names and
+# counts (time_attention.py turns it off to time an older checkout)
+D16_NAMES = True
 
 
 def card_line():
@@ -261,8 +278,8 @@ def attention_bound(B, N, C, H, kind, rope=False):
     backward recomputes QKᵀ and takes four more, 10·N²·C) and 4 f32
     operations per score (max, subtract, exp, sum; backward: exp(s − lse),
     subtract, multiply, scale). Exps: one per score in every kind; the
-    backward's p = exp(s − lse) needs no more (the two-pass D = 16 backward
-    spends a second, which the bound does not count). Bytes: each input read
+    backward's p = exp(s − lse) needs no more (the D = 16 and D = 64
+    backwards are one pass each and spend exactly that one). Bytes: each input read
     once, each output written once. With ``rope`` (K1's RoPE branch, a
     forward): rotating q and each key once, 6 f32 operations per channel
     pair (4 products, 2 sums) and 2 more for q's scale, so 7·C per token;
@@ -396,11 +413,13 @@ def run_slice(card):
 def k1_spec(launches, rope=0):
     """K1 inside a batch: its launcher, its plain version (on each call's
     own inputs, RoPE tables included) and its tolerance (see
-    :func:`time_kernels_in_path`). ``rope`` of the ``launches`` take the
-    RoPE branch (the ViT's layers), each two device kernels: k's rotation
-    (``fap_fwd_kernel_rope_k``) and the attention."""
+    :func:`time_kernels_in_path`). Each D = 16 launch (PTv3) is one device
+    kernel, ``fap_fwd_d16_kernel`` or ``fap_fwd_d16_small_kernel``;
+    ``rope`` of the ``launches`` take the RoPE branch (the ViT's layers),
+    each two device kernels: k's rotation (``fap_fwd_kernel_rope_k``) and
+    the attention (``fap_fwd_kernel_d64``)."""
     from tpu3dssf_torch.kernels.modules import flash_attention as fa
-    return dict(pattern="fap_fwd_kernel", module=fa, attr="_launch",
+    return dict(pattern=K1_KERNELS, module=fa, attr="_launch",
                 plain=fa.flash_attention_packed_reference,
                 error=lambda got, want: (got.float() - want.float()).abs()
                 .max().item(),
@@ -421,6 +440,14 @@ def k7_spec():
                 error=error, ok=lambda err: err == 0.0,
                 launches=PARITY_LAUNCHES["K7"], library=cdist_topk,
                 bound=knn_bound)
+
+
+def no_deleted_kernels(kernels):
+    """Raise where a profile holds one of the D = 16 kernels that
+    ``fap_fwd_d16_*`` and ``fap_bwd_d16_*`` replaced."""
+    old = [k for k in kernels if DELETED_D16.search(k)]
+    if old:
+        raise AssertionError(f"deleted D = 16 kernels launched: {old}")
 
 
 def capture_calls(module, attr, frame):
@@ -453,7 +480,8 @@ def profiled_counts(kernels, specs):
     a :func:`profile_kernels` table."""
     out = {}
     for tag, spec in specs.items():
-        hits = [v for k, v in kernels.items() if spec["pattern"] in k]
+        hits = [v for k, v in kernels.items()
+                if re.search(spec["pattern"], k)]
         out[tag] = (sum(us for us, _ in hits) / 1e3, sum(c for _, c in hits))
     return out
 
@@ -486,6 +514,7 @@ def time_kernels_in_path(frame, specs):
                                            specs[tag]["launches"]))]
 
     _, kernels, _ = profile_kernels(frame, reps=3)
+    no_deleted_kernels(kernels)
     if short(profiled_counts(kernels, specs)):
         print(f"profiler: counts {profiled_counts(kernels, specs)} off "
               f"their expected values; profiling once more")
@@ -510,7 +539,8 @@ def time_kernels_in_path(frame, specs):
             raise AssertionError(f"{tag}: {len(calls)} calls in one batch")
         row = dict(ms=ms, launches=len(calls), device_kernels=n, by_name={
             name[:90]: us / 1e3 for name, (us, _) in kernels.items()
-            if spec["pattern"] in name}, plain_ms=0.0, max_abs_err=0.0)
+            if re.search(spec["pattern"], name)}, plain_ms=0.0,
+            max_abs_err=0.0)
         library, bound = spec.get("library"), spec.get("bound")
         by = []
         for args, got in calls:
@@ -828,16 +858,25 @@ def time_train_step(card):
                  if k.startswith("smoke::")}
     counts = {k[len("smoke::"):]: c for k, (_, c) in spans.items()
               if k.startswith("smoke::")}
-    by_name = {}
-    for name, (us, _) in kernels.items():
-        for k, pat in (("lse", r"fap_fwd_kernel<\d+, ?true>"),
-                       ("bwd", r"fap_bwd_(dkdv|dq)_kernel")):
+    no_deleted_kernels(kernels)
+    by_name, n_by_name = {}, {}
+    for name, (us, c) in kernels.items():
+        for k, pat in (("lse", D16_LSE_KERNELS), ("bwd", D16_BWD_KERNELS)):
             if re.search(pat, name):
                 by_name[k] = by_name.get(k, 0.0) + us / 1e3
+                n_by_name[k] = n_by_name.get(k, 0) + c
+    # device kernels per step: one a forward with LSE; a backward one, and
+    # the dq sum where its keys span two or more blocks
+    want_n = {"lse": TRAIN_LAUNCHES["K2"] + TRAIN_LAUNCHES["K4"],
+              "bwd": sum(n * (2 if fa.d16_key_blocks(w) > 1 else 1)
+                         for _, _, _, w, _, _, n in
+                         train_attention_shapes(cfg))}
     total = sum(us for us, _ in kernels.values()) / 1e3
     n_kernels = sum(c for _, c in kernels.values())
     print(f"profiler, per train step: {json.dumps(device_ms)} ms, launches "
-          f"{json.dumps(counts)}; by kernel name {json.dumps(by_name)} ms; "
+          f"{json.dumps(counts)}; by kernel name {json.dumps(by_name)} ms, "
+          f"{json.dumps(n_by_name)} device kernels (expected "
+          f"{json.dumps(want_n)}); "
           f"device kernel time {total:.3f} ms over {n_kernels:g} kernels")
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
     for name, (us, c) in top:
@@ -846,6 +885,9 @@ def time_train_step(card):
         if k != "K1" and not (counts.get(k) == n and device_ms.get(k, 0) > 0):
             raise AssertionError(f"profiler: {k} {counts.get(k)} launches, "
                                  f"{device_ms.get(k)} ms per step")
+    if n_by_name != want_n:
+        raise AssertionError(f"profiler: D = 16 device kernels per step "
+                             f"{n_by_name}, expected {want_n}")
     for k, pair in (("lse", ("K2", "K4")), ("bwd", ("K3", "K5"))):
         both = device_ms[pair[0]] + device_ms[pair[1]]
         if not abs(both - by_name.get(k, 0.0)) <= 0.1 * both:
@@ -1222,6 +1264,56 @@ def bwd_plain(q, k, v, bias, dout, lse, delta, q_scale, *_):
                                             q_scale)
 
 
+def device_time(run, calls=3):
+    """(device ms per call of ``run``, {kernel name: launches per call})
+    from the profiler: the kernels alone, without the host's launch time,
+    which is longer than the kernel's at most D = 16 shapes. Every device
+    event of the active step counts (``utils.profile_kernels`` keeps only
+    those after a host range opens, and late in a long process it has lost
+    every record of a call whose kernel starts within microseconds of it);
+    a step whose counts are not whole numbers lost a record and is run
+    again. Now and then every record of a window is lost however often it
+    runs: after five tries that gives (None, {}), "not recorded"."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    run()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for step in range(2):
+                for _ in range(calls if step else 1):
+                    run()
+                torch.cuda.synchronize()
+                prof.step()
+        kernels = {}
+        for e in prof.events():
+            if e.device_type.name == "CUDA" and not e.is_user_annotation:
+                us, n = kernels.get(e.name, (0.0, 0))
+                kernels[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+        if kernels and all(n % calls == 0 for _, n in kernels.values()):
+            return (sum(us for us, _ in kernels.values()) / calls / 1e3,
+                    {name: n / calls for name, (_, n) in kernels.items()})
+    return None, {}
+
+
+def held_kernels(row, kernels, pattern, count):
+    """Record a D = 16 row's device kernels; True where they are exactly
+    ``count`` kernels a call and each matches ``pattern`` (the new D = 16
+    kernels), where :data:`D16_NAMES` is off, or where the profiler
+    recorded nothing (:func:`device_time`; the paths' exact counts still
+    hold every launch)."""
+    if not kernels:
+        row["device_kernels"] = "not recorded"
+        return True
+    row["device_kernels"] = sum(kernels.values())
+    row["kernel_names"] = {k[:80]: c for k, c in kernels.items()}
+    return not D16_NAMES or (
+        row["device_kernels"] == count
+        and all(re.search(pattern, k) for k in kernels))
+
+
 def max_err(got, want):
     return (got.float() - want.float()).abs().max().item()
 
@@ -1276,8 +1368,10 @@ def check_flash_shape(gen, name, B, N, H, D, keys, route, tags, n, q_scale):
     """One case of the isolated attention checker (:func:`check_attention`)
     on one random bf16 (B, N, 3C) projection and its (B, N, H, D) views.
 
-    ``keys``: "all" live, "trailing" (the last 5 keys masked) or "windows"
-    (30% padding keys, an all-padding last window). ``route``: "packed"
+    ``keys``: "all" live, "trailing" (the last 5 keys masked), "windows"
+    (30% padding keys, an all-padding last window) or "none" (every key of
+    every row masked by −1e9: a uniform average where no query mask
+    zeroes it, and a zero gradient). ``route``: "packed"
     (K1 through ``flash_attention_packed``, q scaled by ``q_scale``, None:
     pre-scaled), "packed_rope" (K1's RoPE branch with the tables of
     :func:`rope_inputs`, also timed beside the route before the branch,
@@ -1293,11 +1387,13 @@ def check_flash_shape(gen, name, B, N, H, D, keys, route, tags, n, q_scale):
     with a live key, gradients within 0.05 · max(1, max |plain|) (one limit
     over dqkv on the packed route) and to exactly 0 in an all-padding
     window; each output and gradient (dqkv, or dq, dk, dv together) also
-    within REL_TOL of its max |plain| (:func:`rel_err`). Every row is
-    timed beside its plain version, the library call computing the same
-    function (SDPA; with a gradient pending for a forward with LSE; its
-    autograd backward for a backward) and the bound of that call. Returns
-    {tag: row}."""
+    within REL_TOL of its max |plain| (:func:`rel_err`). A D = 16 backward
+    is launched twice and must give the same bits, and each D = 16 call must
+    run exactly the new kernels (:func:`held_kernels`). Every row is timed
+    (CUDA events, ``ms``; the profiler's device time, ``device_ms``) beside
+    its plain version, the library call computing the same function (SDPA;
+    with a gradient pending for a forward with LSE; its autograd backward
+    for a backward) and the bound of that call. Returns {tag: row}."""
     import torch
     import torch.nn.functional as F
     from tpu3dssf_torch.cli.time_attention import rope_outside
@@ -1314,6 +1410,8 @@ def check_flash_shape(gen, name, B, N, H, D, keys, route, tags, n, q_scale):
     elif keys == "windows":
         keep = torch.rand(B, N, generator=gen) > 0.3
         keep[-1] = False
+    elif keys == "none":
+        keep[:] = False
     keep = keep.to("cuda")
     bias = wa.key_bias(keep)
     scale = 1.0 if q_scale is None else q_scale
@@ -1387,6 +1485,10 @@ def check_flash_shape(gen, name, B, N, H, D, keys, route, tags, n, q_scale):
                        qt, kt, vt, attn_mask=mask, scale=scale)))
         row["bound_ms"], row["bound_by"] = attention_bound(B, N, C, H, "fwd",
                                                            rope=rope)
+        row["device_ms"], kernels = device_time(run)
+        if D == 16:
+            checks[f"{fwd_tag} kernels"] = held_kernels(row, kernels,
+                                                        "fap_fwd_d16_", 1)
         if rope:
             row["outside_route_ms"] = cuda_ms(outside)
             row["outside_route_max_abs_err"] = max_err(outside(), want)
@@ -1415,11 +1517,16 @@ def check_flash_shape(gen, name, B, N, H, D, keys, route, tags, n, q_scale):
         leaves, (ql, kl, vl), _ = sdpa_views(q, k, v, bias, grad=True)
         row = dict(common, max_abs_err=max_err(out, ref),
                    rel_err=rel_err(out, ref), max_abs_plain=peak(ref),
-                   lse_err=(lse - ref_lse)[live].abs().max().item(),
+                   lse_err=((lse - ref_lse)[live].abs().max().item()
+                            if bool(live.any()) else 0.0),
                    ms=cuda_ms(run), plain_ms=cuda_ms(plain, reps=5, warmup=1),
                    library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
                        ql, kl, vl, attn_mask=mask, scale=scale)))
         row["bound_ms"], row["bound_by"] = attention_bound(B, N, C, H, "lse")
+        row["device_ms"], kernels = device_time(run)
+        if D == 16:
+            checks[f"{lse_tag} kernels"] = held_kernels(row, kernels,
+                                                        "fap_fwd_d16_", 1)
         if lse_tag == fwd_tag:
             rows[fwd_tag]["lse_forward"] = row
         else:
@@ -1453,24 +1560,37 @@ def check_flash_shape(gen, name, B, N, H, D, keys, route, tags, n, q_scale):
                 return bwd_plain(q, k, v, bias, dout, lse, delta, scale)
             got, want = run(), plain()
             errs = [grad_error(a, b) for a, b in zip(got, want)]
+        again = fa._split_heads(run(), H) if packed else run()
         torch.cuda.synchronize()
+        # the same bits from a second launch (D = 16: no atomics)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
         padded = (max(g[-1].abs().max().item() for g in got)
-                  if keys == "windows" else 0.0)
+                  if keys == "windows" else
+                  max(g.abs().max().item() for g in got) if keys == "none"
+                  else 0.0)
         row = dict(common, max_abs_err=max(e for e, _ in errs),
                    limit=min(lim for _, lim in errs),
                    rel_err=rel_err(got, want),
                    max_abs_plain=[peak(x) for x in want],
-                   all_padding_max=padded, ms=cuda_ms(run),
+                   all_padding_max=padded, bit_identical=same,
+                   ms=cuda_ms(run),
                    plain_ms=cuda_ms(plain, reps=5, warmup=1),
                    library_ms=cuda_ms(flash_bwd_library(
                        q, k, v, bias, dout, lse, delta, scale)))
         row["bound_ms"], row["bound_by"] = attention_bound(B, N, C, H, "bwd")
+        row["device_ms"], kernels = device_time(run)
+        if D == 16:   # the one-pass kernel, and the dq sum past 256 keys
+            checks[f"{bwd_tag} kernels"] = held_kernels(
+                row, kernels, "fap_bwd_d16_",
+                1 + (D16_NAMES and fa.d16_key_blocks(N) > 1))
         rows[bwd_tag] = row
         checks[bwd_tag] = (all(torch.isfinite(g.float()).all() for g in got)
                            and all(e < lim for e, lim in errs)
                            and row["rel_err"] <= REL_TOL)
         checks["all-padding window"] = padded == 0.0
-        del got, want, delta
+        if D == 16:
+            checks["same bits twice"] = same
+        del got, want, again, delta
     for tag, row in rows.items():
         print(f"kernel {tag} " + json.dumps(row), flush=True)
     bad = [k for k, ok in checks.items() if not ok]
@@ -1508,10 +1628,28 @@ def flash_cases(window_shapes):
                ("K8", "K8", "K9"), 0, 0.125) for n in (1, 77, 130)]
     cases += [(f"ragged_n{n}_packed", 2, n, 6, 64, "trailing", "packed",
                ("K1", None, None), 0, None) for n in (1, 77, 130)]
-    cases += rope_cases()
-    cases += [(name, W, K, H, C // H, "windows", "window", ("K6", "K4", "K5"),
-               n, (C // H) ** -0.5)
-              for name, W, K, C, H, _, _, n in window_shapes]
+    return cases + rope_cases() + window_cases(window_shapes)
+
+
+def window_cases(window_shapes):
+    """K6 and the window route's K4/K5 at every window-48 shape
+    (:func:`slice_attention_shapes` of the window-48 config)."""
+    return [(name, W, K, H, C // H, "windows", "window", ("K6", "K4", "K5"),
+             n, (C // H) ** -0.5)
+            for name, W, K, C, H, _, _, n in window_shapes]
+
+
+def all_masked_cases():
+    """Every key of every window masked (−1e9), at window 48 on the window
+    route (K6, K4, K5: zero outputs and gradients) and at window 1024 on the
+    packed routes (K1, and K2/K3 at C = 128: a uniform average, zero
+    gradients)."""
+    return [("all_masked_w48", 64, 48, 2, 16, "none", "window",
+             ("K6", "K4", "K5"), 0, 0.25),
+            ("all_masked_n1024", 4, 1024, 2, 16, "none", "packed",
+             ("K1", None, None), 0, 0.25),
+            ("all_masked_n1024_c128", 4, 1024, 8, 16, "none",
+             "packed_train", (None, "K2", "K3"), 0, 0.25)]
     return cases
 
 
@@ -1680,7 +1818,7 @@ def run_vitl_k8(vit, encode, images):
                              f"{agree}")
     del packed, tokens
     inside, _ = time_kernels_in_path(lambda: encode(images), {"K8": dict(
-        pattern="fap_fwd_kernel", module=fa, attr="_launch_flash",
+        pattern="fap_fwd_kernel_d64", module=fa, attr="_launch_flash",
         plain=mha_plain, error=max_err, ok=lambda e: e < KERNEL_TOL,
         relative=True, launches=VITL_LAYERS, library=flash_library,
         bound=flash_bound("fwd"))})
@@ -1775,7 +1913,7 @@ def run_vitl_grad(vit, vit_cfg, images):
 
     launches, summary, grads = vitl_gradient(vit, vit_cfg, images, False)
     inside, _ = time_kernels_in_path(grads, {"K9": dict(
-        pattern="fap_bwd_", device_kernels=2 * VITL_LAYERS, module=fa,
+        pattern="fap_bwd_d64", device_kernels=2 * VITL_LAYERS, module=fa,
         attr="_launch_flash_bwd", plain=bwd_plain, error=grads_err,
         ok=lambda e: e < float("inf"), relative=True, launches=VITL_LAYERS,
         library=flash_bwd_library, bound=flash_bound("bwd"))})
@@ -1832,7 +1970,7 @@ def run_window_path(card, tmp):
           f"{points / frame_ms * 1e3:,.0f} points/s; peak allocated "
           f"{peak / 2**30:.3f} GiB [{card}]")
     inside, total = time_kernels_in_path(frame, {"K6": dict(
-        pattern="fap_fwd_kernel", module=fa, attr="_launch_flash",
+        pattern="fap_fwd_d16_small_kernel", module=fa, attr="_launch_flash",
         plain=mha_plain, error=max_err, ok=lambda e: e < KERNEL_TOL,
         relative=True, launches=WINDOW_LAUNCHES, library=flash_library,
         bound=flash_bound("fwd"))})
@@ -1902,6 +2040,13 @@ def main():
         print(f"  {source}: the D = 64 kernel takes "
               f"{getattr(_build.load_library(source), fn)()} bytes of "
               "dynamic shared memory")
+    from tpu3dssf_torch.kernels.modules import flash_attention as fa
+    block = _build.load_library(fa._BWD_SOURCE).fa_backward_d16_block_keys()
+    print(f"  {fa._BWD_SOURCE}: the D = 16 backward takes {block} keys a CTA "
+          f"(the wrapper sizes its dq partials by {fa.D16_BWD_KEYS})")
+    if block != fa.D16_BWD_KEYS:
+        raise AssertionError("the D = 16 backward's key block disagrees with "
+                             "the wrapper's")
 
     # phase 3: the isolated attention checker (K1 at the fusion config's
     # inference shapes, D = 64 beside them, K2-K5 at its training shapes,
@@ -1917,7 +2062,8 @@ def main():
     iso = check_attention(
         inference_cases(slice_attention_shapes(cfg))
         + flash_cases(slice_attention_shapes(window_cfg))
-        + train_cases(train_attention_shapes(cfg)), seed=0)
+        + train_cases(train_attention_shapes(cfg)) + all_masked_cases(),
+        seed=0)
     rows = iso[("K1", "packed")]
     rope_rows = {r["shape"]: r for r in iso[("K1", "packed_rope")]}
     train_rows = {k: iso[(k, "packed_train")] for k in ("K2", "K3", "K4",

@@ -92,7 +92,7 @@ def test_d16_window_1024_is_bound_by_the_exp(kind, over_products):
     """At D = 16 and window 1024 the exp is the tightest limit: about 3.7
     times the products in the forward, 1.5 times in the backward. The
     backward counts one exp a score, p = exp(s - lse), however many passes
-    a kernel takes (the two-pass D = 16 kernel spends two)."""
+    a kernel takes (a two-pass design would spend two)."""
     ms, term = cs.attention_bound(*WINDOW_1024, kind)
     assert term == "exp"
     B, N, C, H = WINDOW_1024

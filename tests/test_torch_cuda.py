@@ -100,7 +100,7 @@ def test_profile_kernels_counts_the_kernel_launches(cuda):
         fa.flash_attention_packed(qkv, bias, 2, 0.25)
 
     _, kernels, _ = profile_kernels(two_calls, reps=3)
-    k1 = [v for k, v in kernels.items() if "fap_fwd_kernel" in k]
+    k1 = [v for k, v in kernels.items() if "fap_fwd_d16" in k]
     assert sum(n for _, n in k1) == 2
     assert sum(us for us, _ in k1) > 0
     assert cuda_ms(two_calls, reps=3, warmup=1) > 0
@@ -542,3 +542,109 @@ def test_rope_refuses_what_it_does_not_take(cuda):
         fa.flash_attention_packed(qkv, bias, 6, 0.125, cos[:-1], sin[:-1])
     with pytest.raises(ValueError, match="both"):
         fa.flash_attention_packed(qkv, bias, 6, 0.125, cos, None)
+
+
+# The D = 16 kernels (PTv3): the forward (one warp per (row, head) up to
+# N = 64, else 128 query rows a CTA over a cp.async ring of 128-key tiles)
+# and the one-pass backward (up to 256 keys a CTA; beyond, per-block dq
+# partials summed in block order by a second kernel), at N around each
+# of those edges, 1 to 32 heads, the three view layouts the routes hand
+# them, q_scale 1 and 0.25
+D16_N = [1, 15, 47, 48, 63, 64, 65, 1000, 1024, 1100, 2100]
+D16_HEADS = dict(zip(D16_N, (1, 32, 2, 16, 4, 8, 1, 2, 32, 4, 8)))
+
+
+def _d16_inputs(cuda, N, layout, seed=0):
+    """q, k, v at D = 16 (B = 3, H from D16_HEADS) as views of a packed
+    (B, N, 3C) projection (head h at channel 16 h of each third), as
+    (B, N, 3, H, 16) views of one buffer (the window route's) or as three
+    contiguous tensors; a bias masking 30% of batch row 0's keys with -1e9,
+    every key of row 1 with -1e9 (a uniform average) and of row 2 with -inf
+    (out 0, LSE +inf); the live rows' mask and an upstream gradient that is
+    0 on masked query rows, as the callers pass it."""
+    B, H, D = 3, D16_HEADS[N], 16
+    gen = torch.Generator().manual_seed(seed)
+    qkv = torch.randn(B, N, 3 * H * D, generator=gen).to(cuda, torch.bfloat16)
+    if layout == "packed":
+        q, k, v = fa._split_heads(qkv, H)
+    else:
+        q, k, v = qkv.unflatten(-1, (3, H, D)).unbind(2)
+        if layout == "tensors":
+            q, k, v = (x.contiguous() for x in (q, k, v))
+    keep = torch.rand(B, N, generator=gen) > 0.3
+    keep[0, 0] = True
+    keep[1:] = False
+    bias = torch.where(keep, 0.0, -1e9)[:, None, :]
+    bias[2] = -float("inf")
+    dout = torch.randn(B, N, H, D, generator=gen) * keep[..., None, None]
+    return (q, k, v, bias.to(cuda).contiguous(), keep.to(cuda),
+            dout.to(cuda, torch.bfloat16))
+
+
+@pytest.mark.parametrize("N", D16_N)
+@pytest.mark.parametrize("layout", ["packed", "windows", "tensors"])
+@pytest.mark.parametrize("q_scale", [1.0, 0.25])
+def test_d16_forward_matches_its_plain_version(cuda, N, layout, q_scale):
+    q, k, v, bias, _, _ = _d16_inputs(cuda, N, layout)
+    out = fa._launch_flash(q, k, v, bias, q_scale)
+    lse_out, lse = fa._launch_flash(q, k, v, bias, q_scale, with_lse=True)
+    torch.cuda.synchronize()
+    ref, ref_lse = fa.flash_attention_lse_reference(q, k, v, bias, q_scale)
+    for got in (out, lse_out):
+        _close(got[:2], ref[:2], "out")   # rows 0 and 1 (uniform average)
+        assert got[2].abs().max().item() == 0.0   # every key -inf
+    assert (lse[:2] - ref_lse[:2]).abs().max().item() < 1e-3
+    assert bool((lse[2] == float("inf")).all())
+
+
+@pytest.mark.parametrize("N", D16_N)
+@pytest.mark.parametrize("layout", ["packed", "windows", "tensors"])
+@pytest.mark.parametrize("q_scale", [1.0, 0.25])
+def test_d16_backward_matches_its_plain_version_bit_for_bit_twice(
+        cuda, N, layout, q_scale):
+    q, k, v, bias, keep, dout = _d16_inputs(cuda, N, layout)
+    out, lse = fa._launch_flash(q, k, v, bias, q_scale, with_lse=True)
+    delta = fa.row_delta(dout, out)
+    got = fa._launch_flash_bwd(q, k, v, bias, dout, lse, delta, q_scale)
+    again = fa._launch_flash_bwd(q, k, v, bias, dout, lse, delta, q_scale)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_bwd_reference(q, k, v, bias, dout, lse, delta,
+                                            q_scale)
+    top = max(w[0].float().abs().max().item() for w in want)
+    for name, a, b, c in zip(("dq", "dk", "dv"), got, want, again):
+        assert torch.equal(a, c), f"{name} differs between two launches"
+        err = (a[0].float() - b[0].float()).abs().max().item()
+        assert torch.isfinite(a.float()).all(), name
+        assert err < TOL * max(1.0, top) and err <= 0.02 * top + 1e-6, \
+            (name, err, top)
+        # rows 1 and 2: every key masked, every query's gradient 0
+        assert a[1:].abs().max().item() == 0.0, name
+
+
+def test_d16_launches_count_once_each(cuda):
+    """A D = 16 call counts once as K1 (packed), K6 (window route), K2 and
+    K3 (packed training rule) and K4 and K5 (window training rule), at
+    N = 48 and at N = 1100 (two device kernels for the backward there)."""
+    for N in (48, 1100):
+        q, k, v, bias, keep, dout = _d16_inputs(cuda, N, "windows")
+        qkv = torch.randn(3, N, 96, device=cuda).to(torch.bfloat16)
+        before = (fa.LAUNCHES, fa.LSE_LAUNCHES, fa.BWD_LAUNCHES, wa.LAUNCHES,
+                  wa.LSE_LAUNCHES, wa.BWD_LAUNCHES)
+        fa.flash_attention_packed(qkv, bias, 2, 0.25)
+        wa.window_attention(q, k, v, keep)
+        x = qkv.detach().requires_grad_()
+        fa.flash_attention_packed(x, bias, 2, 0.25)[:2].float().sum().backward()
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        wa.window_attention(*leaves, keep).backward(dout)
+        torch.cuda.synchronize()
+        after = (fa.LAUNCHES, fa.LSE_LAUNCHES, fa.BWD_LAUNCHES, wa.LAUNCHES,
+                 wa.LSE_LAUNCHES, wa.BWD_LAUNCHES)
+        assert [a - b for a, b in zip(after, before)] == [1] * 6
+        assert torch.isfinite(x.grad.float()).all()
+        assert max(t.grad[1:].abs().max().item() for t in leaves) == 0.0
+
+
+def test_d16_backward_block_size_matches_the_kernel(cuda):
+    """The wrapper sizes the dq partials by the kernel's key block."""
+    lib = fa._build.load_library(fa._BWD_SOURCE)
+    assert lib.fa_backward_d16_block_keys() == fa.D16_BWD_KEYS

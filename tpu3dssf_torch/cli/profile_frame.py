@@ -15,7 +15,8 @@ limit:
   the loader's prefetch thread closed, then live, then closed again;
 - a ``torch.profiler`` table over 3 batches; the device kernel time and
   the kernel count per batch; the device time and launches of the
-  attention kernel (``fap_fwd_kernel``) per batch.
+  attention kernels (``fap_fwd_d16_*`` at PTv3, ``fap_fwd_kernel_d64`` and
+  its RoPE pre-kernel at the ViT) per batch.
 
 ``--trace`` writes the profiler's Chrome trace there.
 """
@@ -24,6 +25,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 
 import torch
@@ -34,7 +36,8 @@ from tpu3dssf_torch.train.loop import make_eval_step
 from tpu3dssf_torch.utils import cuda_ms, profile_kernels
 from tpu3dssf_torch.voxel import devoxelize_own_voxel, voxelize
 
-K1_NAME = "fap_fwd_kernel"
+# K1's device kernels: D = 16 (PTv3), D = 64 and its k-rotation (the ViT)
+K1_NAME = re.compile(r"fap_fwd_(d16|kernel_d64|kernel_rope_k)")
 
 
 def segments(encode, model, loss_fn, images, b):
@@ -126,7 +129,7 @@ def main(argv=None):
                                     max_name_column_width=60))
     if args.trace:
         prof.export_chrome_trace(args.trace)
-    k1 = [v for k, v in kernels.items() if K1_NAME in k]
+    k1 = [v for k, v in kernels.items() if K1_NAME.search(k)]
     print(f"device_kernel_ms_per_batch "
           f"{sum(us for us, _ in kernels.values()) / 1e3} "
           f"kernels_per_batch {sum(n for _, n in kernels.values())} "

@@ -1,6 +1,6 @@
-"""Per-call times of the D = 64 attention kernels at the ViT encoders' shapes.
+"""Per-call times of the attention kernels at every shape the paths give them.
 
-    python3 tpu3dssf_torch/cli/time_attention.py [--root DIR]
+    python3 tpu3dssf_torch/cli/time_attention.py [--root DIR] [--out FILE]
 
 Times the attention kernels of the ``tpu3dssf_torch`` package under
 ``--root`` (default: the checkout holding this file) with CUDA events
@@ -15,11 +15,26 @@ with ``torch.cat`` and K1 (:func:`rope_outside`, the route before K1's
 RoPE branch), and, where the package has the branch, K1 rotating them
 itself. Inputs are seeded bf16 normals, every key live.
 
+Then every D = 16 call shape (PTv3), through ``chip_smoke.check_attention``
+of this checkout (so both versions see the same cases, checks and bounds):
+K1 at the fusion and the parity configs' inference shapes, K2/K3 and K4/K5
+at the fusion config's train-step shapes, and K6 with the window route's
+K4/K5 at window 48 (the LiDAR config, capacity 726 x 48), each with 30%
+padding keys and an all-padding last window. Every row has the kernel's
+profiler device time (``device_ms``: at most D = 16 shapes the host takes
+longer to launch a call than the card to run it, so the CUDA-event median
+``ms`` is the host's) and event median, its bound (``attention_bound``, at
+the card's maximum SM clock),
+SDPA on the same inputs (its backward for K3/K5), its plain version's time
+and its error against it; ``d16_per_path`` sums calls per batch or step x
+per-call time for each kernel and path.
+
 Pointing ``--root`` at an unpacked older commit times that commit's
 kernels (each checkout builds its own sources into its own ``build/``), so
 two versions can be compared on one card within one run: parent, change,
 change, parent. Run it by path, not with ``-m``, so that the package is
-imported from ``--root``. Prints the card line and one JSON object.
+imported from ``--root``. Prints the card line and one JSON object, which
+``--out`` also writes to a file.
 """
 
 from __future__ import annotations
@@ -61,10 +76,72 @@ def rope_outside(fa, qkv, bias, H, angles, n_prefix, q_scale):
     return fa._launch(packed, bias, H, None)
 
 
+def load_chip_smoke():
+    """chip_smoke.py of this checkout (not of ``--root``) as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def d16_cases(cs):
+    """{path: cases of ``cs.check_flash_shape``} of every D = 16 call shape:
+    K1 per fusion and per parity batch, K2-K5 per train step, K6 per
+    window-48 batch and K4/K5 per window-48 train step."""
+    import shutil
+    import tempfile
+    from tpu3dssf_torch.cli.common import load_config
+
+    def ptv3(cfg):
+        return [s for s in cs.slice_attention_shapes(cfg) if s[0] != "vit"]
+
+    fusion = load_config(os.path.join(HERE, cs.CONFIG))
+    tmp = tempfile.mkdtemp(prefix="time_attention_")
+    try:
+        window = load_config(cs.config_copy(
+            os.path.join(HERE, cs.LIDAR_CONFIG), tmp, "w48.yaml", tpu=dict(
+                window_size=cs.WINDOW, voxel_capacity=cs.WINDOW_CAPACITY))[0])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {
+        "fusion_batch": cs.inference_cases(ptv3(fusion)),
+        "parity_batch": cs.inference_cases(ptv3(load_config(
+            os.path.join(HERE, cs.PARITY_CONFIG)))),
+        "train_step": cs.train_cases(cs.train_attention_shapes(fusion)),
+        "window48": cs.window_cases(ptv3(window)),
+    }
+
+
+def time_d16(cs):
+    """(per-shape rows, per-path sums) of the D = 16 kernels: for each path
+    and kernel, Σ calls × per-call ms of the kernel, its bound and SDPA,
+    and the kernel's share of its bound."""
+    rows, per_path = {}, {}
+    for path, cases in d16_cases(cs).items():
+        for (tag, _), found in cs.check_attention(cases, seed=0).items():
+            rows.setdefault(path, {})[tag] = found
+            count = next(k for k in ("launches_per_batch", "launches_per_step",
+                                     "calls_per_path") if k in found[0])
+            sums = {key: cs.per_path(found, key, count)
+                    for key in ("ms", "bound_ms", "library_ms")}
+            # None where the profiler recorded none of a shape's calls
+            recorded = all(r["device_ms"] is not None for r in found)
+            sums["device_ms"] = (cs.per_path(found, "device_ms", count)
+                                 if recorded else None)
+            sums["bound_share"] = (sums["bound_ms"] / sums["device_ms"]
+                                   if recorded else None)
+            sums["max_abs_err"] = max(r["max_abs_err"] for r in found)
+            per_path.setdefault(path, {})[tag] = sums
+    return rows, per_path
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=HERE,
                     help="checkout whose tpu3dssf_torch is timed")
+    ap.add_argument("--out", help="also write the JSON object here")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -165,6 +242,16 @@ def main(argv=None):
         result[f"K1_rope_{name}"] = row
         del qkv
         torch.cuda.empty_cache()
+
+    # every D = 16 call shape of the paths
+    cs = load_chip_smoke()
+    cs.EXP_RATE = cs.exp_rate(cs.sm_clock_mhz())
+    cs.D16_NAMES = root == HERE   # an older checkout has other kernels
+    result["d16"], result["d16_per_path"] = time_d16(cs)
+    print("d16_per_path " + json.dumps(result["d16_per_path"]), flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(result, f)
     print(json.dumps(result), flush=True)
 
 

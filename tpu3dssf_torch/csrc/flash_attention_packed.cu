@@ -25,23 +25,40 @@
 // and the output is normalised after the PV product by max(denominator,
 // 1e-20), as the TPU kernels do.
 //
-// Two kernels, chosen by the head dimension D at the C entry point.
+// Two designs, chosen by the head dimension D at the C entry point.
 //
-// D = 16 (the PTv3 stages: K1, K2, K4, K6), fap_fwd_kernel. One CTA of four
-// warps per (64-row query tile, head, batch row); each warp owns 16 query
-// rows. The CTA walks the keys in tiles of 64 with an online softmax
-// (running max, running sum, f32 output accumulator in registers), so no
-// score block ever leaves the SM: the TPU kernels instead kept all N keys
-// of a head resident in VMEM. Both products run as mma.sync m16n8k16 bf16
-// with f32 accumulation; the S accumulator fragment is re-packed in
-// registers as the A operand of the PV product. Ragged edges are masked in
-// the kernel (keys past N score -inf, query rows past N are not stored), so
-// a 48-slot PTv3 window is one CTA per (window, head) with 16 idle rows and
-// keys. Each key brings 2 x 16 x 2 bytes of K and V for 2 x 16
-// multiply-adds per query row, and every score one exp: at window 1024 the
-// exp on the special-function units (16 per clock per SM) is the tightest
-// limit, about 3.7 times the products; thousands of CTAs hide the latency
-// of the plain loads.
+// D = 16 (the PTv3 stages: K1, K2, K4, K6). A score costs 2 products of
+// 32 flops and one exp, so at window 1024 the exp on the special-function
+// units (16 per clock per SM) is the limit, about 3.7 times the products;
+// at window 48 the bytes are. Both products run as mma.sync m16n8k16 bf16
+// with f32 accumulation, each warp on 16 query rows; K rows are read by
+// ldmatrix and V rows by ldmatrix.trans from swizzled 32-byte rows
+// (mma16.cuh), so V is never transposed by hand. The softmax is online and
+// in log2 units: s becomes (s + bias) log2(e) by one FMA with the bias
+// staged in log2 units (a row of equal -1e9 biases then gives p = 1, as
+// the TPU kernels do), one ex2.approx a score; the rows' maxima are taken
+// by a tree, and the accumulator is rescaled every tile (skipping it by a
+// warp vote where no max moved measured slower on an H100 at window 1024).
+//   * fap_fwd_d16_kernel (N > 64): one CTA of 4 warps per (128 query rows,
+//     head, batch row), so each K/V tile serves 128 rows; each warp owns 32
+//     rows, two tiles of 16 whose softmax chains run side by side on every
+//     K and V fragment it reads (half the shared-memory reads a score of 16
+//     rows a warp). The keys stream in tiles of 64 through a three-stage
+//     cp.async ring with their f32 biases (zeros and -inf past N), one
+//     barrier a tile. There are still >= 1,000 CTAs at every PTv3 shape of
+//     window 1024 (68 windows x 2 heads x 8 at C = 32). Other layouts
+//     measured on an H100 (8 warps x 16 rows over 128-key tiles, 8 x 32,
+//     2 x 64 over 32-key tiles) were no faster, and a build without the
+//     exps only a little faster: instruction issue and latency hold it,
+//     not the exp.
+//   * fap_fwd_d16_small_kernel<kG> (N <= 64, windows of 48): one warp per
+//     (batch row, head), 8 a CTA, over 16 kG >= N keys (N rounded up to 16),
+//     so no warp idles and no padding slot costs an exp; the warp stages
+//     its keys by cp.async, 16 bytes a thread, with its Q fragments in
+//     flight beside them, and takes its tiles of 16 query rows two at a
+//     time. Adjacent warps take adjacent heads of one window, whose rows
+//     sit side by side in the projection.
+// q_s = bf16(q * bf16(q_scale)) is formed once per fragment in registers.
 //
 // D = 64 (the ViT: K1 at every ViT-S layer, K8 and K8's forward with LSE on
 // the ViT-L route), fap_fwd_kernel_d64. One score costs 256 product flops
@@ -104,14 +121,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma16.cuh"
 #include "sm90.cuh"
 
 namespace {
 
-constexpr int kBlockQ = 64;   // query rows per CTA, 16 per warp
-constexpr int kBlockK = 64;   // keys per inner-loop tile
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
+using mma16::pack_bf16;
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Pointers and (batch, token, head) strides in elements of one launch.
@@ -129,210 +144,343 @@ struct FwdArgs {
   float q_scale;
 };
 
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// ---- D = 16: mma.sync, ldmatrix and a cp.async ring (see the head) -------
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+namespace d16 {
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+using namespace mma16;
 
-template <int D, bool kLse>
-__global__ void __launch_bounds__(kThreads) fap_fwd_kernel(const FwdArgs a) {
-  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
-  constexpr int kStride = D + 8;          // Q/K smem row stride (elements)
-  constexpr int kVtStride = kBlockK + 8;  // V^T smem row stride (elements)
-  constexpr int kChunks = D / 8;          // 16-byte chunks per head row
-  __shared__ __align__(16) __nv_bfloat16 sQ[kBlockQ * kStride];
-  __shared__ __align__(16) __nv_bfloat16 sK[kBlockK * kStride];
-  __shared__ __align__(16) __nv_bfloat16 sVt[D * kVtStride];
-  __shared__ float sBias[kBlockK];
+constexpr int kWarps = 4;           // ring kernel
+constexpr int kThreads = 32 * kWarps;
+constexpr int kWarpRows = 32;       // query rows a warp owns: two tiles of 16
+constexpr int kRows = kWarpRows * kWarps;  // query rows per CTA
+constexpr int kKeys = 64;           // keys per ring tile
+constexpr int kStages = 3;          // ring depth
+constexpr int kSmallN = 64;         // up to here: one warp per (row, head)
+constexpr int kSmallWarps = 8;      // warps, so (row, head) pairs, a CTA
+constexpr float kLn2 = 0.6931471805599453f;
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;  // fragment row group
-  const int t = lane & 3;   // thread in group
-  const int q0 = blockIdx.x * kBlockQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int N = a.N;
-  const __nv_bfloat16* qb = a.q + b * a.q_s[0] + h * a.q_s[2];
-  const __nv_bfloat16* kb = a.k + b * a.k_s[0] + h * a.k_s[2];
-  const __nv_bfloat16* vb = a.v + b * a.v_s[0] + h * a.v_s[2];
-  const float* bias_b = a.bias + (int64_t)b * N;
+// The online softmax of one warp's 16 query rows: running max in log2
+// units (rows g and g + 8), this thread's share of the sums, and the
+// output accumulator over the 16 channels (two n8 fragments).
+struct Rows {
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
+  float o[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+};
 
-  // Q tile; q * q_scale rounded to bf16, the TPU kernels' q * bf16(scale)
-  const float qs = __bfloat162float(__float2bfloat16(a.q_scale));
-  for (int c = tid; c < kBlockQ * kChunks; c += kThreads) {
-    const int r = c / kChunks;
-    const int col = (c % kChunks) * 8;
-    const int n = q0 + r;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (n < N) v = *reinterpret_cast<const uint4*>(qb + n * a.q_s[1] + col);
-    if (qs != 1.0f) {
-      __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&v);
+// q_s rows row0 .. row0 + 15 of one (batch row, head) as the A operand:
+// q * bf16(q_scale) rounded to bf16, zero past N
+__device__ __forceinline__ void load_q(uint32_t (&qf)[4],
+                                       const __nv_bfloat16* qb,
+                                       int64_t stride, int row0, int N,
+                                       float qs, int lane) {
+  load_a(qf, qb, stride, row0, N, lane);
+  if (qs != 1.0f) {
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
-        e[i] = __float2bfloat16(__bfloat162float(e[i]) * qs);
-    }
-    *reinterpret_cast<uint4*>(&sQ[r * kStride + col]) = v;
+    for (int i = 0; i < 4; ++i) qf[i] = scale_bf16x2(qf[i], qs);
   }
-  __syncthreads();
+}
 
-  const int qr = warp * 16;
-  uint32_t qf[D / 16][4];
+// One tile of 16 kGroups keys for kM tiles of 16 query rows of a warp
+// (their Q fragments qf): K and V rows at the shared addresses sK, sV
+// (row_off layout), the keys' biases in log2 units at bias2 (-inf past N).
+// Each K and V fragment is read once for the kM row tiles, whose softmax
+// chains are independent (instruction-level parallelism). Scores become
+// (s + bias) log2(e) by one FMA, so a row of equal -1e9 biases gives equal
+// scores and p = 1, as the TPU kernels give; one exp a score.
+template <int kM, int kGroups>
+__device__ __forceinline__ void attend(Rows (&r)[kM],
+                                       const uint32_t (&qf)[kM][4],
+                                       uint32_t sK, uint32_t sV,
+                                       const float* bias2, int lane) {
+  const int t = lane & 3;
+  float s[kM][2 * kGroups][4];
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const __nv_bfloat16* p0 = &sQ[(qr + g) * kStride + kk * 16 + 2 * t];
-    const __nv_bfloat16* p1 = p0 + 8 * kStride;
-    qf[kk][0] = ld32(p0);
-    qf[kk][1] = ld32(p1);
-    qf[kk][2] = ld32(p0 + 8);
-    qf[kk][3] = ld32(p1 + 8);
+  for (int i = 0; i < kGroups; ++i) {
+    uint32_t kb[4];
+    load_b_rows(kb, sK, i, lane);
+#pragma unroll
+    for (int m = 0; m < kM; ++m) {
+#pragma unroll
+      for (int x = 0; x < 4; ++x) s[m][2 * i][x] = s[m][2 * i + 1][x] = 0.0f;
+      mma(s[m][2 * i], qf[m], kb[0], kb[1]);
+      mma(s[m][2 * i + 1], qf[m], kb[2], kb[3]);
+    }
   }
-
-  float acc[D / 8][4];
+  float ms0[kM], ms1[kM];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
-  float m0 = -INFINITY, m1 = -INFINITY;  // running max, rows g and g + 8
-  float l0 = 0.0f, l1 = 0.0f;            // this thread's share of the sums
-
-  for (int k0 = 0; k0 < N; k0 += kBlockK) {
-    __syncthreads();  // every warp is done with the previous tile
-    for (int c = tid; c < kBlockK * kChunks; c += kThreads) {
-      const int r = c / kChunks;
-      const int col = (c % kChunks) * 8;
-      const int n = k0 + r;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u);
-      uint4 vv = make_uint4(0u, 0u, 0u, 0u);
-      if (n < N) {
-        kv = *reinterpret_cast<const uint4*>(kb + n * a.k_s[1] + col);
-        vv = *reinterpret_cast<const uint4*>(vb + n * a.v_s[1] + col);
+  for (int m = 0; m < kM; ++m) {
+    // the rows' maxima over this thread's scores by a tree (short
+    // chains), then over the four threads of a row
+    float x0[2 * kGroups], x1[2 * kGroups];
+#pragma unroll
+    for (int j = 0; j < 2 * kGroups; ++j) {
+      const float2 b = *reinterpret_cast<const float2*>(bias2 + 8 * j + 2 * t);
+      float(&sj)[4] = s[m][j];
+      sj[0] = fmaf(sj[0], kLog2e, b.x);
+      sj[1] = fmaf(sj[1], kLog2e, b.y);
+      sj[2] = fmaf(sj[2], kLog2e, b.x);
+      sj[3] = fmaf(sj[3], kLog2e, b.y);
+      x0[j] = fmaxf(sj[0], sj[1]);
+      x1[j] = fmaxf(sj[2], sj[3]);
+    }
+#pragma unroll
+    for (int w = 1; w < 2 * kGroups; w *= 2) {
+#pragma unroll
+      for (int j = 0; j + w < 2 * kGroups; j += 2 * w) {
+        x0[j] = fmaxf(x0[j], x0[j + w]);
+        x1[j] = fmaxf(x1[j], x1[j + w]);
       }
-      *reinterpret_cast<uint4*>(&sK[r * kStride + col]) = kv;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) sVt[(col + i) * kVtStride + r] = ve[i];
     }
-    for (int r = tid; r < kBlockK; r += kThreads) {
-      const int n = k0 + r;
-      sBias[r] = n < N ? bias_b[n] : -INFINITY;
-    }
-    __syncthreads();
-
-    // S = q_s K^T + bias for this warp's 16 rows x 64 keys
-    float s[kBlockK / 8][4];
-#pragma unroll
-    for (int j = 0; j < kBlockK / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const __nv_bfloat16* kp = &sK[(j * 8 + g) * kStride + kk * 16 + 2 * t];
-        mma_16816(s[j], qf[kk], ld32(kp), ld32(kp + 8));
-      }
-      const float b0 = sBias[j * 8 + 2 * t];
-      const float b1 = sBias[j * 8 + 2 * t + 1];
-      s[j][0] += b0;
-      s[j][1] += b1;
-      s[j][2] += b0;
-      s[j][3] += b1;
-    }
-
-    float t0 = -INFINITY, t1 = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < kBlockK / 8; ++j) {
-      t0 = fmaxf(t0, fmaxf(s[j][0], s[j][1]));
-      t1 = fmaxf(t1, fmaxf(s[j][2], s[j][3]));
-    }
+    float t0 = x0[0], t1 = x1[0];
     t0 = fmaxf(t0, __shfl_xor_sync(0xffffffffu, t0, 1));
     t0 = fmaxf(t0, __shfl_xor_sync(0xffffffffu, t0, 2));
     t1 = fmaxf(t1, __shfl_xor_sync(0xffffffffu, t1, 1));
     t1 = fmaxf(t1, __shfl_xor_sync(0xffffffffu, t1, 2));
-    const float mn0 = fmaxf(m0, t0);
-    const float mn1 = fmaxf(m1, t1);
+    const float mn0 = fmaxf(r[m].m0, t0);
+    const float mn1 = fmaxf(r[m].m1, t1);
     // a row can only see -inf everywhere if the caller passed -inf biases;
     // keep it NaN-free (its output is then 0)
-    const float ms0 = mn0 == -INFINITY ? 0.0f : mn0;
-    const float ms1 = mn1 == -INFINITY ? 0.0f : mn1;
-    const float a0 = exp2f((m0 - ms0) * kLog2e);  // 0 on the first tile
-    const float a1 = exp2f((m1 - ms1) * kLog2e);
-    m0 = mn0;
-    m1 = mn1;
-    l0 *= a0;
-    l1 *= a1;
+    ms0[m] = mn0 == -INFINITY ? 0.0f : mn0;
+    ms1[m] = mn1 == -INFINITY ? 0.0f : mn1;
+    // every tile rescales (10 multiplies and 2 exps a thread): a warp
+    // vote that skips it where no row's max moved measured slower, as it
+    // sits on the softmax's critical path
+    const float a0 = exp2_approx(r[m].m0 - ms0[m]);  // 0 on a row's first keys
+    const float a1 = exp2_approx(r[m].m1 - ms1[m]);
+    r[m].l0 *= a0;
+    r[m].l1 *= a1;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      acc[n][0] *= a0;
-      acc[n][1] *= a0;
-      acc[n][2] *= a1;
-      acc[n][3] *= a1;
+    for (int n = 0; n < 2; ++n) {
+      r[m].o[n][0] *= a0;
+      r[m].o[n][1] *= a0;
+      r[m].o[n][2] *= a1;
+      r[m].o[n][3] *= a1;
     }
+    r[m].m0 = mn0;
+    r[m].m1 = mn1;
+  }
 #pragma unroll
-    for (int j = 0; j < kBlockK / 8; ++j) {
-      s[j][0] = exp2f((s[j][0] - ms0) * kLog2e);
-      s[j][1] = exp2f((s[j][1] - ms0) * kLog2e);
-      s[j][2] = exp2f((s[j][2] - ms1) * kLog2e);
-      s[j][3] = exp2f((s[j][3] - ms1) * kLog2e);
-      l0 += s[j][0] + s[j][1];
-      l1 += s[j][2] + s[j][3];
-    }
-
-    // acc += P V: two adjacent n8 score fragments form one k16 A operand
+  for (int i = 0; i < kGroups; ++i) {
+    uint32_t vb[4];
+    load_b_cols(vb, sV, i, lane);
 #pragma unroll
-    for (int kk = 0; kk < kBlockK / 16; ++kk) {
+    for (int m = 0; m < kM; ++m) {
+      float(&p0)[4] = s[m][2 * i];
+      float(&p1)[4] = s[m][2 * i + 1];
+      p0[0] = exp2_approx(p0[0] - ms0[m]);
+      p0[1] = exp2_approx(p0[1] - ms0[m]);
+      p0[2] = exp2_approx(p0[2] - ms1[m]);
+      p0[3] = exp2_approx(p0[3] - ms1[m]);
+      p1[0] = exp2_approx(p1[0] - ms0[m]);
+      p1[1] = exp2_approx(p1[1] - ms0[m]);
+      p1[2] = exp2_approx(p1[2] - ms1[m]);
+      p1[3] = exp2_approx(p1[3] - ms1[m]);
+      r[m].l0 += (p0[0] + p0[1]) + (p1[0] + p1[1]);
+      r[m].l1 += (p0[2] + p0[3]) + (p1[2] + p1[3]);
+      // two adjacent n8 score fragments form one k16 A operand of O += P V
       const uint32_t pa[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        const __nv_bfloat16* vp = &sVt[(n * 8 + g) * kVtStride + kk * 16 + 2 * t];
-        mma_16816(acc[n], pa, ld32(vp), ld32(vp + 8));
-      }
+          pack_bf16(p0[0], p0[1]), pack_bf16(p0[2], p0[3]),
+          pack_bf16(p1[0], p1[1]), pack_bf16(p1[2], p1[3])};
+      mma(r[m].o[0], pa, vb[0], vb[1]);
+      mma(r[m].o[1], pa, vb[2], vb[3]);
     }
-  }
-
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float d0 = fmaxf(l0, 1e-20f);
-  const float d1 = fmaxf(l1, 1e-20f);
-
-  const int r0 = q0 + qr + g;
-  const int r1 = r0 + 8;
-  __nv_bfloat16* ob = a.out + b * a.o_s[0] + h * a.o_s[2];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int col = n * 8 + 2 * t;
-    if (r0 < N)
-      *reinterpret_cast<uint32_t*>(ob + r0 * a.o_s[1] + col) =
-          pack_bf16(acc[n][0] / d0, acc[n][1] / d0);
-    if (r1 < N)
-      *reinterpret_cast<uint32_t*>(ob + r1 * a.o_s[1] + col) =
-          pack_bf16(acc[n][2] / d1, acc[n][3] / d1);
-  }
-  if constexpr (kLse) {
-    // a row whose every score was -inf (only with -inf biases) gets +inf,
-    // so the backward's exp(s - lse) is 0 there and not NaN
-    float* lb = a.lse + ((int64_t)b * gridDim.y + h) * N;
-    if (t == 0 && r0 < N) lb[r0] = m0 == -INFINITY ? INFINITY : m0 + logf(d0);
-    if (t == 0 && r1 < N) lb[r1] = m1 == -INFINITY ? INFINITY : m1 + logf(d1);
   }
 }
+
+// out rows row0 .. row0 + 15 (those below N) normalised by max(l, 1e-20);
+// with lse (the (b, h) row of the (B, H, N) LSE) also m + log(l), natural
+// units, +inf where every score was -inf (the backward's p is then 0)
+__device__ __forceinline__ void store_rows(Rows& r, __nv_bfloat16* ob,
+                                           int64_t stride, float* lse,
+                                           int row0, int N, int lane) {
+  r.l0 += __shfl_xor_sync(0xffffffffu, r.l0, 1);
+  r.l0 += __shfl_xor_sync(0xffffffffu, r.l0, 2);
+  r.l1 += __shfl_xor_sync(0xffffffffu, r.l1, 1);
+  r.l1 += __shfl_xor_sync(0xffffffffu, r.l1, 2);
+  const float d0 = fmaxf(r.l0, 1e-20f);
+  const float d1 = fmaxf(r.l1, 1e-20f);
+  const int r0 = row0 + (lane >> 2), r1 = r0 + 8, t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+    const int col = 8 * n + 2 * t;
+    if (r0 < N)
+      *reinterpret_cast<uint32_t*>(ob + r0 * stride + col) =
+          pack_bf16(r.o[n][0] / d0, r.o[n][1] / d0);
+    if (r1 < N)
+      *reinterpret_cast<uint32_t*>(ob + r1 * stride + col) =
+          pack_bf16(r.o[n][2] / d1, r.o[n][3] / d1);
+  }
+  if (lse != nullptr && t == 0) {
+    if (r0 < N)
+      lse[r0] = r.m0 == -INFINITY ? INFINITY : (r.m0 + log2f(d0)) * kLn2;
+    if (r1 < N)
+      lse[r1] = r.m1 == -INFINITY ? INFINITY : (r.m1 + log2f(d1)) * kLn2;
+  }
+}
+
+// N > kSmallN: one CTA of 4 warps per (128 query rows, head, batch row),
+// each warp 32 rows (two independent tiles of 16 on every K/V fragment);
+// K, V and the key biases stream through a ring of kStages tiles of 64
+// keys by cp.async (zeros past N, bias -inf), one barrier a tile
+template <bool kLse>
+__global__ void __launch_bounds__(kThreads, 4)
+    fap_fwd_d16_kernel(const FwdArgs a) {
+  constexpr int kM = kWarpRows / 16;
+  __shared__ __align__(128) uint8_t sKV[kStages][2][kKeys * 32];
+  __shared__ __align__(16) float sBias[kStages][kKeys];
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int q0 = blockIdx.x * kRows;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int N = a.N;
+  const int tiles = (N + kKeys - 1) / kKeys;
+  const __nv_bfloat16* kb = a.k + b * a.k_s[0] + h * a.k_s[2];
+  const __nv_bfloat16* vb = a.v + b * a.v_s[0] + h * a.v_s[2];
+  const float* bias_b = a.bias + (int64_t)b * N;
+
+  // tile j into stage j % kStages: chunk i & 1 of key row i / 2 of K and
+  // of V, and key i's bias, for i = tid, tid + kThreads, ...
+  auto load = [&](int j) {
+    const int st = j % kStages;
+    for (int i = tid; i < 2 * kKeys; i += kThreads) {
+      const int r = i >> 1, c = i & 1, n = j * kKeys + r;
+      const int in = n < N ? 16 : 0;
+      const int nn = n < N ? n : 0;
+      cp_async16(smem_u32(sKV[st][0]) + row_off(r, c),
+                 kb + nn * a.k_s[1] + 8 * c, in);
+      cp_async16(smem_u32(sKV[st][1]) + row_off(r, c),
+                 vb + nn * a.v_s[1] + 8 * c, in);
+    }
+    for (int i = tid; i < kKeys; i += kThreads) {
+      const int n = j * kKeys + i;
+      if (n < N)
+        cp_async4(smem_u32(&sBias[st][i]), bias_b + n);
+      else
+        sBias[st][i] = -INFINITY;
+    }
+  };
+
+  const int row0 = q0 + kWarpRows * warp;  // this warp's first query row
+  const float qs = __bfloat162float(__float2bfloat16(a.q_scale));
+  uint32_t qf[kM][4];
+#pragma unroll
+  for (int m = 0; m < kM; ++m)
+    load_q(qf[m], a.q + b * a.q_s[0] + h * a.q_s[2], a.q_s[1], row0 + 16 * m,
+           N, qs, lane);
+  Rows rows[kM];
+  const bool live = row0 < N;  // a warp below N does the math
+
+  load(0);
+  cp_async_commit();
+  if (tiles > 1) load(1);
+  cp_async_commit();
+  for (int j = 0; j < tiles; ++j) {
+    const int st = j % kStages;
+    cp_async_wait<kStages - 2>();  // this thread's copies of tile j
+    for (int i = tid; i < kKeys && j * kKeys + i < N; i += kThreads)
+      sBias[st][i] *= kLog2e;   // the keys this thread copied
+    __syncthreads();  // tile j is in; every warp is done with tile j - 1
+    if (j + kStages - 1 < tiles) load(j + kStages - 1);
+    cp_async_commit();
+    if (live)
+      attend<kM, kKeys / 16>(rows, qf, smem_u32(sKV[st][0]),
+                             smem_u32(sKV[st][1]), sBias[st], lane);
+  }
+#pragma unroll
+  for (int m = 0; m < kM; ++m)
+    store_rows(rows[m], a.out + b * a.o_s[0] + h * a.o_s[2], a.o_s[1],
+               kLse ? a.lse + ((int64_t)b * gridDim.y + h) * N : nullptr,
+               row0 + 16 * m, N, lane);
+}
+
+// N <= kSmallN: one warp per (batch row, head), 8 of them a CTA, over
+// 16 kGroups >= N keys (N rounded up to 16, so a window of 48 spends no
+// exp on a padding slot); the warp stages its K, V and biases, loads the
+// Q fragments of all its kGroups tiles of 16 query rows meanwhile, then
+// takes the tiles two at a time
+template <int kGroups, bool kLse>
+__global__ void __launch_bounds__(32 * kSmallWarps)
+    fap_fwd_d16_small_kernel(const FwdArgs a, int H, int pairs) {
+  constexpr int kN = 16 * kGroups;
+  __shared__ __align__(128) uint8_t sKV[kSmallWarps][2][kN * 32];
+  __shared__ __align__(16) float sBias[kSmallWarps][kN];
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int pair = blockIdx.x * kSmallWarps + warp;
+  if (pair >= pairs) return;
+  const int h = pair % H;
+  const int b = pair / H;
+  const int N = a.N;
+  const __nv_bfloat16* kb = a.k + b * a.k_s[0] + h * a.k_s[2];
+  const __nv_bfloat16* vb = a.v + b * a.v_s[0] + h * a.v_s[2];
+  const float* bias_b = a.bias + (int64_t)b * N;
+  const uint32_t sK = smem_u32(sKV[warp][0]), sV = smem_u32(sKV[warp][1]);
+  for (int i = lane; i < 2 * kN; i += 32) {
+    const int r = i >> 1, c = i & 1;
+    const int in = r < N ? 16 : 0;
+    const int rr = r < N ? r : 0;
+    cp_async16(sK + row_off(r, c), kb + rr * a.k_s[1] + 8 * c, in);
+    cp_async16(sV + row_off(r, c), vb + rr * a.v_s[1] + 8 * c, in);
+  }
+  cp_async_commit();
+  // every query tile's fragments, in flight beside K and V
+  const float qs = __bfloat162float(__float2bfloat16(a.q_scale));
+  const __nv_bfloat16* qb = a.q + b * a.q_s[0] + h * a.q_s[2];
+  uint32_t qf[kGroups][4];
+#pragma unroll
+  for (int m = 0; m < kGroups; ++m)
+    load_q(qf[m], qb, a.q_s[1], 16 * m, N, qs, lane);
+  for (int i = lane; i < kN; i += 32)
+    sBias[warp][i] = i < N ? bias_b[i] * kLog2e : -INFINITY;
+  cp_async_wait<0>();
+  __syncwarp();
+
+  __nv_bfloat16* ob = a.out + b * a.o_s[0] + h * a.o_s[2];
+  float* lse = kLse ? a.lse + ((int64_t)b * H + h) * N : nullptr;
+#pragma unroll
+  for (int m = 0; m < kGroups; m += 2) {
+    if (m + 1 < kGroups) {
+      Rows rows[2];
+      attend<2, kGroups>(rows,
+                         *reinterpret_cast<const uint32_t(*)[2][4]>(qf[m]),
+                         sK, sV, sBias[warp], lane);
+      store_rows(rows[0], ob, a.o_s[1], lse, 16 * m, N, lane);
+      store_rows(rows[1], ob, a.o_s[1], lse, 16 * m + 16, N, lane);
+    } else {
+      Rows rows[1];
+      attend<1, kGroups>(rows,
+                         *reinterpret_cast<const uint32_t(*)[1][4]>(qf[m]),
+                         sK, sV, sBias[warp], lane);
+      store_rows(rows[0], ob, a.o_s[1], lse, 16 * m, N, lane);
+    }
+  }
+}
+
+template <bool kLse>
+cudaError_t launch(const FwdArgs& a, int B, int H, cudaStream_t s) {
+  if (a.N > kSmallN) {
+    const dim3 grid((a.N + kRows - 1) / kRows, H, B);
+    fap_fwd_d16_kernel<kLse><<<grid, kThreads, 0, s>>>(a);
+  } else {
+    const int pairs = B * H;
+    const dim3 grid((pairs + kSmallWarps - 1) / kSmallWarps);
+    const int threads = 32 * kSmallWarps;
+    switch ((a.N + 15) / 16) {
+      case 1: fap_fwd_d16_small_kernel<1, kLse><<<grid, threads, 0, s>>>(a, H, pairs); break;
+      case 2: fap_fwd_d16_small_kernel<2, kLse><<<grid, threads, 0, s>>>(a, H, pairs); break;
+      case 3: fap_fwd_d16_small_kernel<3, kLse><<<grid, threads, 0, s>>>(a, H, pairs); break;
+      default: fap_fwd_d16_small_kernel<4, kLse><<<grid, threads, 0, s>>>(a, H, pairs); break;
+    }
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace d16
 
 // ---- D = 64: wgmma, TMA and a K/V ring (see the head of the file) -------
 
@@ -717,9 +865,7 @@ cudaError_t launch(const FwdArgs& a, int B, int H, int D,
   if (D == 64)
     return a.rope_cos != nullptr ? d64::launch<kLse, true>(a, B, H, k_rot, s)
                                  : d64::launch<kLse, false>(a, B, H, k_rot, s);
-  const dim3 grid((a.N + kBlockQ - 1) / kBlockQ, H, B);
-  fap_fwd_kernel<16, kLse><<<grid, kThreads, 0, s>>>(a);
-  return cudaGetLastError();
+  return d16::launch<kLse>(a, B, H, s);
 }
 
 }  // namespace

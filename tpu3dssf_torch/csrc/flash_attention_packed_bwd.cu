@@ -30,23 +30,38 @@
 //
 // Two designs, chosen by the head dimension D at the C entry point.
 //
-// D = 16 (the PTv3 stages: K3, K5): two passes, no atomics, so the
-// gradients are deterministic:
-//   * fap_bwd_dkdv_kernel: one CTA of four warps per (64-key tile, head,
-//     batch row); each warp owns 16 keys and keeps their K and V fragments
-//     and the dk, dv accumulators in registers while the CTA walks all query
-//     tiles of 64. It computes the transposed scores s^T = k q_s^T (keys as
-//     rows), so the accumulator fragments of p^T and ds^T are directly the A
-//     operands of dv = p^T do and dk = ds^T q_s, and neither ever touches
-//     shared memory.
-//   * fap_bwd_dq_kernel: one CTA per (64-query tile, head, batch row); each
-//     warp owns 16 queries, keeps q_s, do, lse and delta of its rows in
-//     registers and walks all key tiles, accumulating dq = ds k.
-// Both run mma.sync m16n8k16 bf16 with f32 accumulation; operands read as
-// B with the reduction along the tile's rows are stored transposed in
-// shared memory. Every score costs one exp in each pass against 4 x 16
-// multiply-adds a pass: the exp on the special-function units and latency
-// bound it, not bytes.
+// D = 16 (the PTv3 stages: K3, K5): one pass, one exp a score, and no
+// atomics, so two launches on the same inputs give the same bits. A score
+// costs 5 products of 32 flops (s, dp, dv, dk, dq) and one exp, so the exp
+// on the special-function units (16 per clock per SM) bounds it, about 1.5
+// times the products at window 1024; two passes spent two exps a score.
+//   * fap_bwd_d16_kernel (N > 64): one CTA of 8 warps per (256 keys, head,
+//     batch row); each warp keeps its 32 keys' K and V fragments, K^T (by
+//     movmatrix) and the dk, dv accumulators in registers, while the
+//     (q_s, do, lse, delta) tiles of 64 queries stream through a three-stage
+//     cp.async ring (zeros past N, lse +inf, delta 0; each thread scales the
+//     q chunk it copied, q * bf16(q_scale) rounded once). Per 16 queries:
+//     s^T = k q_s^T and dp^T = v do^T with the keys as rows (q_s and do read
+//     by ldmatrix), so p^T and ds^T are accumulator fragments that re-pack
+//     in registers as the A operands of dv += p^T do and dk += ds^T q_s (q_s
+//     and do by ldmatrix.trans); movmatrix turns ds^T into the A operand of
+//     the warp's share of dq = ds k, summed over its key groups in
+//     registers. The 8 shares of a tile meet in shared memory and are added
+//     in warp order. A CTA that holds all N keys (N <= 256) writes dq times
+//     q_scale; otherwise each writes an f32 partial (B, H, blocks, N, 16)
+//     into a torch.empty scratch and fap_bwd_d16_dq_kernel adds the blocks'
+//     partials in block order, scales and casts. The key block trades CTAs
+//     (W H is only 136-272 at the train step's shapes) against the
+//     partials' bytes, written and read once: per train step (about 3,600
+//     (window, head) pairs at N = 1024) 3.7 GB (1.1 ms at 3.35 TB/s) at 128
+//     keys, 1.8 GB (0.55 ms) at 256, 0.9 GB (0.28 ms) at 512; 512 would
+//     leave 272-544 CTAs and double each warp's key registers, so 256.
+//   * fap_bwd_d16_small_kernel<kG> (N <= 64, windows of 48): one warp per
+//     (batch row, head), 8 a CTA, owning all 16 kG >= N keys (N rounded up
+//     to 16: no idle warp, no exp on a padding slot); it stages its q_s,
+//     do, lse and delta rows and writes dq per tile of 16 queries.
+// Both run mma.sync m16n8k16 bf16 with f32 accumulation; the tiles use
+// the swizzled 32-byte rows of mma16.cuh.
 //
 // D = 64 (K9, the ViT-L route's gradient): one pass, fap_bwd_d64_kernel,
 // then fap_bwd_d64_dq_kernel. A score costs 5 products of 128 flops (s, dp,
@@ -85,13 +100,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma16.cuh"
 #include "sm90.cuh"
 
 namespace {
 
-constexpr int kBlock = 64;  // query rows (dq pass) or keys (dk/dv pass) per CTA
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
+using mma16::pack_bf16;
 constexpr float kLog2e = 1.4426950408889634f;
 
 enum { kQ, kK, kV, kDo, kDq, kDk, kDv, kTensors };
@@ -113,24 +127,6 @@ struct BwdArgs {
   float q_scale;
 };
 
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // the (b, h) slice of tensor `i`
 template <typename T>
 __device__ __forceinline__ T* slice(T* base, const BwdArgs& a, int i, int b,
@@ -138,310 +134,421 @@ __device__ __forceinline__ T* slice(T* base, const BwdArgs& a, int i, int b,
   return base + b * a.s[i][0] + h * a.s[i][2];
 }
 
-// A fragment (16 rows x 16) of a row-major shared-memory tile
-template <int kStride>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4],
-                                       const __nv_bfloat16* tile, int row,
-                                       int col, int g, int t) {
-  const __nv_bfloat16* p0 = tile + (row + g) * kStride + col + 2 * t;
-  const __nv_bfloat16* p1 = p0 + 8 * kStride;
-  a[0] = ld32(p0);
-  a[1] = ld32(p1);
-  a[2] = ld32(p0 + 8);
-  a[3] = ld32(p1 + 8);
-}
+// ---- D = 16: one pass, one exp a score, dq summed in a fixed order -------
 
-// Copy kBlock rows of D channels at `src` (row stride `stride`) into a
-// row-major tile and/or its transpose; rows past `rows` are zero. Values are
-// multiplied by `scale` in bf16 when scale != 1 (the forward's q * bf16(s)).
-template <int D, bool kRow, bool kTrans>
-__device__ __forceinline__ void stage(__nv_bfloat16* tile, __nv_bfloat16* tile_t,
-                                      const __nv_bfloat16* src, int64_t stride,
-                                      int rows, float scale) {
-  constexpr int kStride = D + 8;
-  constexpr int kTStride = kBlock + 8;
-  constexpr int kChunks = D / 8;
-  for (int c = threadIdx.x; c < kBlock * kChunks; c += kThreads) {
-    const int r = c / kChunks;
-    const int col = (c % kChunks) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows) v = *reinterpret_cast<const uint4*>(src + r * stride + col);
-    __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&v);
-    if (scale != 1.0f) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        e[i] = __float2bfloat16(__bfloat162float(e[i]) * scale);
-    }
-    if constexpr (kRow)
-      *reinterpret_cast<uint4*>(&tile[r * kStride + col]) = v;
-    if constexpr (kTrans) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) tile_t[(col + i) * kTStride + r] = e[i];
-    }
-  }
-}
+namespace d16 {
 
-// dk and dv for one 64-key tile of one (head, batch row).
-template <int D>
-__global__ void __launch_bounds__(kThreads) fap_bwd_dkdv_kernel(const BwdArgs a) {
-  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
-  constexpr int kStride = D + 8;
-  constexpr int kTStride = kBlock + 8;
-  __shared__ __align__(16) __nv_bfloat16 sQ[kBlock * kStride];
-  __shared__ __align__(16) __nv_bfloat16 sQt[D * kTStride];
-  __shared__ __align__(16) __nv_bfloat16 sDo[kBlock * kStride];
-  __shared__ __align__(16) __nv_bfloat16 sDot[D * kTStride];
-  __shared__ float sLse[kBlock];
-  __shared__ float sDelta[kBlock];
+using namespace mma16;
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int k0 = blockIdx.x * kBlock;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int H = gridDim.y;
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kWarpKeys = 32;                  // keys a warp owns (ring kernel)
+constexpr int kBlockKeys = kWarps * kWarpKeys;  // keys per CTA (ring kernel)
+constexpr int kQueries = 64;                   // queries per ring tile
+constexpr int kStages = 3;                     // ring depth
+constexpr int kSmallN = 64;  // up to here: one warp per (batch row, head)
+constexpr int kSmallWarps = 8;  // warps, so (batch row, head) pairs, a CTA
+
+// One warp's 16 kG keys: K and V as A operands (keys as rows), K^T as the
+// B operands of dq = ds k, the key biases of accumulator rows g and g + 8
+// of each group in log2 units (-inf past N), and the dk, dv accumulators.
+template <int kG>
+struct Keys {
+  uint32_t kf[kG][4], vf[kG][4], kt[kG][4];
+  float kb[kG][2];
+  float dk[kG][2][4], dv[kG][2][4];
+};
+
+// keys key0 .. key0 + 16 kG - 1 of (b, h)
+template <int kG>
+__device__ __forceinline__ void load_keys(Keys<kG>& K, const BwdArgs& a,
+                                          int b, int h, int key0, int lane) {
   const int N = a.N;
-  const __nv_bfloat16* qb = slice(a.q, a, kQ, b, h);
-  const __nv_bfloat16* dob = slice(a.dout, a, kDo, b, h);
-  const float* lse_bh = a.lse + ((int64_t)b * H + h) * N;
-  const float* delta_bh = a.delta + ((int64_t)b * H + h) * N;
-  const float qs = __bfloat162float(__float2bfloat16(a.q_scale));
-
-  // this tile's K and V, staged through the query-side buffers
-  stage<D, true, false>(sQ, nullptr,
-                        slice(a.k, a, kK, b, h) + k0 * a.s[kK][1],
-                        a.s[kK][1], N - k0, 1.0f);
-  stage<D, true, false>(sDo, nullptr,
-                        slice(a.v, a, kV, b, h) + k0 * a.s[kV][1],
-                        a.s[kV][1], N - k0, 1.0f);
-  __syncthreads();
-
-  const int kr = warp * 16;  // this warp's 16 keys within the tile
-  uint32_t kf[D / 16][4], vf[D / 16][4];
+  const float* bias_b = a.bias + (int64_t)b * N;
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    load_a<kStride>(kf[kk], sQ, kr, kk * 16, g, t);
-    load_a<kStride>(vf[kk], sDo, kr, kk * 16, g, t);
+  for (int i = 0; i < kG; ++i) {
+    const int k0 = key0 + 16 * i;
+    load_a(K.kf[i], slice(a.k, a, kK, b, h), a.s[kK][1], k0, N, lane);
+    load_a(K.vf[i], slice(a.v, a, kV, b, h), a.s[kV][1], k0, N, lane);
+    // K^T: the transposed 8 x 8 blocks of K, in B-operand order (channels
+    // 0-7: keys 0-7, then 8-15; channels 8-15 likewise)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) K.kt[i][x] = movmatrix_trans(K.kf[i][x]);
+    const int r0 = k0 + (lane >> 2), r1 = r0 + 8;
+    K.kb[i][0] = r0 < N ? bias_b[r0] * kLog2e : -INFINITY;
+    K.kb[i][1] = r1 < N ? bias_b[r1] * kLog2e : -INFINITY;
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) K.dk[i][n][x] = K.dv[i][n][x] = 0.0f;
   }
-  const int key0 = k0 + kr + g;  // keys of accumulator rows g and g + 8
-  const int key1 = key0 + 8;
-  const float kb0 = key0 < N ? a.bias[(int64_t)b * N + key0] : -INFINITY;
-  const float kb1 = key1 < N ? a.bias[(int64_t)b * N + key1] : -INFINITY;
+}
 
-  float dk[D / 8][4], dv[D / 8][4];
+// Queries 16c .. 16c + 15 of a staged tile (q_s and do rows at sQ, sDo in
+// the row_off layout; lse in log2 units, +inf past N; delta, 0 past N)
+// against the warp's keys:
+// s^T = k q_s^T and dp^T = v do^T with the keys as rows, so p^T and ds^T
+// come out in the accumulator layout and re-pack in registers as the A
+// operands of dv += p^T do and dk += ds^T q_s; movmatrix turns ds^T into
+// the A operand of this warp's share of dq = ds k, summed over its key
+// groups in order into dq (queries as rows, the 16 channels as columns).
+// p = exp2(s log2(e) + bias log2(e) - lse log2(e)), one FMA and one
+// subtraction: where every bias of a row is -1e9 the forward's LSE is
+// -1e9 exactly (f32 cannot hold -1e9 + log N apart), both products round
+// alike and p = 1, as in the TPU kernels. p is rounded to bf16 for dv, ds
+// for dk and dq.
+template <int kG>
+__device__ __forceinline__ void chunk(Keys<kG>& K, uint32_t sQ, uint32_t sDo,
+                                      const float* lse, const float* delta,
+                                      int c, int lane, float (&dq)[2][4]) {
+  const int t = lane & 3;
+  uint32_t qb[4], ob[4], qt[4], ot[4];
+  load_b_rows(qb, sQ, c, lane);
+  load_b_rows(ob, sDo, c, lane);
+  load_b_cols(qt, sQ, c, lane);
+  load_b_cols(ot, sDo, c, lane);
+  float2 l2[2], d2[2];  // this thread's query columns 16c + 8n + 2t, + 1
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
+  for (int n = 0; n < 2; ++n) {
+    l2[n] = *reinterpret_cast<const float2*>(lse + 16 * c + 8 * n + 2 * t);
+    d2[n] = *reinterpret_cast<const float2*>(delta + 16 * c + 8 * n + 2 * t);
+  }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) dk[n][i] = dv[n][i] = 0.0f;
-
-  for (int q0 = 0; q0 < N; q0 += kBlock) {
-    __syncthreads();  // every warp is done with the previous tile's buffers
-    stage<D, true, true>(sQ, sQt, qb + q0 * a.s[kQ][1], a.s[kQ][1], N - q0,
-                         qs);
-    stage<D, true, true>(sDo, sDot, dob + q0 * a.s[kDo][1], a.s[kDo][1],
-                         N - q0, 1.0f);
-    for (int r = tid; r < kBlock; r += kThreads) {
-      const int n = q0 + r;
-      sLse[r] = n < N ? lse_bh[n] : INFINITY;
-      sDelta[r] = n < N ? delta_bh[n] : 0.0f;
-    }
-    __syncthreads();
-
-    // 16 queries at a time: p^T and ds^T for this warp's 16 keys, then
-    // dv += p^T do and dk += ds^T q_s (two n8 fragments form one k16 A
-    // operand)
+  for (int n = 0; n < 2; ++n)
 #pragma unroll
-    for (int kk = 0; kk < kBlock / 16; ++kk) {
-      float p[2][4], ds[2][4];
+    for (int x = 0; x < 4; ++x) dq[n][x] = 0.0f;
 #pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const int j = 2 * kk + jj;
-        float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        float dp[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int i = 0; i < kG; ++i) {
+    float s[2][4], dp[2][4];
 #pragma unroll
-        for (int dd = 0; dd < D / 16; ++dd) {
-          const __nv_bfloat16* qp = &sQ[(j * 8 + g) * kStride + dd * 16 + 2 * t];
-          mma_16816(s, kf[dd], ld32(qp), ld32(qp + 8));
-          const __nv_bfloat16* op = &sDo[(j * 8 + g) * kStride + dd * 16 + 2 * t];
-          mma_16816(dp, vf[dd], ld32(op), ld32(op + 8));
-        }
-        const int c0 = j * 8 + 2 * t;  // the query columns of this thread
-        const float l0 = sLse[c0], l1 = sLse[c0 + 1];
-        const float e0 = sDelta[c0], e1 = sDelta[c0 + 1];
-        p[jj][0] = exp2f((s[0] + kb0 - l0) * kLog2e);
-        p[jj][1] = exp2f((s[1] + kb0 - l1) * kLog2e);
-        p[jj][2] = exp2f((s[2] + kb1 - l0) * kLog2e);
-        p[jj][3] = exp2f((s[3] + kb1 - l1) * kLog2e);
-        ds[jj][0] = p[jj][0] * (dp[0] - e0);
-        ds[jj][1] = p[jj][1] * (dp[1] - e1);
-        ds[jj][2] = p[jj][2] * (dp[2] - e0);
-        ds[jj][3] = p[jj][3] * (dp[3] - e1);
-      }
-      const uint32_t pa[4] = {pack_bf16(p[0][0], p[0][1]),
-                              pack_bf16(p[0][2], p[0][3]),
-                              pack_bf16(p[1][0], p[1][1]),
-                              pack_bf16(p[1][2], p[1][3])};
-      const uint32_t da[4] = {pack_bf16(ds[0][0], ds[0][1]),
-                              pack_bf16(ds[0][2], ds[0][3]),
-                              pack_bf16(ds[1][0], ds[1][1]),
-                              pack_bf16(ds[1][2], ds[1][3])};
+    for (int n = 0; n < 2; ++n)
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        const __nv_bfloat16* op = &sDot[(n * 8 + g) * kTStride + kk * 16 + 2 * t];
-        mma_16816(dv[n], pa, ld32(op), ld32(op + 8));
-        const __nv_bfloat16* qp = &sQt[(n * 8 + g) * kTStride + kk * 16 + 2 * t];
-        mma_16816(dk[n], da, ld32(qp), ld32(qp + 8));
+      for (int x = 0; x < 4; ++x) s[n][x] = dp[n][x] = 0.0f;
+    mma(s[0], K.kf[i], qb[0], qb[1]);
+    mma(s[1], K.kf[i], qb[2], qb[3]);
+    mma(dp[0], K.vf[i], ob[0], ob[1]);
+    mma(dp[1], K.vf[i], ob[2], ob[3]);
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const float kb = K.kb[i][x >> 1];
+        const float l = (x & 1) ? l2[n].y : l2[n].x;
+        const float e = (x & 1) ? d2[n].y : d2[n].x;
+        const float p = exp2_approx(fmaf(s[n][x], kLog2e, kb) - l);
+        dp[n][x] = p * (dp[n][x] - e);
+        s[n][x] = p;
       }
     }
+    const uint32_t pa[4] = {pack_bf16(s[0][0], s[0][1]),
+                            pack_bf16(s[0][2], s[0][3]),
+                            pack_bf16(s[1][0], s[1][1]),
+                            pack_bf16(s[1][2], s[1][3])};
+    const uint32_t da[4] = {pack_bf16(dp[0][0], dp[0][1]),
+                            pack_bf16(dp[0][2], dp[0][3]),
+                            pack_bf16(dp[1][0], dp[1][1]),
+                            pack_bf16(dp[1][2], dp[1][3])};
+    mma(K.dv[i][0], pa, ot[0], ot[1]);
+    mma(K.dv[i][1], pa, ot[2], ot[3]);
+    mma(K.dk[i][0], da, qt[0], qt[1]);
+    mma(K.dk[i][1], da, qt[2], qt[3]);
+    // ds (queries as rows): the transposed blocks of ds^T
+    const uint32_t dsa[4] = {movmatrix_trans(da[0]), movmatrix_trans(da[2]),
+                             movmatrix_trans(da[1]), movmatrix_trans(da[3])};
+    mma(dq[0], dsa, K.kt[i][0], K.kt[i][1]);
+    mma(dq[1], dsa, K.kt[i][2], K.kt[i][3]);
   }
+}
 
+// dk and dv of the warp's keys into the strided views
+template <int kG>
+__device__ __forceinline__ void store_keys(const Keys<kG>& K,
+                                           const BwdArgs& a, int b, int h,
+                                           int key0, int lane) {
   __nv_bfloat16* dkb = slice(a.dk, a, kDk, b, h);
   __nv_bfloat16* dvb = slice(a.dv, a, kDv, b, h);
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int col = n * 8 + 2 * t;
-    if (key0 < N) {
-      *reinterpret_cast<uint32_t*>(dkb + key0 * a.s[kDk][1] + col) =
-          pack_bf16(dk[n][0], dk[n][1]);
-      *reinterpret_cast<uint32_t*>(dvb + key0 * a.s[kDv][1] + col) =
-          pack_bf16(dv[n][0], dv[n][1]);
-    }
-    if (key1 < N) {
-      *reinterpret_cast<uint32_t*>(dkb + key1 * a.s[kDk][1] + col) =
-          pack_bf16(dk[n][2], dk[n][3]);
-      *reinterpret_cast<uint32_t*>(dvb + key1 * a.s[kDv][1] + col) =
-          pack_bf16(dv[n][2], dv[n][3]);
+  for (int i = 0; i < kG; ++i) {
+    const int r0 = key0 + 16 * i + (lane >> 2), r1 = r0 + 8;
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      const int col = 8 * n + 2 * (lane & 3);
+      if (r0 < a.N) {
+        *reinterpret_cast<uint32_t*>(dkb + r0 * a.s[kDk][1] + col) =
+            pack_bf16(K.dk[i][n][0], K.dk[i][n][1]);
+        *reinterpret_cast<uint32_t*>(dvb + r0 * a.s[kDv][1] + col) =
+            pack_bf16(K.dv[i][n][0], K.dv[i][n][1]);
+      }
+      if (r1 < a.N) {
+        *reinterpret_cast<uint32_t*>(dkb + r1 * a.s[kDk][1] + col) =
+            pack_bf16(K.dk[i][n][2], K.dk[i][n][3]);
+        *reinterpret_cast<uint32_t*>(dvb + r1 * a.s[kDv][1] + col) =
+            pack_bf16(K.dv[i][n][2], K.dv[i][n][3]);
+      }
     }
   }
 }
 
-// dq for one 64-query tile of one (head, batch row).
-template <int D>
-__global__ void __launch_bounds__(kThreads) fap_bwd_dq_kernel(const BwdArgs a) {
-  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
-  constexpr int kStride = D + 8;
-  constexpr int kTStride = kBlock + 8;
-  __shared__ __align__(16) __nv_bfloat16 sK[kBlock * kStride];
-  __shared__ __align__(16) __nv_bfloat16 sKt[D * kTStride];
-  __shared__ __align__(16) __nv_bfloat16 sV[kBlock * kStride];
-  __shared__ float sBias[kBlock];
+// N > kSmallN: one CTA of 8 warps per (256 keys, head, batch row), each
+// warp 32 keys; the (q_s, do, lse, delta) tiles of 64 queries stream
+// through a ring of kStages by cp.async (zeros past N; lse +inf, delta 0),
+// each thread scaling the q chunk it copied once it has landed. Per tile
+// the warps' dq shares meet in shared memory and are summed in warp order;
+// a CTA that holds all N keys writes dq (times q_scale), otherwise its
+// f32 partial goes to dq_part (B, H, blocks, N, 16) for fap_bwd_d16_dq_kernel
+__global__ void __launch_bounds__(kThreads)
+    fap_bwd_d16_kernel(const BwdArgs a, float* dq_part) {
+  __shared__ __align__(128) uint8_t sQD[kStages][2][kQueries * 32];
+  __shared__ __align__(16) float sStat[kStages][2][kQueries];
+  __shared__ float4 sX[kWarps][kQueries / 16][2][32];
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int q0 = blockIdx.x * kBlock;
+  const int blk = blockIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int H = gridDim.y;
+  const int blocks = gridDim.x;
   const int N = a.N;
-  const __nv_bfloat16* kb = slice(a.k, a, kK, b, h);
-  const __nv_bfloat16* vb = slice(a.v, a, kV, b, h);
-  const float* bias_b = a.bias + (int64_t)b * N;
-  const float qs = __bfloat162float(__float2bfloat16(a.q_scale));
-
-  // this tile's q_s and do, staged through the key-side buffers
-  stage<D, true, false>(sK, nullptr,
-                        slice(a.q, a, kQ, b, h) + q0 * a.s[kQ][1],
-                        a.s[kQ][1], N - q0, qs);
-  stage<D, true, false>(sV, nullptr,
-                        slice(a.dout, a, kDo, b, h) + q0 * a.s[kDo][1],
-                        a.s[kDo][1], N - q0, 1.0f);
-  __syncthreads();
-
-  const int qr = warp * 16;
-  uint32_t qf[D / 16][4], of[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    load_a<kStride>(qf[kk], sK, qr, kk * 16, g, t);
-    load_a<kStride>(of[kk], sV, qr, kk * 16, g, t);
-  }
-  const int r0 = q0 + qr + g;  // query rows of accumulator rows g, g + 8
-  const int r1 = r0 + 8;
+  const int tiles = (N + kQueries - 1) / kQueries;
   const float* lse_bh = a.lse + ((int64_t)b * H + h) * N;
   const float* delta_bh = a.delta + ((int64_t)b * H + h) * N;
-  const float l0 = r0 < N ? lse_bh[r0] : INFINITY;
-  const float l1 = r1 < N ? lse_bh[r1] : INFINITY;
-  const float e0 = r0 < N ? delta_bh[r0] : 0.0f;
-  const float e1 = r1 < N ? delta_bh[r1] : 0.0f;
+  const float qs = __bfloat162float(__float2bfloat16(a.q_scale));
+  const __nv_bfloat16* qb = slice(a.q, a, kQ, b, h);
+  const __nv_bfloat16* ob = slice(a.dout, a, kDo, b, h);
 
-  float dq[D / 8][4];
+  // tile j into stage j % kStages: for i = tid, tid + kThreads, ... chunk
+  // i & 1 of query row (i / 2) % kQueries of q (i < 2 kQueries) or do, and
+  // row i % kQueries of lse (i < kQueries) or delta (i < 2 kQueries)
+  auto load = [&](int j) {
+    const int st = j % kStages;
+    for (int i = tid; i < 4 * kQueries; i += kThreads) {
+      const int which = i / (2 * kQueries), r = (i >> 1) % kQueries;
+      const int c = i & 1, n = j * kQueries + r;
+      cp_async16(smem_u32(sQD[st][which]) + row_off(r, c),
+                 (which ? ob : qb) + (n < N ? n : 0) * a.s[which ? kDo : kQ][1]
+                     + 8 * c, n < N ? 16 : 0);
+    }
+    for (int i = tid; i < 2 * kQueries; i += kThreads) {
+      const int r = i % kQueries, m = j * kQueries + r;
+      float* dst = &sStat[st][i / kQueries][r];
+      if (m < N)
+        cp_async4(smem_u32(dst), (i < kQueries ? lse_bh : delta_bh) + m);
+      else
+        *dst = i < kQueries ? INFINITY : 0.0f;
+    }
+  };
+
+  const int key0 = blk * kBlockKeys + kWarpKeys * warp;
+  const bool live = key0 < N;  // a warp with keys below N does the math
+  Keys<kWarpKeys / 16> K;
+  load_keys(K, a, b, h, key0, lane);
+
+  load(0);
+  cp_async_commit();
+  if (tiles > 1) load(1);
+  cp_async_commit();
+  for (int j = 0; j < tiles; ++j) {
+    const int st = j % kStages;
+    cp_async_wait<kStages - 2>();  // this thread's copies of tile j
+    // the lse and the q chunks this thread copied: lse in log2 units, q
+    // times bf16(q_scale) rounded once
+    for (int i = tid; i < kQueries && j * kQueries + i < N; i += kThreads)
+      sStat[st][0][i] *= kLog2e;
+    for (int i = tid; qs != 1.0f && i < 2 * kQueries; i += kThreads) {
+      uint4* p = reinterpret_cast<uint4*>(&sQD[st][0][row_off(i >> 1, i & 1)]);
+      uint4 v = *p;
+      v.x = scale_bf16x2(v.x, qs);
+      v.y = scale_bf16x2(v.y, qs);
+      v.z = scale_bf16x2(v.z, qs);
+      v.w = scale_bf16x2(v.w, qs);
+      *p = v;
+    }
+    __syncthreads();  // tile j is in; every warp is done with tile j - 1
+    if (j + kStages - 1 < tiles) load(j + kStages - 1);
+    cp_async_commit();
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.0f;
-
-  for (int k0 = 0; k0 < N; k0 += kBlock) {
-    __syncthreads();  // every warp is done with the previous tile's buffers
-    stage<D, true, true>(sK, sKt, kb + k0 * a.s[kK][1], a.s[kK][1], N - k0,
-                         1.0f);
-    stage<D, true, false>(sV, nullptr, vb + k0 * a.s[kV][1], a.s[kV][1],
-                          N - k0, 1.0f);
-    for (int r = tid; r < kBlock; r += kThreads) {
-      const int n = k0 + r;
-      sBias[r] = n < N ? bias_b[n] : -INFINITY;
+    for (int c = 0; c < kQueries / 16; ++c) {
+      float dq[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+      if (live)
+        chunk(K, smem_u32(sQD[st][0]), smem_u32(sQD[st][1]), sStat[st][0],
+              sStat[st][1], c, lane, dq);
+      sX[warp][c][0][lane] = make_float4(dq[0][0], dq[0][1], dq[0][2], dq[0][3]);
+      sX[warp][c][1][lane] = make_float4(dq[1][0], dq[1][1], dq[1][2], dq[1][3]);
     }
     __syncthreads();
-
-    // 16 keys at a time: ds for this warp's 16 queries, then dq += ds k
+    // fragment f = (c, n, l), for f = tid, tid + kThreads, ..., summed over
+    // the warps in order: queries 16c + l / 4 and + 8, channels 8n +
+    // 2 (l % 4) and + 1
+    for (int f = tid; f < kQueries / 16 * 64; f += kThreads) {
+      const int c = f >> 6, n = (f >> 5) & 1, l = f & 31;
+      float4 x = sX[0][c][n][l];
 #pragma unroll
-    for (int kk = 0; kk < kBlock / 16; ++kk) {
-      float ds[2][4];
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const int j = 2 * kk + jj;
-        float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        float dp[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-        for (int dd = 0; dd < D / 16; ++dd) {
-          const __nv_bfloat16* kp = &sK[(j * 8 + g) * kStride + dd * 16 + 2 * t];
-          mma_16816(s, qf[dd], ld32(kp), ld32(kp + 8));
-          const __nv_bfloat16* vp = &sV[(j * 8 + g) * kStride + dd * 16 + 2 * t];
-          mma_16816(dp, of[dd], ld32(vp), ld32(vp + 8));
-        }
-        const float b0 = sBias[j * 8 + 2 * t];
-        const float b1 = sBias[j * 8 + 2 * t + 1];
-        ds[jj][0] = exp2f((s[0] + b0 - l0) * kLog2e) * (dp[0] - e0);
-        ds[jj][1] = exp2f((s[1] + b1 - l0) * kLog2e) * (dp[1] - e0);
-        ds[jj][2] = exp2f((s[2] + b0 - l1) * kLog2e) * (dp[2] - e1);
-        ds[jj][3] = exp2f((s[3] + b1 - l1) * kLog2e) * (dp[3] - e1);
+      for (int w = 1; w < kWarps; ++w) {
+        const float4 y = sX[w][c][n][l];
+        x.x += y.x;
+        x.y += y.y;
+        x.z += y.z;
+        x.w += y.w;
       }
-      const uint32_t da[4] = {pack_bf16(ds[0][0], ds[0][1]),
-                              pack_bf16(ds[0][2], ds[0][3]),
-                              pack_bf16(ds[1][0], ds[1][1]),
-                              pack_bf16(ds[1][2], ds[1][3])};
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        const __nv_bfloat16* kp = &sKt[(n * 8 + g) * kTStride + kk * 16 + 2 * t];
-        mma_16816(dq[n], da, ld32(kp), ld32(kp + 8));
+      const int q0 = j * kQueries + 16 * c + (l >> 2), q1 = q0 + 8;
+      const int col = 8 * n + 2 * (l & 3);
+      if (blocks == 1) {
+        __nv_bfloat16* dqb = slice(a.dq, a, kDq, b, h);
+        const float s = a.q_scale;
+        if (q0 < N)
+          *reinterpret_cast<uint32_t*>(dqb + q0 * a.s[kDq][1] + col) =
+              pack_bf16(x.x * s, x.y * s);
+        if (q1 < N)
+          *reinterpret_cast<uint32_t*>(dqb + q1 * a.s[kDq][1] + col) =
+              pack_bf16(x.z * s, x.w * s);
+      } else {
+        float* part = dq_part + (((int64_t)b * H + h) * blocks + blk) * N * 16;
+        if (q0 < N)
+          *reinterpret_cast<float2*>(part + q0 * 16 + col) =
+              make_float2(x.x, x.y);
+        if (q1 < N)
+          *reinterpret_cast<float2*>(part + q1 * 16 + col) =
+              make_float2(x.z, x.w);
       }
     }
   }
+  store_keys(K, a, b, h, key0, lane);
+}
+
+// dq[b, n, h, :] = bf16(q_scale * sum over the key blocks, in block order,
+// of dq_part[b, h, block, n, :]), 8 channels a thread
+__global__ void __launch_bounds__(256)
+    fap_bwd_d16_dq_kernel(const float* dq_part, BwdArgs a, int H, int blocks,
+                          int64_t total) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const int c = (int)(i & 1) * 8;
+  const int64_t row = i >> 1;  // (b, h, n)
+  const int n = (int)(row % a.N);
+  const int64_t bh = row / a.N;
+  const int h = (int)(bh % H);
+  const int b = (int)(bh / H);
+  const float* p = dq_part + (bh * blocks * a.N + n) * 16 + c;
+  float4 x = reinterpret_cast<const float4*>(p)[0];
+  float4 y = reinterpret_cast<const float4*>(p)[1];
+  for (int k = 1; k < blocks; ++k) {
+    const float4* q = reinterpret_cast<const float4*>(p + (int64_t)k * a.N * 16);
+    const float4 u = q[0], v = q[1];
+    x.x += u.x; x.y += u.y; x.z += u.z; x.w += u.w;
+    y.x += v.x; y.y += v.y; y.z += v.z; y.w += v.w;
+  }
+  const float f = a.q_scale;
+  uint4 out;
+  out.x = pack_bf16(x.x * f, x.y * f);
+  out.y = pack_bf16(x.z * f, x.w * f);
+  out.z = pack_bf16(y.x * f, y.y * f);
+  out.w = pack_bf16(y.z * f, y.w * f);
+  *reinterpret_cast<uint4*>(slice(a.dq, a, kDq, b, h) + n * a.s[kDq][1] + c) =
+      out;
+}
+
+// N <= kSmallN: one warp per (batch row, head), 8 of them a CTA; the warp
+// owns all 16 kG >= N keys (N rounded up to 16) and stages its q_s, do,
+// lse and delta, then walks its query tiles of 16: dq of a tile is summed
+// over the key groups in registers and written at once. Two CTAs an SM
+// (at most 128 registers a thread; ptxas gives kG = 3 170 unbounded)
+// measured faster on an H100 at window 48.
+template <int kG>
+__global__ void __launch_bounds__(32 * kSmallWarps, 2)
+    fap_bwd_d16_small_kernel(const BwdArgs a, int H, int pairs) {
+  constexpr int kN = 16 * kG;
+  __shared__ __align__(128) uint8_t sQD[kSmallWarps][2][kN * 32];
+  __shared__ __align__(16) float sStat[kSmallWarps][2][kN];
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int pair = blockIdx.x * kSmallWarps + warp;
+  if (pair >= pairs) return;
+  const int h = pair % H;
+  const int b = pair / H;
+  const int N = a.N;
+  const float qs = __bfloat162float(__float2bfloat16(a.q_scale));
+  const __nv_bfloat16* qb = slice(a.q, a, kQ, b, h);
+  const __nv_bfloat16* ob = slice(a.dout, a, kDo, b, h);
+  for (int i = lane; i < 2 * kN; i += 32) {
+    const int r = i >> 1, c = i & 1;
+    uint4 q = make_uint4(0u, 0u, 0u, 0u), o = q;
+    if (r < N) {
+      q = *reinterpret_cast<const uint4*>(qb + r * a.s[kQ][1] + 8 * c);
+      o = *reinterpret_cast<const uint4*>(ob + r * a.s[kDo][1] + 8 * c);
+      if (qs != 1.0f) {  // q * bf16(q_scale), rounded once
+        q.x = scale_bf16x2(q.x, qs);
+        q.y = scale_bf16x2(q.y, qs);
+        q.z = scale_bf16x2(q.z, qs);
+        q.w = scale_bf16x2(q.w, qs);
+      }
+    }
+    *reinterpret_cast<uint4*>(&sQD[warp][0][row_off(r, c)]) = q;
+    *reinterpret_cast<uint4*>(&sQD[warp][1][row_off(r, c)]) = o;
+  }
+  const float* lse_bh = a.lse + ((int64_t)b * H + h) * N;
+  const float* delta_bh = a.delta + ((int64_t)b * H + h) * N;
+  for (int i = lane; i < kN; i += 32) {
+    sStat[warp][0][i] = i < N ? lse_bh[i] * kLog2e : INFINITY;
+    sStat[warp][1][i] = i < N ? delta_bh[i] : 0.0f;
+  }
+  Keys<kG> K;
+  load_keys(K, a, b, h, 0, lane);
+  __syncwarp();
 
   __nv_bfloat16* dqb = slice(a.dq, a, kDq, b, h);
+  const float f = a.q_scale;
+  const int g = lane >> 2, col = 2 * (lane & 3);
+#pragma unroll 1
+  for (int c = 0; 16 * c < N; ++c) {
+    float dq[2][4];
+    chunk(K, smem_u32(sQD[warp][0]), smem_u32(sQD[warp][1]), sStat[warp][0],
+          sStat[warp][1], c, lane, dq);
+    const int q0 = 16 * c + g, q1 = q0 + 8;
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int col = n * 8 + 2 * t;
-    if (r0 < N)
-      *reinterpret_cast<uint32_t*>(dqb + r0 * a.s[kDq][1] + col) =
-          pack_bf16(dq[n][0] * a.q_scale, dq[n][1] * a.q_scale);
-    if (r1 < N)
-      *reinterpret_cast<uint32_t*>(dqb + r1 * a.s[kDq][1] + col) =
-          pack_bf16(dq[n][2] * a.q_scale, dq[n][3] * a.q_scale);
+    for (int n = 0; n < 2; ++n) {
+      if (q0 < N)
+        *reinterpret_cast<uint32_t*>(dqb + q0 * a.s[kDq][1] + 8 * n + col) =
+            pack_bf16(dq[n][0] * f, dq[n][1] * f);
+      if (q1 < N)
+        *reinterpret_cast<uint32_t*>(dqb + q1 * a.s[kDq][1] + 8 * n + col) =
+            pack_bf16(dq[n][2] * f, dq[n][3] * f);
+    }
   }
+  store_keys(K, a, b, h, 0, lane);
 }
 
-template <int D>
-int launch(const BwdArgs& a, int B, int H, cudaStream_t s) {
-  const dim3 grid((a.N + kBlock - 1) / kBlock, H, B);
-  fap_bwd_dkdv_kernel<D><<<grid, kThreads, 0, s>>>(a);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  fap_bwd_dq_kernel<D><<<grid, kThreads, 0, s>>>(a);
+// the key blocks of the ring kernel; dq_part is needed when there are two
+// or more
+int key_blocks(int N) { return N > kSmallN ? (N + kBlockKeys - 1) / kBlockKeys : 1; }
+
+int launch(const BwdArgs& a, int B, int H, float* dq_part, cudaStream_t s) {
+  if (a.N <= kSmallN) {
+    const int pairs = B * H;
+    const dim3 grid((pairs + kSmallWarps - 1) / kSmallWarps);
+    const int threads = 32 * kSmallWarps;
+    switch ((a.N + 15) / 16) {
+      case 1: fap_bwd_d16_small_kernel<1><<<grid, threads, 0, s>>>(a, H, pairs); break;
+      case 2: fap_bwd_d16_small_kernel<2><<<grid, threads, 0, s>>>(a, H, pairs); break;
+      case 3: fap_bwd_d16_small_kernel<3><<<grid, threads, 0, s>>>(a, H, pairs); break;
+      default: fap_bwd_d16_small_kernel<4><<<grid, threads, 0, s>>>(a, H, pairs); break;
+    }
+    return (int)cudaGetLastError();
+  }
+  const int nb = key_blocks(a.N);
+  if (nb > 1 && dq_part == nullptr) return (int)cudaErrorInvalidValue;
+  fap_bwd_d16_kernel<<<dim3(nb, H, B), kThreads, 0, s>>>(a, dq_part);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || nb == 1) return (int)err;
+  const int64_t total = (int64_t)B * H * a.N * 2;
+  fap_bwd_d16_dq_kernel<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
+      dq_part, a, H, nb, total);
   return (int)cudaGetLastError();
 }
+
+}  // namespace d16
 
 // ---- D = 64: one pass with wgmma and a TMA ring (see the head of the file)
 
@@ -763,12 +870,14 @@ int launch(const BwdArgs& a, int B, int H, float* dq_acc,
 // aligned and the D channels of a head contiguous. bias (B, 1, N), lse and
 // delta (B, H, N) f32 contiguous. dq_scratch: at D = 64 a zeroed f32
 // (B, H, N rounded up to 64, 64) tensor in which the one-pass kernel sums
-// dq; unused (may be null) at D = 16. Launches on `stream` the dk/dv pass,
-// then the dq pass (D = 16), or the one-pass kernel and the dq cast
-// (D = 64). Returns the first failing launch's cudaError_t;
-// cudaErrorInvalidValue for a head dimension other than 16 or 64, an empty
-// shape, or (D = 64) no scratch or a view that cuTensorMapEncodeTiled
-// refuses.
+// dq; at D = 16 an f32 (B, H, blocks, N, 16) tensor of per-key-block dq
+// partials, its contents unused on entry, where N > 64 takes blocks =
+// ceil(N / fa_backward_d16_block_keys()) >= 2, and null otherwise.
+// Launches on `stream` one kernel (D = 16 up to 256 keys), or the one-pass
+// kernel and then the kernel that sums, scales and casts dq. Returns the
+// first failing launch's cudaError_t; cudaErrorInvalidValue for a head
+// dimension other than 16 or 64, an empty shape, a missing scratch, or
+// (D = 64) a view that cuTensorMapEncodeTiled refuses.
 extern "C" int fa_backward_bf16(const void* q, const void* k, const void* v,
                                 const void* dout, const void* bias,
                                 const void* lse, const void* delta, void* dq,
@@ -793,9 +902,14 @@ extern "C" int fa_backward_bf16(const void* q, const void* k, const void* v,
   a.N = N;
   a.q_scale = q_scale;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  return D == 16 ? launch<16>(a, B, H, s)
-                 : d64::launch(a, B, H, static_cast<float*>(dq_scratch), s);
+  float* scratch = static_cast<float*>(dq_scratch);
+  return D == 16 ? d16::launch(a, B, H, scratch, s)
+                 : d64::launch(a, B, H, scratch, s);
 }
 
 // Dynamic shared memory of the D = 64 kernel in bytes (for build reports).
 extern "C" int fa_backward_d64_smem_bytes() { return d64::kSmemBytes; }
+
+// Keys per CTA of the D = 16 one-pass kernel (the wrapper sizes dq_scratch
+// by it).
+extern "C" int fa_backward_d16_block_keys() { return d16::kBlockKeys; }

@@ -23,10 +23,11 @@ have a Hopper counterpart here, each with its own launch counter:
 
 Two C entry points carry all five, each dispatching on the head dimension:
 ``fa_forward_bf16`` in ``csrc/flash_attention_packed.cu`` (with a
-compile-time LSE flag; ``fap_fwd_kernel`` at D = 16, the wgmma/TMA
-``fap_fwd_kernel_d64`` at D = 64) and ``fa_backward_bf16`` in
-``csrc/flash_attention_packed_bwd.cu`` (the two-pass ``fap_bwd_*_kernel``
-at D = 16, the one-pass ``fap_bwd_d64_kernel`` and its dq cast at D = 64).
+compile-time LSE flag; the ``mma.sync`` kernels ``fap_fwd_d16_*`` at
+D = 16, the wgmma/TMA ``fap_fwd_kernel_d64`` at D = 64) and
+``fa_backward_bf16`` in ``csrc/flash_attention_packed_bwd.cu`` (one pass
+at both: ``fap_bwd_d16_*`` with dq summed in a fixed order at D = 16,
+``fap_bwd_d64_kernel`` and its dq cast at D = 64).
 Each takes q, k, v (and do, dq, dk, dv) as separate pointers with their own
 (batch, token, head) strides, so the packed layout is one stride set and
 (B, N, H, D) another; the launchers here pass views and never repack. The
@@ -573,8 +574,7 @@ def _launch_flash_bwd(q, k, v, key_bias, dout, lse, delta, q_scale,
     """Launch the backward kernel on (B, N, H, D) views: (dq, dk, dv),
     written into ``out`` (three views) when given, else into new (B, N, H,
     D) tensors. It serves K9, the window route's K5 and the packed K3; the
-    caller counts it. At D = 64 the kernel sums dq over its key tiles in a
-    zeroed f32 (B, H, N rounded up to 64, 64) scratch taken here."""
+    caller counts it. The scratch for dq is :func:`dq_scratch`'s."""
     _check_views(name, (q, k, v, dout), key_bias)
     _check_stats(name, q, lse, delta)
     if out is None:
@@ -582,8 +582,7 @@ def _launch_flash_bwd(q, k, v, key_bias, dout, lse, delta, q_scale,
                     for _ in range(3))
     _check_views(name, out, key_bias)
     B, N, H, D = q.shape
-    scratch = (torch.zeros((B, H, -(-N // 64) * 64, 64), dtype=torch.float32,
-                           device=q.device) if D == 64 else None)
+    scratch = dq_scratch(B, N, H, D, q.device)
     fn = _lib_bwd()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -595,6 +594,37 @@ def _launch_flash_bwd(q, k, v, key_bias, dout, lse, delta, q_scale,
                  stream)
     _raise_if_failed(err, name, "backward", q)
     return out
+
+
+# keys per CTA of the D = 16 one-pass backward (``kBlockKeys`` in
+# csrc/flash_attention_packed_bwd.cu, ``fa_backward_d16_block_keys()``) and
+# the largest N that its one-warp-per-(row, head) kernel takes
+D16_BWD_KEYS = 256
+D16_SMALL_N = 64
+
+
+def d16_key_blocks(N):
+    """Key blocks of the D = 16 backward at N: CTAs along the keys, each
+    summing its share of dq; 1 up to 256 keys (and in the one-warp kernel
+    at N <= 64), where dq is written directly."""
+    return -(-N // D16_BWD_KEYS) if N > D16_SMALL_N else 1
+
+
+def dq_scratch(B, N, H, D, device):
+    """The backward kernel's f32 scratch for dq, or None. At D = 64 the
+    one-pass kernel sums dq over its key tiles by atomics into a zeroed
+    (B, H, N rounded up to 64, 64) tensor; at D = 16, with two or more key
+    blocks, each block writes its partial into (B, H, blocks, N, 16), which
+    a second kernel adds up in block order: no zero fill, and no atomics, so
+    dq is the same bits on every launch."""
+    if D == 64:
+        return torch.zeros((B, H, -(-N // 64) * 64, 64), dtype=torch.float32,
+                           device=device)
+    blocks = d16_key_blocks(N)
+    if blocks == 1:
+        return None
+    return torch.empty((B, H, blocks, N, 16), dtype=torch.float32,
+                       device=device)
 
 
 def _scale(q_scale):
