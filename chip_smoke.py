@@ -80,11 +80,14 @@ order (any failure raises, exit code ≠ 0):
     config (22 PTv3 blocks at batch 4), by the checker of 3; then the k-NN kernel K7
     is bit-identical to its plain version (distances
     and indices) on both calls of a parity batch at full size (B = 4,
-    Q = R = 34,816; knn5 k = 5, nearest k = 1), a ragged case (k = 8) and
-    a case with fewer than k valid refs (slots (1e30, 0)); at full size
-    K7 (median of 20 after 3), the plain version (5 after 1) and
-    ``torch.cdist(q, r).topk(k, largest=False)`` (5 after 1, TF32 off)
-    are timed, beside the bound;
+    Q = R = 34,816; knn5 k = 5, nearest k = 1), on the same two calls with
+    every point on a 0.5 m lattice and half of each sample's points
+    repeated in its other half (exact ties, within and across the
+    kernel's segments), a ragged case (k = 8) and a case with fewer than k
+    valid refs (slots (1e30, 0)); at full size K7 (median of 20 after 3),
+    the plain version (5 after 1) and ``torch.cdist(q, r).topk(k,
+    largest=False)`` (5 after 1, TF32 off) are timed, beside the bound and
+    the issue floor (:func:`knn_issue_floor`);
 14. ``main_infer``, ``main_test`` and ``main_sample`` run the parity
     config through their own entry points on a temporary copy (its
     checkpoint directory in a temporary directory, never the committed
@@ -93,7 +96,9 @@ order (any failure raises, exit code ≠ 0):
     kernel, finite metrics, the chart and the 3D view written;
 15. one parity batch timed end to end with CUDA events and its peak
     memory; K1 and K7 inside it as K1 in 4: device time and exactly 22 and
-    2 launches per batch from the profiler, and on the inputs that batch
+    2 launches per batch from the profiler (K7: its pack, scan and, where
+    the call's plan cuts a unit of queries, merge kernels, exactly as many
+    as ``knn.plan`` gives), and on the inputs that batch
     gave them the plain versions' time and the kernels' error (K1 within
     0.05, K7 bit for bit), for K7 also cdist + topk's time and the bound;
 16. (in 3) the (B, N, H, D) kernels against their plain versions: K8
@@ -147,9 +152,10 @@ time per parity batch, step 15, ``vitl`` per ViT-L batch, step 17, and
 ``rope`` the RoPE branch per call at the ViT-S and ViT-L shapes, step 3,
 with the launches of step 21); K2–K5's per train step (step 9; launches
 from the one-epoch run of step 8); K7's per parity batch (step 15;
-launches from step 14's main_infer run); K6's per window-48 batch (step
-20), K8's per ViT-L encode (step 18) and K9's per ViT-L backward (step
-19), with the bound and SDPA's time summed over that run's own calls.
+launches from step 14's main_infer run); K6's
+per window-48 batch (step 20), K8's per ViT-L encode (step 18) and K9's
+per ViT-L backward (step 19), with the bound and SDPA's time summed over
+that run's own calls.
 Every ``ms`` is device time from the profiler.
 Needs the repository checkout around it; JAX is never imported.
 """
@@ -232,6 +238,8 @@ K1_KERNELS = r"fap_fwd_(d16|kernel_d64|kernel_rope_k)"
 D16_LSE_KERNELS = r"fap_fwd_d16_\w+<(\d+, ?)?true>"
 D16_BWD_KERNELS = r"fap_bwd_d16_"
 DELETED_D16 = re.compile(r"fap_fwd_kernel<|fap_bwd_(dkdv|dq)_kernel")
+# K7's device kernels: the refs packed, the scan, the merge of the segments
+K7_KERNELS = r"knn_(pack|kernel|merge)"
 # hold each D = 16 row of check_flash_shape to those kernels' names and
 # counts (time_attention.py turns it off to time an older checkout)
 D16_NAMES = True
@@ -427,19 +435,22 @@ def k1_spec(launches, rope=0):
                 launches=launches, device_kernels=launches + rope)
 
 
-def k7_spec():
+def k7_spec(calls):
     """K7 inside a parity batch: bit-identical to its plain version, timed
-    beside cdist + topk and its bound."""
+    beside cdist + topk and its bound. ``calls``: the (B, Q, R, k) of the
+    batch's K7 calls, whose plans give the device kernels a batch runs:
+    two a call, three where the call cuts a unit of queries."""
     from tpu3dssf_torch.kernels import knn
 
     def error(got, want):
         d, mismatches = knn_mismatch(got, want)
         return d if mismatches == 0 else float("inf")
 
-    return dict(pattern="knn_kernel", module=knn, attr="knn", plain=knn_plain,
+    return dict(pattern=K7_KERNELS, module=knn, attr="knn", plain=knn_plain,
                 error=error, ok=lambda err: err == 0.0,
                 launches=PARITY_LAUNCHES["K7"], library=cdist_topk,
-                bound=knn_bound)
+                bound=knn_bound, device_kernels=sum(
+                    2 + (knn.plan(*call)[1] > 1) for call in calls))
 
 
 def no_deleted_kernels(kernels):
@@ -1010,11 +1021,38 @@ def knn_bound(queries, refs, ref_mask, k):
     """Bound of one k-NN call: 8 f32 operations for each squared distance
     and one compare, for every query against every valid ref (this run's
     data); bytes: queries, refs and mask read once, (B, Q, k) distances
-    and indices written once."""
+    and indices written once.
+
+    The card's 67 TFLOP/s of f32 counts a fused multiply-add as two
+    operations, which these cannot reach: see :func:`knn_issue_floor`."""
     B, Q, _ = queries.shape
     R = refs.shape[1]
     pairs = Q * int(ref_mask.sum())
     return bound(0, 9 * pairs, B * Q * 12 + B * R * 13 + B * Q * k * 8)
+
+
+# instructions a (query, ref) pair needs at least in a kernel bit-identical
+# to the plain version: the distance's 8 f32 operations, of which only the
+# doubling and the subtraction fuse into one multiply-add with the same
+# bits (csrc/knn.cu, Semantics), and the compare
+KNN_PAIR_INSTRUCTIONS = 8
+# lane instructions the card issues a second: 4 schedulers an SM, one warp
+# instruction a clock each (132 SMs x 128 lanes x 1.98 GHz = 33.5e12),
+# half of F32_FLOPS, which counts a multiply-add as two operations
+ISSUE_RATE = F32_FLOPS / 2
+
+
+def knn_issue_floor(queries, refs, ref_mask):
+    """Least ms of one k-NN call at instruction issue (phase 13's
+    ``issue_floor_ms`` beside ``bound_ms``): the rounding of the plain
+    version forbids fusing the rest of the distance's operations, so each
+    is an instruction of its own, :data:`KNN_PAIR_INSTRUCTIONS` a pair for
+    every query against every valid ref (this run's data), at
+    :data:`ISSUE_RATE`. At the parity shapes 8/9 of twice
+    :func:`knn_bound`; the kernel's loads, selects, branches and inserts
+    come on top."""
+    pairs = queries.shape[1] * int(ref_mask.sum())
+    return KNN_PAIR_INSTRUCTIONS * pairs / ISSUE_RATE * 1e3
 
 
 def knn_plain(queries, refs, ref_mask, k):
@@ -1077,8 +1115,20 @@ def check_knn(card):
     rm = (torch.rand(3, 2501, generator=gen) > 0.2).cuda()
     fm = torch.zeros(2, 40, dtype=torch.bool)
     fm[1, [3, 17, 29]] = True       # sample 0: no valid ref at all
+    # the parity batch on a 0.5 m lattice (every product and sum exact, so
+    # distances tie exactly), the first half of each sample's points
+    # repeated in its second half
+    half = pts.shape[1] // 2
+    lpts = torch.round(pts * 2) / 2
+    lpts[:, half:2 * half] = lpts[:, :half]
+    lmask = pmask.clone()
+    lmask[:, half:2 * half] = pmask[:, :half]
+    lcents = torch.round(cents * 2) / 2
     cases = [("knn5 (centroids -> points)", cents, pts, pmask, 5),
              ("nearest (points -> centroids)", pts, cents, vmask, 1),
+             ("knn5 on a lattice, points repeated", lcents, lpts, lmask, 5),
+             ("nearest on a lattice, points repeated", lpts, lcents, vmask,
+              1),
              ("ragged Q=1000 R=2501", rq, rr, rm, 8),
              ("fewer than k valid refs", rq[:2, :300], rr[:2, :40],
               fm.cuda(), 5)]
@@ -1088,7 +1138,7 @@ def check_knn(card):
         torch.cuda.synchronize()
         want = knn_plain(q, r, m, k)
         d_err, i_err = knn_mismatch(got, want)
-        full = k in (1, 5) and q.shape[1] > 30000
+        full = k in (1, 5) and q.shape[1] > 30000 and "lattice" not in name
         row = dict(case=name, B=q.shape[0], Q=q.shape[1], R=r.shape[1], k=k,
                    max_abs_err=d_err, index_mismatches=i_err)
         if full:
@@ -1098,6 +1148,7 @@ def check_knn(card):
             row["cdist_topk_ms"] = cuda_ms(cdist_topk(q, r, m, k), reps=5,
                                            warmup=1)
             row["bound_ms"], row["bound_by"] = knn_bound(q, r, m, k)
+            row["issue_floor_ms"] = knn_issue_floor(q, r, m)
             torch.cuda.empty_cache()
         if name.startswith("fewer"):   # slots left over: (1e30, 0)
             unfilled = (got[0][0], got[1][0], got[0][1, :, 3:],
@@ -1206,8 +1257,12 @@ def time_parity_batch(card, tmp):
           f"{points / frame_ms * 1e3:,.0f} points/s; peak allocated "
           f"{peak / 2**30:.3f} GiB [{card}]")
 
+    B, P = batch["points"].shape[:2]
+    w = cfg.tpu.window_size
+    V = -(-cfg.tpu.voxel_capacity // w) * w
     inside, total = time_kernels_in_path(
-        frame, {"K1": k1_spec(PARITY_LAUNCHES["K1"]), "K7": k7_spec()})
+        frame, {"K1": k1_spec(PARITY_LAUNCHES["K1"]),
+                "K7": k7_spec([(B, V, P, 5), (B, P, V, 1)])})
     return inside, dict(frame_ms=frame_ms, points=points,
                         points_per_s=points / frame_ms * 1e3,
                         peak_bytes=peak, device_kernel_ms=total)

@@ -330,8 +330,15 @@ def _knn_inputs(cuda, B, Q, R, masked=0.2, seed=0):
     return q.to(cuda), r.to(cuda), m.to(cuda)
 
 
+# besides, shapes off K7's blocks, at every k: a unit of 512 queries (1024
+# at k = 1) and a tile of 512 refs; the plan cuts the work into as many
+# runs as the card holds blocks, so these give units of one segment and
+# of several (merged)
 @pytest.mark.parametrize("B,Q,R,k", [(2, 77, 200, 1), (3, 1000, 2501, 5),
-                                     (1, 4097, 1031, 8), (2, 257, 64, 5)])
+                                     (1, 4097, 1031, 8), (2, 257, 64, 5)] + [
+    (B, Q, R, k) for B, Q, R in ((2, 1500, 5000), (1, 4097, 1031),
+                                 (3, 700, 513), (4, 9000, 20000))
+    for k in range(1, 9)])
 def test_knn_kernel_is_bit_identical_to_its_plain_version(cuda, B, Q, R, k):
     from tpu3dssf_torch.voxel.voxelize import topk_neighbors_reference
 
@@ -384,6 +391,103 @@ def test_parity_modes_launch_the_knn_kernel(cuda):
     torch.cuda.synchronize()
     assert knn.LAUNCHES == before + 2
     assert torch.isfinite(vox.voxel_raw).all() and vals.grad.abs().sum() > 0
+
+
+KNN_K = list(range(1, 9))
+
+
+def _knn_same(got, q, r, m, k):
+    from tpu3dssf_torch.voxel.voxelize import topk_neighbors_reference
+    want = topk_neighbors_reference(q, r, m, k)
+    assert got[0].shape == got[1].shape == (q.shape[0], q.shape[1], k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("k", KNN_K)
+def test_knn_kernel_with_a_mask_per_sample(cuda, k):
+    """B = 3: 10% and 60% of the refs masked, and a sample with none."""
+    q, r, m = _knn_inputs(cuda, 3, 2100, 3000)
+    gen = torch.Generator().manual_seed(1)
+    m[0] = (torch.rand(3000, generator=gen) > 0.1).to(cuda)
+    m[1] = False
+    m[2] = (torch.rand(3000, generator=gen) > 0.6).to(cuda)
+    d, i = knn.knn(q, r, m, k)
+    _knn_same((d, i), q, r, m, k)
+    assert (d[1] == knn.BAD_DIST).all() and (i[1] == 0).all()
+
+
+@pytest.mark.parametrize("k", KNN_K)
+def test_knn_kernel_on_a_lattice_with_repeated_points(cuda, k):
+    """Integer points (exact ties everywhere), the first 4000 refs repeated
+    at 8000; enough work that units are cut into merged segments."""
+    gen = torch.Generator().manual_seed(2)
+    q = torch.randint(0, 12, (2, 20000, 3), generator=gen).float()
+    r = torch.randint(0, 12, (2, 12000, 3), generator=gen).float()
+    r[:, 8000:] = r[:, :4000]
+    m = torch.rand(2, 12000, generator=gen) > 0.2
+    q, r, m = q.to(cuda), r.to(cuda), m.to(cuda)
+    assert knn.plan(2, 20000, 12000, k)[1] > 1
+    _knn_same(knn.knn(q, r, m, k), q, r, m, k)
+
+
+@pytest.mark.parametrize("k", [1, 5, 8])
+def test_knn_kernel_at_1e4_metre_coordinates(cuda, k):
+    """|q|² near 3e8, where an f32 ulp (32) dwarfs the neighbour gaps, so
+    many distances round to the same value."""
+    q, r, m = _knn_inputs(cuda, 2, 3000, 6000)
+    q, r = q + 1e4, r + 1e4
+    _knn_same(knn.knn(q, r, m, k), q, r, m, k)
+
+
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_knn_kernel_keeps_the_literal_order_where_2qr_overflows(cuda, k):
+    """Query 0 and refs 0-2 at about 9e18 m: fl(2 q.r) is inf, so the plain
+    version's distances are -inf there, and the kernel must take its
+    literal sequence (a multiply-add would give finite ones)."""
+    q, r, m = _knn_inputs(cuda, 2, 600, 3000)
+    r[:, 0], r[:, 1], r[:, 2] = 9.0e18, 9.1e18, 9.2e18
+    q[:, 0] = 9.05e18
+    m[:, :3] = True
+    d, i = knn.knn(q, r, m, k)
+    _knn_same((d, i), q, r, m, k)
+    assert (d[:, 0] == float("-inf")).all()
+
+
+@pytest.mark.parametrize("B,Q,R,k", [
+    (4, 34816, 34816, 5), (4, 34816, 34816, 1), (3, 1000, 2501, 8),
+    (2, 20000, 12000, 3), (1, 77, 200, 5), (65, 600, 9000, 1)])
+def test_knn_plan_is_the_split_of_the_cpu_mirror(cuda, B, Q, R, k):
+    """The kernel's plan cuts the work as tests/knn_split.py's `segments`
+    does (the CPU tests hold that mirror to the plain version): the same
+    most segments a unit, and partial lists of that many segments."""
+    from knn_split import segments  # tests/knn_split.py
+    blocks, maxseg, part, _ = knn.plan(B, Q, R, k)
+    unit = 128 * (8 if k == 1 else 4)
+    units, tiles = B * -(-Q // unit), -(-R // 512)
+    assert 1 <= blocks <= units * tiles
+    assert maxseg == max(len(s) for s in segments(units, tiles, blocks))
+    assert part == (units * maxseg * unit * k if maxseg > 1 else 0)
+
+
+def test_knn_counts_one_launch_and_its_device_kernels(cuda):
+    """One LAUNCHES a call; two device kernels (pack, scan) where each unit
+    is one segment (here: one ref tile), three (and the merge) where the
+    plan cuts units."""
+    from tpu3dssf_torch.utils import profile_kernels
+    for B, Q, R, k in ((2, 77, 200, 5), (4, 9000, 20000, 5),
+                       (4, 9000, 20000, 1)):
+        q, r, m = _knn_inputs(cuda, B, Q, R)
+        before = knn.LAUNCHES
+        knn.knn(q, r, m, k)
+        assert knn.LAUNCHES == before + 1
+        merged = knn.plan(B, Q, R, k)[1] > 1
+        assert merged == (R > 512)
+        _, kernels, _ = profile_kernels(lambda: knn.knn(q, r, m, k), reps=2)
+        names = {name for name in kernels if "knn_" in name}
+        assert len(names) == 2 + merged, names
+        assert all(kernels[n][1] == 1 for n in names)
+        assert any("knn_pack" in n for n in names)
+        assert any("knn_merge" in n for n in names) == merged
 
 
 # The D = 64 kernels (wgmma, TMA, a K/V ring; the backward in one pass with
