@@ -12,8 +12,13 @@ parity path (``main_infer``, ``main_test``, ``main_sample``) over
 → linear head → nearest devoxelize, bf16, batch 4); then the fusion frame
 with the ViT-L/16 encoder on both of its attention routes, that encoder's
 gradient, and ``configs/synthetic_convergence_lidar.yaml`` at window 48,
-where every PTv3 block takes the (W, K, H, D) window route. It checks, in
-order (any failure raises, exit code ≠ 0):
+where every PTv3 block takes the (W, K, H, D) window route; then each of
+those paths eager against its CUDA graphs, and the train step with PTv3's
+remat flags. On the card the CLIs replay their encode, eval and train
+steps as CUDA graphs (``tpu3dssf_torch.train.graph``, one capture per step
+and batch shape), so every CLI run below also checks that each of its step
+calls was a capture or a replay. It checks, in order (any failure raises,
+exit code ≠ 0):
 
 1. a CUDA device is present; prints the card's name and power limit, and
    its maximum SM clock, which sets the exp's rate in the bounds;
@@ -137,9 +142,35 @@ order (any failure raises, exit code ≠ 0):
 21. the gradient of 19 on the K1 route, through the training rule of K1's
     RoPE branch (its forward with LSE, then K9 on the rotated q and k):
     exactly 24 K1 and 24 K9 launches and no other kernel, per-parameter
-    cosine ≥ 0.98 against the plain versions on the card.
+    cosine ≥ 0.98 against the plain versions on the card;
+22. the fusion, ViT-L fusion, parity and window-48 batches as the CLIs
+    run them (encode + eval step), eager against graphed: peak allocated
+    memory of each (the graphed one over the first call and the capture),
+    CUDA-event medians of 10 frames in the order eager, graphed, graphed,
+    eager with their spread (max/min), the profiler's device time of a
+    frame of each; exact launches per eager frame and per replay (34 K1,
+    46 K1, 22 K1 + 2 K7, 22 K6); the graphed logits, loss and confusion
+    matrix against 5 eager runs: bit-identical where the eager runs are,
+    else within 2× their largest difference (``GRAPH_DIFF_FACTOR``); on
+    the fusion path a batch of one scene captures a second graph of each
+    step, with the same launches per replay;
+23. the fusion train step (encode + step) likewise: A/B, peak memory,
+    exact launches per replay (K1 12, K2 14, K3 14, K4 8, K5 8); then 3
+    graphed steps and twice 3 eager steps from one saved state (restored
+    in place, so the graphs stay valid): the largest parameter difference
+    within 2× the eager runs', the same update and schedule counts, and the
+    learning rate on the card equal to the schedule's after every step;
+24. the graphed fusion train step with ``remat: true`` and with
+    ``remat_attention: true`` (config copies) beside the step without,
+    each alone on the card: peak allocated memory (the remat ones below the
+    step's without), exact launches per replay (the recompute runs K2 and
+    K4 again: 28 and 16, K3 14, K5 8), the clipped gradients from one
+    state within 2× the difference of two eager steps from it, and the
+    replay's time and device time.
 
-The last two lines are a JSON record of the kernels and the device line.
+``graphs`` and ``remat`` print phases 22–24's records (times in ms,
+memory in bytes). The last two lines are a JSON record of the kernels and
+the device line.
 Every kernel record has ``launches`` (from its path's run), ``max_abs_err``
 (the largest error of its checks), ``ms`` (device time inside the path),
 ``plain_ms``, ``bound_ms`` and ``bound_by`` (the least time the card could
@@ -205,6 +236,17 @@ WINDOW, WINDOW_CAPACITY, WINDOW_LAUNCHES = 48, 726 * 48, 22
 # mis-rescaled key tile would pass them, and far above the gradients that
 # reach K9 in the ViT-L backward; one bf16 ulp is at most 2**-7 of a value
 REL_TOL = 0.02
+# phases 22-24 (CUDA graphs, remat): CUDA-event frames per A/B leg, eager
+# runs of an eval frame, steps from one saved state; a graphed output or
+# parameter may differ from the eager one by at most GRAPH_DIFF_FACTOR x the
+# largest difference between eager runs (by none where they agree bit for
+# bit): the two differences are samples of the same run-to-run noise
+GRAPH_REPS, GRAPH_EAGER_RUNS, GRAPH_TRAIN_STEPS = 10, 5, 3
+GRAPH_DIFF_FACTOR = 2.0
+# per remat train step from given tokens: the recompute runs every block's
+# attention forward again with a gradient pending (K2 at C >= 128, K4 at
+# C in {32, 64}); the backward kernels run once
+REMAT_LAUNCHES = {"K2": 28, "K3": 14, "K4": 16, "K5": 8}
 # K8 route vs K1 route patch tokens, max abs error over max |token|: the K1
 # route rotates q·(1/8) and k inside its kernel, the K8 route rotates them
 # outside in plain torch and scales q in its kernel; both round once, the
@@ -363,13 +405,15 @@ def run_slice(card):
     from tpu3dssf_torch.train.loop import make_eval_step
     from tpu3dssf_torch.utils import cuda_ms
 
+    cfg = common.load_config(CONFIG)
+    n_batches = len(common.build_dataloaders(cfg)["test"])
     reset_counters()
-    metrics = main_infer.main(["--config", CONFIG, "--split", "test"])
+    metrics = check_graphed_cli(
+        "slice main_infer", lambda: main_infer.main(
+            ["--config", CONFIG, "--split", "test"]), 2 * n_batches)
     launches = fa.LAUNCHES
     if counters()["K7"]:
         raise AssertionError("the fusion config's modes launched K7")
-    cfg = common.load_config(CONFIG)
-    n_batches = len(common.build_dataloaders(cfg)["test"])
     print(f"slice: {launches} kernel launches over {n_batches} batches")
     if launches != LAUNCHES_PER_BATCH * n_batches:
         raise AssertionError(f"kernel launched {launches} times, expected "
@@ -378,9 +422,10 @@ def run_slice(card):
         if not np.isfinite(v).all():
             raise AssertionError(f"metric {k} is not finite: {v}")
 
-    # one batch end to end on the card: preprocess + ViT + pipeline + loss
+    # one batch end to end on the card: preprocess + ViT + pipeline + loss,
+    # eager (phase 22 times it graphed)
     device = torch.device("cuda")
-    encode, vit_cfg = common.build_image_encoder(cfg, device)
+    encode, vit_cfg = common.build_image_encoder(cfg, device, graph=False)
     model, _ = common.build_pipeline(cfg, vit_cfg, device)
     step = make_eval_step(common.build_loss(cfg), cfg.mlp_class)
     batches = iter(common.build_dataloaders(cfg)["test"])
@@ -691,23 +736,16 @@ def grad_error(got, ref):
 
 
 def counters():
-    from tpu3dssf_torch.kernels.modules import flash_attention as fa
-    from tpu3dssf_torch.kernels.modules import window_attention as wa
-    from tpu3dssf_torch.kernels.modules import knn
-    return {"K1": fa.LAUNCHES, "K2": fa.LSE_LAUNCHES, "K3": fa.BWD_LAUNCHES,
-            "K4": wa.LSE_LAUNCHES, "K5": wa.BWD_LAUNCHES, "K6": wa.LAUNCHES,
-            "K7": knn.LAUNCHES, "K8": fa.FLASH_LAUNCHES,
-            "K9": fa.FLASH_BWD_LAUNCHES}
+    """{"K1": launches, ..., "K9": launches}: the package's one list of
+    launch counters (``kernels.modules.COUNTERS``), which the CUDA-graph
+    wrapper keeps too."""
+    from tpu3dssf_torch.kernels.modules import launch_counts
+    return launch_counts()
 
 
 def reset_counters():
-    from tpu3dssf_torch.kernels.modules import flash_attention as fa
-    from tpu3dssf_torch.kernels.modules import knn
-    from tpu3dssf_torch.kernels.modules import window_attention as wa
-    fa.LAUNCHES = fa.LSE_LAUNCHES = fa.BWD_LAUNCHES = 0
-    fa.FLASH_LAUNCHES = fa.FLASH_BWD_LAUNCHES = 0
-    wa.LAUNCHES = wa.LSE_LAUNCHES = wa.BWD_LAUNCHES = 0
-    knn.LAUNCHES = 0
+    from tpu3dssf_torch.kernels.modules import COUNTERS, set_launch_counts
+    set_launch_counts({k: 0 for k in COUNTERS})
 
 
 def run_training(tmp):
@@ -744,7 +782,11 @@ def run_training(tmp):
     try:
         reset_counters()
         t0 = time.perf_counter()
-        state, tr_hist, val_hist = main_train.main(["--config", path])
+        # an encode and a train step per train batch, an encode and an
+        # eval step per val batch
+        state, tr_hist, val_hist = check_graphed_cli(
+            "main_train", lambda: main_train.main(["--config", path]),
+            2 * (steps + val_batches))
         seconds = time.perf_counter() - t0
         launches = counters()
     finally:
@@ -842,7 +884,7 @@ def time_train_step(card):
 
     cfg = common.load_config(CONFIG)
     device = torch.device("cuda")
-    encode, vit_cfg = common.build_image_encoder(cfg, device)
+    encode, vit_cfg = common.build_image_encoder(cfg, device, graph=False)
     model, _ = common.build_pipeline(cfg, vit_cfg, device)
     state = common.init_state(cfg, model, steps_per_epoch=24)
     step = make_train_step(common.build_loss(cfg))
@@ -960,7 +1002,7 @@ def overfit_one_batch():
 
     cfg = common.load_config(CONFIG)
     device = torch.device("cuda")
-    encode, vit_cfg = common.build_image_encoder(cfg, device)
+    encode, vit_cfg = common.build_image_encoder(cfg, device, graph=False)
     model, _ = common.build_pipeline(cfg, vit_cfg, device)
     state = common.init_state(cfg, model, steps_per_epoch=24)
     step = make_train_step(common.build_loss(cfg))
@@ -1200,7 +1242,11 @@ def run_parity_clis(tmp):
             ("main_sample", main_sample, [], 1)):
         reset_counters()
         t0 = time.perf_counter()
-        metrics = cli.main(["--config", path] + argv)
+        # main_infer and main_test graph their eval step; main_sample runs
+        # its one batch eagerly
+        metrics = check_graphed_cli(
+            f"parity {name}", lambda: cli.main(["--config", path] + argv),
+            0 if name == "main_sample" else n)
         seconds = time.perf_counter() - t0
         launches = counters()
         want = {k: PARITY_LAUNCHES.get(k, 0) * n for k in launches}
@@ -1705,7 +1751,6 @@ def all_masked_cases():
              ("K1", None, None), 0, 0.25),
             ("all_masked_n1024_c128", 4, 1024, 8, 16, "none",
              "packed_train", (None, "K2", "K3"), 0, 0.25)]
-    return cases
 
 
 def rope_cases():
@@ -1802,7 +1847,9 @@ def run_vitl_frame(card, tmp):
     n = len(common.build_dataloaders(cfg)["test"])
     reset_counters()
     t0 = time.perf_counter()
-    metrics = main_infer.main(["--config", path, "--split", "test"])
+    metrics = check_graphed_cli(
+        "ViT-L main_infer", lambda: main_infer.main(
+            ["--config", path, "--split", "test"]), 2 * n)
     seconds = time.perf_counter() - t0
     launches = counters()
     want = {k: VITL_LAUNCHES * n if k == "K1" else 0 for k in launches}
@@ -1996,7 +2043,9 @@ def run_window_path(card, tmp):
     n = len(common.build_dataloaders(cfg)["test"])
     reset_counters()
     t0 = time.perf_counter()
-    metrics = main_infer.main(["--config", path, "--split", "test"])
+    metrics = check_graphed_cli(
+        "window-48 main_infer", lambda: main_infer.main(
+            ["--config", path, "--split", "test"]), n)
     seconds = time.perf_counter() - t0
     launches = counters()
     want = {k: WINDOW_LAUNCHES * n if k == "K6" else 0 for k in launches}
@@ -2049,6 +2098,465 @@ def run_window_path(card, tmp):
         frame_ms=frame_ms, points=points, points_per_s=points / frame_ms * 1e3,
         peak_bytes=peak, device_kernel_ms=total, batches=n,
         main_infer_s=seconds, train_step_loss=loss), step_launches
+
+
+def event_times(fn, reps=GRAPH_REPS, warmup=2):
+    """CUDA-event ms of each of ``reps`` calls of ``fn`` after ``warmup``
+    untimed ones, each call followed by a synchronisation."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return times
+
+
+def frame_counts(frame):
+    """Kernel launches of one call of ``frame``, the counts set to 0 just
+    before it and read just after (kernels with no launch left out)."""
+    import torch
+    reset_counters()
+    frame()
+    torch.cuda.synchronize()
+    return {k: v for k, v in counters().items() if v}
+
+
+def graph_steps(run):
+    """(captures, replays) of :mod:`tpu3dssf_torch.train.graph` made by
+    ``run()``; returns them with its result."""
+    from tpu3dssf_torch.train import graph
+    before = graph.CAPTURES, graph.REPLAYS
+    out = run()
+    return out, graph.CAPTURES - before[0], graph.REPLAYS - before[1]
+
+
+def check_graphed_cli(name, run, steps):
+    """A CLI run on the card must take every one of its ``steps`` step
+    calls through a graph: the first of each shape captures, the rest
+    replay. Returns the CLI's result."""
+    out, captures, replays = graph_steps(run)
+    print(f"{name}: {captures} CUDA graphs captured, {replays} replays "
+          f"({steps} step calls)", flush=True)
+    if captures + replays != steps or bool(replays) != bool(steps):
+        raise AssertionError(f"{name}: {captures} captures + {replays} "
+                             f"replays for {steps} step calls")
+    return out
+
+
+def logits_step(loss_fn, num_classes):
+    """An eval step that also returns the logits: the model, the loss and
+    the confusion matrix, as ``make_eval_step`` computes them."""
+    import torch
+    from tpu3dssf_torch.metrics import confusion_matrix
+
+    @torch.inference_mode()
+    def step(model, batch, tokens):
+        logits = model(batch["points"], batch["point_valid"], tokens,
+                       batch["cam_intrinsics"], batch["lidar2cam"])
+        out = loss_fn(logits, batch["labels"], batch["mask"])
+        return {"logits": logits, "loss": out.total,
+                "confusion": confusion_matrix(out.predictions,
+                                              batch["labels"], num_classes,
+                                              out.valid)}
+    return step
+
+
+def max_diff(a, b):
+    """Largest |a − b| over two lists of tensors, in f64."""
+    return max(((x.double() - y.double()).abs().max().item()
+                for x, y in zip(a, b)), default=0.0)
+
+
+def within_eager(graph_diff, eager_diff):
+    """The rule of phases 22–24: bit-identical where the eager runs are,
+    else within GRAPH_DIFF_FACTOR × their largest difference."""
+    if eager_diff == 0.0:
+        return graph_diff == 0.0
+    return graph_diff <= GRAPH_DIFF_FACTOR * eager_diff
+
+
+def eval_path(name, cfg, device):
+    """One inference path of phase 22, as the CLIs run it: the eager and
+    the graphed frame (encode + eval step) and their pieces."""
+    from tpu3dssf_torch.cli import common
+    from tpu3dssf_torch.train.graph import graphed
+    from tpu3dssf_torch.train.loop import make_eval_step
+
+    encode, vit_cfg = common.build_image_encoder(cfg, device, graph=False)
+    model, _ = common.build_pipeline(cfg, vit_cfg, device)
+    loss_fn = common.build_loss(cfg)
+    step = make_eval_step(loss_fn, cfg.mlp_class)
+    batch, images, points = first_batch(cfg, "test", device)
+    zeros = common.zero_tokens(cfg, vit_cfg, batch["points"].shape[0],
+                               device)
+    g_encode = graphed(encode, "encode") if encode is not None else None
+    g_step = graphed(step, "eval_step")
+
+    def tokens(enc, b=batch, imgs=images):
+        return zeros[:b["points"].shape[0]] if enc is None else enc(imgs)
+
+    return dict(
+        name=name, points=points, model=model, batch=batch, images=images,
+        encode=encode, g_encode=g_encode, g_step=g_step, loss_fn=loss_fn,
+        cfg=cfg, tokens=tokens,
+        eager=lambda: step(model, batch, tokens(encode)),
+        graphed=lambda: g_step(model, batch, tokens(g_encode)))
+
+
+def ab_time(name, eager, graphed, points, card):
+    """A/B of one path (phase 22, 23): its peak allocated memory eager
+    (two frames) and graphed (the first call of each step and its capture,
+    then a replay); then eager, graphed, graphed, eager, each the
+    CUDA-event median of GRAPH_REPS frames with their spread (max/min);
+    then the profiler's device time of a frame of each. Returns the row."""
+    import statistics
+    import torch
+    from tpu3dssf_torch.utils import profile_kernels
+
+    peaks = {}
+    for tag, fn in (("eager", eager), ("graphed", graphed)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        fn()
+        torch.cuda.synchronize()
+        peaks[tag] = torch.cuda.max_memory_allocated()
+    runs = {}
+    for tag, fn in (("eager", eager), ("graphed", graphed),
+                    ("graphed_2", graphed), ("eager_2", eager)):
+        times = event_times(fn)
+        runs[tag] = dict(ms=statistics.median(times),
+                         spread=max(times) / min(times))
+    device = {}
+    for tag, fn in (("eager", eager), ("graphed", graphed)):
+        _, kernels, _ = profile_kernels(fn, reps=3)
+        device[tag] = dict(
+            ms=sum(us for us, _ in kernels.values()) / 1e3,
+            kernels=sum(c for _, c in kernels.values()))
+    row = dict(path=name, points=points, runs=runs, device=device,
+               peak_eager_bytes=peaks["eager"],
+               peak_graphed_bytes=peaks["graphed"],
+               reserved_bytes=torch.cuda.memory_reserved(), card=card)
+    print(f"graphs A/B {name}: " + ", ".join(
+        f"{tag} {r['ms']:.3f} ms (spread {r['spread']:.3f})"
+        for tag, r in runs.items()) + "; device time per frame " + ", ".join(
+        f"{tag} {d['ms']:.3f} ms in {d['kernels']:g} kernels"
+        for tag, d in device.items()) + "; peak allocated eager "
+        f"{peaks['eager'] / 2**30:.3f} GiB, graphed "
+        f"{peaks['graphed'] / 2**30:.3f} GiB [{card}]", flush=True)
+    return row
+
+
+def check_graphed_counts(name, eager, graphed, want):
+    """The launches of one eager frame and of one graphed replay are both
+    exactly ``want``, and the graphed frame captures nothing."""
+    from tpu3dssf_torch.train import graph
+
+    counts = frame_counts(eager)
+    replay, captures, replays = graph_steps(lambda: frame_counts(graphed))
+    print(f"graphs {name}: launches per eager frame {counts}, per replay "
+          f"{replay} ({replays} replays; expected {want})", flush=True)
+    if counts != want or replay != want or captures or not replays:
+        raise AssertionError(f"{name}: launches eager {counts}, replay "
+                             f"{replay} ({captures} captures), expected "
+                             f"{want}")
+    return replay
+
+
+def check_graphed_outputs(path):
+    """Phase 22: the graphed eval frame's logits, loss and confusion matrix
+    against the eager frame's (GRAPH_EAGER_RUNS eager runs, 3 graphed, each
+    held against the first eager run): per output, bit-identical where the
+    eager runs are, else within GRAPH_DIFF_FACTOR × their largest
+    difference. Returns {output: [graphed vs eager, eager vs eager]}."""
+    from tpu3dssf_torch.train.graph import graphed
+
+    step = logits_step(path["loss_fn"], path["cfg"].mlp_class)
+    g_step = graphed(step, "logits_step")
+    model, batch, tokens = path["model"], path["batch"], path["tokens"]
+    eager = [step(model, batch, tokens(path["encode"]))
+             for _ in range(GRAPH_EAGER_RUNS)]
+    graphs = [g_step(model, batch, tokens(path["g_encode"]))
+              for _ in range(4)][1:]      # the first call runs eagerly
+    out = {k: [max(max_diff([x[k]], [eager[0][k]]) for x in graphs),
+               max(max_diff([x[k]], [eager[0][k]]) for x in eager[1:])]
+           for k in eager[0]}
+    print(f"graphs {path['name']}: max abs difference [graphed vs eager, "
+          f"eager vs eager] {json.dumps(out)}", flush=True)
+    bad = {k: v for k, v in out.items() if not within_eager(*v)}
+    if bad:
+        raise AssertionError(f"{path['name']}: graphed outputs off the "
+                             f"eager ones: {bad}")
+    return out
+
+
+def check_second_shape(path, want):
+    """A batch of one scene through the fusion path's graphed steps: each
+    of the two steps captures a second graph, whose replay makes the same
+    launches."""
+    one = {k: v[:1] for k, v in path["batch"].items()}
+    images = path["images"][:1]
+
+    def frame():
+        return path["g_step"](path["model"], one,
+                              path["tokens"](path["g_encode"], one, images))
+
+    _, captures, _ = graph_steps(frame)
+    counts = frame_counts(frame)
+    graphs = [len(path["g_encode"].graphs), len(path["g_step"].graphs)]
+    print(f"graphs fusion: a batch of 1 captured {captures} more graphs "
+          f"(encode and eval step now hold {graphs}); launches per replay "
+          f"{counts}", flush=True)
+    if captures != 2 or graphs != [2, 2] or counts != want:
+        raise AssertionError(f"second batch size: {captures} captures, "
+                             f"{graphs} graphs, launches {counts}")
+    return dict(graphs=graphs, launches=counts)
+
+
+def run_graph_paths(card, tmp):
+    """Phase 22: the four inference paths as the CLIs run them, eager
+    against graphed (A/B times, device time, peak memory), exact launches
+    per replay, and the graphed outputs against the eager ones; on the
+    fusion path a second batch size captures second graphs. Returns
+    {path: row}."""
+    import torch
+    from tpu3dssf_torch.cli import common
+
+    device = torch.device("cuda")
+    specs = (
+        ("fusion", CONFIG, {}, {}, {"K1": LAUNCHES_PER_BATCH}),
+        ("vitl", CONFIG, dict(image_encoder="dinov3_large"), {},
+         {"K1": VITL_LAUNCHES}),
+        ("parity", PARITY_CONFIG, {}, {}, dict(PARITY_LAUNCHES)),
+        ("window48", LIDAR_CONFIG, {}, dict(
+            window_size=WINDOW, voxel_capacity=WINDOW_CAPACITY),
+         {"K6": WINDOW_LAUNCHES}))
+    rows = {}
+    for name, src, train, tpu, want in specs:
+        cfg = common.load_config(config_copy(src, tmp, f"{name}_g.yaml",
+                                             train=train, tpu=tpu)[0])
+        path = eval_path(name, cfg, device)
+        row = ab_time(name, path["eager"], path["graphed"], path["points"],
+                      card)
+        row["launches"] = check_graphed_counts(name, path["eager"],
+                                               path["graphed"], want)
+        row["outputs"] = check_graphed_outputs(path)
+        if name == "fusion":
+            row["second_shape"] = check_second_shape(path, want)
+        rows[name] = row
+        del path
+        torch.cuda.empty_cache()
+    return rows
+
+
+def snapshot(state, device="cpu"):
+    """The train state's parameters, optimizer state, learning rates,
+    schedule and update count, copied to ``device``."""
+    import copy
+    opt = state.optimizer
+    params = list(state.model.parameters())
+    return dict(
+        params=[p.detach().to(device, copy=True) for p in params],
+        inner=[{k: v.to(device, copy=True)
+                for k, v in opt.inner.state[p].items()} for p in params],
+        lr=[g["lr"].to(device, copy=True) for g in opt.inner.param_groups],
+        scheduler=copy.deepcopy(opt.scheduler.state_dict()),
+        step=state.step)
+
+
+def restore_in_place(state, snap):
+    """Copy ``snap`` into the state's own tensors, so the graphs captured
+    over the state stay valid (``TrainState.load_state_dict`` replaces the
+    optimizer's tensors, and drops them)."""
+    import torch
+    opt = state.optimizer
+    with torch.no_grad():
+        for p, v, st in zip(state.model.parameters(), snap["params"],
+                            snap["inner"]):
+            p.copy_(v)
+            for k, x in st.items():
+                opt.inner.state[p][k].copy_(x)
+        for g, lr in zip(opt.inner.param_groups, snap["lr"]):
+            g["lr"].copy_(lr)
+    opt.scheduler.load_state_dict(snap["scheduler"])
+    state.step = snap["step"]
+
+
+def fusion_state(cfg, vit_cfg, device):
+    """A fusion train state of ``cfg`` on ``device`` at the seeded init
+    (the model of ``common.build_pipeline``, phase 9's schedule length)
+    and its eager and graphed train steps: (state, step, graphed step)."""
+    from tpu3dssf_torch.cli import common
+    from tpu3dssf_torch.train.graph import eager_reason, graph_train_step
+    from tpu3dssf_torch.train.loop import make_train_step
+
+    model, _ = common.build_pipeline(cfg, vit_cfg, device)
+    state = common.init_state(cfg, model, steps_per_epoch=24)
+    step = make_train_step(common.build_loss(cfg))
+    return state, step, graph_train_step(step, eager_reason(cfg))
+
+
+def lr_error(state):
+    """|the learning rate on the card − the schedule's, rounded to f32| at
+    the state's schedule count (0.0 where the graphed updates read the
+    rate the schedule filled)."""
+    import torch
+    opt = state.optimizer
+    want = torch.tensor(opt.scheduler.base_lrs[0] * opt.scheduler.lr_lambdas[
+        0](opt.scheduler.last_epoch), dtype=torch.float32)
+    return abs(float(opt.inner.param_groups[0]["lr"]) - float(want))
+
+
+def run_graph_train(card):
+    """Phase 23: the fusion train step as ``main_train`` runs it, eager
+    against graphed: A/B (encode + step) and exact launches per replay;
+    then from one saved state (the first graphed call's), 3 graphed steps
+    against 3 eager steps twice (the state restored in place between): the
+    largest parameter difference within GRAPH_DIFF_FACTOR × the eager runs'
+    (0 where theirs is 0), the update count and schedule alike, the learning
+    rate on the card equal to the schedule's after every step. Returns the
+    row and the step's tokens, batch and encoder config for phase 24."""
+    import torch
+    from tpu3dssf_torch.cli import common
+    from tpu3dssf_torch.train.graph import graphed
+
+    cfg = common.load_config(CONFIG)
+    device = torch.device("cuda")
+    encode, vit_cfg = common.build_image_encoder(cfg, device, graph=False)
+    g_encode = graphed(encode, "encode")
+    state, step, g_step = fusion_state(cfg, vit_cfg, device)
+    batch, images, points = first_batch(cfg, "train", device)
+
+    def eager():
+        return step(state, batch, encode(images))
+
+    def graphed_frame():
+        return g_step(state, batch, g_encode(images))
+
+    row = ab_time("train_step", eager, graphed_frame, points, card)
+    row["launches"] = check_graphed_counts(
+        "train_step", eager, graphed_frame, TRAIN_LAUNCHES)
+
+    tokens = encode(images)
+    snap = snapshot(state)
+    runs, lr_err = {}, 0.0
+    for tag, fn in (("graphed", g_step), ("eager", step),
+                    ("eager_2", step)):
+        restore_in_place(state, snap)
+        for _ in range(GRAPH_TRAIN_STEPS):
+            fn(state, batch, tokens)
+            lr_err = max(lr_err, lr_error(state))
+        torch.cuda.synchronize()
+        runs[tag] = ([p.detach().clone() for p in state.model.parameters()],
+                     state.step, state.optimizer.scheduler.last_epoch)
+    params = {k: v[0] for k, v in runs.items()}
+    diff = [max_diff(params["graphed"], params["eager"]),
+            max_diff(params["eager_2"], params["eager"])]
+    counts = {k: v[1:] for k, v in runs.items()}
+    row.update(params_diff=diff, lr_err=lr_err, steps=counts)
+    print(f"graphs train step: {GRAPH_TRAIN_STEPS} steps from one state, "
+          f"largest parameter difference [graphed vs eager, eager vs "
+          f"eager] {diff}; (update count, schedule count) {counts}; "
+          f"learning rate vs the schedule, largest error {lr_err}",
+          flush=True)
+    if (not within_eager(*diff) or lr_err != 0.0
+            or len(set(counts.values())) != 1):
+        raise AssertionError(f"graphed train steps: parameters {diff}, "
+                             f"counts {counts}, lr error {lr_err}")
+    del state, step, g_step, encode, g_encode, runs, params, snap
+    torch.cuda.empty_cache()
+    return row, (tokens, batch, vit_cfg)
+
+
+def run_remat(card, tokens, batch, vit_cfg):
+    """Phase 24: the graphed fusion train step with PTv3 ``remat`` and with
+    ``remat_attention`` (each on a config copy) beside the step without
+    either, each alone on the card: peak allocated memory over the first
+    call and the capture; from one state (the step's without remat after
+    its first call, copied in place into each), one replay's exact
+    launches (the recompute runs K2 and K4 again: REMAT_LAUNCHES) and
+    clipped gradients, held against the step without remat within
+    GRAPH_DIFF_FACTOR × the difference of two eager steps from that state
+    (0 where that is 0); the replay's time and device time. The remat peaks
+    must be below the step's without. Returns {variant: row}."""
+    import gc
+    import statistics
+    import torch
+    from tpu3dssf_torch.cli import common
+    from tpu3dssf_torch.utils import profile_kernels
+
+    device = torch.device("cuda")
+    rows, snap, ref, eager_diff = {}, None, None, None
+    tmp = tempfile.mkdtemp(prefix="tpu3dssf_smoke_")
+    try:
+        for variant in ("none", "remat", "remat_attention"):
+            tpu = {} if variant == "none" else {variant: True}
+            cfg = common.load_config(config_copy(
+                CONFIG, tmp, f"{variant}.yaml", tpu=tpu)[0])
+            gc.collect()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            state, step, g_step = fusion_state(cfg, vit_cfg, device)
+            torch.cuda.reset_peak_memory_stats()
+            g_step(state, batch, tokens)    # the first call and its capture
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            if snap is None:
+                snap = snapshot(state)
+            restore_in_place(state, snap)
+            launches = frame_counts(lambda: g_step(state, batch, tokens))
+            grads = [p.grad.detach().float().cpu()
+                     for p in state.model.parameters()]
+            row = dict(peak_bytes=peak, above_inputs_bytes=peak - base,
+                       launches=launches)
+            if ref is None:
+                ref, eager = grads, []
+                for _ in range(2):
+                    restore_in_place(state, snap)
+                    step(state, batch, tokens)
+                    eager.append([p.grad.detach().float().cpu()
+                                  for p in state.model.parameters()])
+                eager_diff = max_diff(eager[1], eager[0])
+                row["grad_diff"] = [max_diff(grads, eager[0]), eager_diff]
+            else:
+                row["grad_diff"] = [max_diff(grads, ref), eager_diff]
+            times = event_times(lambda: g_step(state, batch, tokens),
+                                reps=5, warmup=1)
+            _, kernels, _ = profile_kernels(
+                lambda: g_step(state, batch, tokens), reps=3)
+            row.update(ms=statistics.median(times),
+                       spread=max(times) / min(times),
+                       device_ms=sum(us for us, _ in kernels.values()) / 1e3)
+            rows[variant] = row
+            print(f"remat {variant}: peak allocated {peak / 2**30:.3f} GiB "
+                  f"({(peak - base) / 2**30:.3f} above the inputs), launches "
+                  f"per replay {launches}, gradient max abs difference "
+                  f"[vs the step without remat, eager vs eager] "
+                  f"{row['grad_diff']}; replay {row['ms']:.3f} ms (spread "
+                  f"{row['spread']:.3f}), device {row['device_ms']:.3f} ms "
+                  f"[{card}]", flush=True)
+            want = (REMAT_LAUNCHES if variant != "none" else
+                    {k: v for k, v in TRAIN_LAUNCHES.items() if k != "K1"})
+            if launches != want or not within_eager(*row["grad_diff"]):
+                raise AssertionError(f"remat {variant}: launches {launches} "
+                                     f"(expected {want}), gradients "
+                                     f"{row['grad_diff']}")
+            del state, step, g_step, grads
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for variant in ("remat", "remat_attention"):
+        if not rows[variant]["peak_bytes"] < rows["none"]["peak_bytes"]:
+            raise AssertionError(f"{variant}: peak {rows[variant]} not below "
+                                 f"the step's without remat {rows['none']}")
+    return rows
 
 
 def per_path(rows, key, count):
@@ -2162,8 +2670,14 @@ def main():
         torch.cuda.empty_cache()
         k6_launches, k6, window_frame, step_launches = run_window_path(card,
                                                                        tmp)
+        # phase 22: the four inference paths eager against graphed
+        graph_rows = run_graph_paths(card, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    # phases 23 and 24: the train step graphed, then with remat
+    graph_rows["train_step"], train_inputs = run_graph_train(card)
+    remat = run_remat(card, *train_inputs)
+    del train_inputs
 
     records = [{
         "name": KERNELS["K1"][0], "route": "cuda",
@@ -2231,6 +2745,9 @@ def main():
                         + (" backward" if k in ("K3", "K5") else
                            " (gradient pending)")),
             "per": f"train step ({steps} steps in the run)",
+            # per graphed train step with PTv3's remat flags (phase 24)
+            "remat_launches": {v: remat[v]["launches"].get(k, 0)
+                               for v in ("remat", "remat_attention")},
         }
         if k in ("K4", "K5"):
             # the (W, K, H, D) route: launches per window-48 train step, and
@@ -2289,6 +2806,8 @@ def main():
     print("window48_batch " + json.dumps(dict(window_frame, card=card)))
     print("train_step " + json.dumps(dict(step, card=card)))
     print("parity_batch " + json.dumps(dict(parity_frame, card=card)))
+    print("graphs " + json.dumps(graph_rows))
+    print("remat " + json.dumps(dict(remat, card=card)))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (attention K1–K6, K8, K9, k-NN K7), a train step
-and the timers on the card (marked ``cuda``).
+"""The port's CUDA kernels (attention K1–K6, K8, K9, k-NN K7), a train step,
+the CUDA graphs of the steps and the timers on the card (marked ``cuda``).
 
 These tests need an NVIDIA GPU and nvcc; without a card each skips with
 its reason. Run them on the card without the JAX test configuration:
@@ -165,14 +165,17 @@ def test_training_rules_launch_their_kernels(cuda):
         fa.flash_attention_packed(z, bias, 2, 0.125).sum().backward()
 
 
-def test_small_model_train_step_on_the_card(cuda):
+def _small_model(cuda, batch_size=2, seed=6, **opt):
+    """A small bf16 fusion pipeline (PTv3 at C = 32 and 128, window 128:
+    K2–K5 in training) with seeded weights, its AdamW state (``opt`` to
+    ``create_optimizer``), loss and one batch with random tokens:
+    (state, loss_fn, batch, tokens)."""
     from tpu3dssf_torch.cli.common import (HostDataPipeline,
                                            SyntheticNuScenes, batch_to_device)
     from tpu3dssf_torch.losses import CELSLoss
     from tpu3dssf_torch.models import fusion, ptv3
     from tpu3dssf_torch.models.layers import init_weights
-    from tpu3dssf_torch.train import (TrainState, create_optimizer,
-                                      make_train_step)
+    from tpu3dssf_torch.train import TrainState, create_optimizer
 
     bf16 = torch.bfloat16
     cfg = fusion.PipelineConfig(
@@ -184,17 +187,26 @@ def test_small_model_train_step_on_the_card(cuda):
             enc_window=(128, 128), dec_depths=(1,), dec_channels=(32,),
             dec_heads=(2,), dec_window=(128,), dtype=bf16),
         voxel_size=0.4, voxel_capacity=1024)
-    data = SyntheticNuScenes(num_samples=2, num_points=3000,
+    data = SyntheticNuScenes(num_samples=batch_size, num_points=3000,
                              image_hw=(90, 160), seed=3)
-    host = next(iter(HostDataPipeline(data, batch_size=2,
+    host = next(iter(HostDataPipeline(data, batch_size=batch_size,
                                       point_capacity=3072)))
     host.pop("images")
     batch = batch_to_device(host, cuda)
-    tokens = torch.randn(2, 6, 60, 16, device=cuda).to(bf16)
-    model = init_weights(fusion.SegmentationPipeline(cfg), 6).to(cuda)
+    gen = torch.Generator().manual_seed(0)
+    tokens = torch.randn(batch_size, 6, 60, 16, generator=gen).to(cuda, bf16)
+    model = init_weights(fusion.SegmentationPipeline(cfg), seed).to(cuda)
     state = TrainState(model, create_optimizer(
-        model.parameters(), "AdamW", 1e-3, grad_clip=1.0))
-    step = make_train_step(CELSLoss(weight=[1.0] * 16))
+        model.parameters(), "AdamW", 1e-3, grad_clip=1.0,
+        **(opt or {})))
+    return state, CELSLoss(weight=[1.0] * 16), batch, tokens
+
+
+def test_small_model_train_step_on_the_card(cuda):
+    from tpu3dssf_torch.train import make_train_step
+
+    state, loss_fn, batch, tokens = _small_model(cuda)
+    step = make_train_step(loss_fn)
     before = (fa.LSE_LAUNCHES, fa.BWD_LAUNCHES, wa.LSE_LAUNCHES,
               wa.BWD_LAUNCHES)
     m = step(state, batch, tokens)
@@ -205,6 +217,173 @@ def test_small_model_train_step_on_the_card(cuda):
     assert torch.isfinite(m["loss"]).item()
     for p in state.model.parameters():
         assert torch.isfinite(p).all()
+
+
+def _max_diff(a, b):
+    return max((x.double() - y.double()).abs().max().item()
+               for x, y in zip(a, b))
+
+
+def _within_eager(graph_diff, eager_diff):
+    """Graphed vs eager: bit-identical where two eager runs are, else
+    within 2x their difference (chip_smoke.py's rule)."""
+    if eager_diff == 0.0:
+        return graph_diff == 0.0
+    return graph_diff <= 2.0 * eager_diff
+
+
+def _launches(fn):
+    from tpu3dssf_torch.kernels import modules
+    before = modules.launch_counts()
+    fn()
+    torch.cuda.synchronize()
+    return {k: v - before[k] for k, v in modules.launch_counts().items()
+            if v != before[k]}
+
+
+def test_graphed_eval_step_matches_eager(cuda):
+    from tpu3dssf_torch.train import graph, make_eval_step
+
+    state, loss_fn, batch, tokens = _small_model(cuda)
+    step = make_eval_step(loss_fn, 16)
+    g = graph.graphed(step)
+    eager = [step(state.model, batch, tokens) for _ in range(3)]
+    graphed = [g(state.model, batch, tokens) for _ in range(4)]
+    assert len(g.graphs) == 1
+    for k in eager[0]:
+        e = max(_max_diff([x[k]], [eager[0][k]]) for x in eager[1:])
+        d = max(_max_diff([x[k]], [eager[0][k]]) for x in graphed)
+        assert _within_eager(d, e), (k, d, e)
+    # fresh outputs: a later replay leaves an earlier result as it was
+    assert graphed[1]["confusion"].data_ptr() != \
+        graphed[2]["confusion"].data_ptr()
+
+
+def test_graphed_train_call_is_one_eager_call(cuda):
+    """The first graphed call is the eager step, and its capture updates
+    nothing: one graphed call gives one eager call's parameters, update
+    count and Adam step."""
+    from tpu3dssf_torch.train import graph, make_train_step
+
+    runs = []
+    for graphed in (True, False, False):
+        state, loss_fn, batch, tokens = _small_model(cuda)
+        step = make_train_step(loss_fn)
+        if graphed:
+            step = graph.graph_train_step(step)
+        step(state, batch, tokens)
+        torch.cuda.synchronize()
+        if graphed:
+            assert len(step.graphs) == 1
+        adam = {int(s["step"]) for s in state.optimizer.inner.state.values()}
+        runs.append(([p.detach().clone() for p in state.model.parameters()],
+                     state.step, adam))
+    (pg, ng, ag), (pe, ne, ae), (pe2, _, _) = runs
+    assert ng == ne == 1 and ag == ae == {1}
+    assert _within_eager(_max_diff(pg, pe), _max_diff(pe2, pe))
+
+
+def test_graph_replays_count_the_eager_launches(cuda):
+    """N replays add N times the eager step's launches to the counters
+    (the capture adds none)."""
+    from tpu3dssf_torch.train import graph, make_eval_step, make_train_step
+
+    state, loss_fn, batch, tokens = _small_model(cuda)
+    for step, g in ((make_eval_step(loss_fn, 16), None),
+                    (make_train_step(loss_fn), "train")):
+        graphed = (graph.graph_train_step(step) if g else
+                   graph.graphed(step))
+        args = (state if g else state.model, batch, tokens)
+        eager = _launches(lambda: step(*args))
+        assert eager and _launches(lambda: graphed(*args)) == eager
+        assert _launches(lambda: [graphed(*args) for _ in range(3)]) == \
+            {k: 3 * v for k, v in eager.items()}
+
+
+def test_a_new_shape_captures_a_second_graph(cuda):
+    from tpu3dssf_torch.train import graph, make_eval_step
+
+    state, loss_fn, batch, tokens = _small_model(cuda)
+    step = make_eval_step(loss_fn, 16)
+    g = graph.graphed(step)
+    g(state.model, batch, tokens)
+    one = {k: v[:1] for k, v in batch.items()}
+    eager = _launches(lambda: step(state.model, one, tokens[:1]))
+    g(state.model, one, tokens[:1])
+    assert len(g.graphs) == 2
+    captures = graph.CAPTURES
+    assert _launches(lambda: g(state.model, one, tokens[:1])) == eager
+    assert graph.CAPTURES == captures
+    want = step(state.model, one, tokens[:1])
+    got = g(state.model, one, tokens[:1])
+    assert int(got["valid"]) == int(want["valid"])
+
+
+def test_a_restore_drops_the_graphs_and_captures_anew(cuda):
+    from tpu3dssf_torch.train import graph, make_train_step
+
+    state, loss_fn, batch, tokens = _small_model(cuda)
+    g = graph.graph_train_step(make_train_step(loss_fn))
+    g(state, batch, tokens)
+    saved = state.state_dict()
+    g(state, batch, tokens)
+    assert len(g.graphs) == 1
+    state.load_state_dict(saved)
+    assert g.graphs == {} and state.step == 1
+    captures = graph.CAPTURES
+    m = g(state, batch, tokens)
+    assert graph.CAPTURES == captures + 1 and len(g.graphs) == 1
+    assert torch.isfinite(m["loss"]).item() and state.step == 2
+    lr = state.optimizer.inner.param_groups[0]["lr"]
+    assert isinstance(lr, torch.Tensor) and lr.device.type == "cuda"
+
+
+def test_graphs_share_a_pool_and_outlive_their_predecessors(cuda):
+    """Captures while a graph lives share its memory pool; once every graph
+    is gone (and the allocator still holds the pool's blocks), a new
+    capture takes a new pool, as a second main_train run in one process
+    does."""
+    from tpu3dssf_torch.train import graph, make_eval_step
+
+    state, loss_fn, batch, tokens = _small_model(cuda)
+    step = make_eval_step(loss_fn, 16)
+    a, b = graph.graphed(step), graph.graphed(step)
+    a(state.model, batch, tokens)
+    b(state.model, batch, tokens)
+    (ga,), (gb,) = a.graphs.values(), b.graphs.values()
+    assert ga.graph.pool() == gb.graph.pool()
+    del a, b, ga, gb
+    c = graph.graphed(step)
+    want = step(state.model, batch, tokens)
+    c(state.model, batch, tokens)
+    got = c(state.model, batch, tokens)
+    assert int(got["valid"]) == int(want["valid"])
+
+
+def test_the_tensor_lr_follows_the_schedule_across_replays(cuda):
+    """A cosine schedule over 6 updates: after every graphed step the rate
+    on the card is the schedule's, and 5 graphed steps give 5 eager steps'
+    parameters (a rate baked in at capture would not)."""
+    from tpu3dssf_torch.train import graph, make_train_step
+
+    kw = dict(lr_scheduler="CosineAnnealingLR", steps_per_epoch=6,
+              num_epochs=1)
+    runs = []
+    for graphed in (True, False, False):
+        state, loss_fn, batch, tokens = _small_model(cuda, **kw)
+        step = make_train_step(loss_fn)
+        if graphed:
+            step = graph.graph_train_step(step)
+        sched = state.optimizer.scheduler
+        for i in range(5):
+            step(state, batch, tokens)
+            want = torch.tensor(sched.base_lrs[0] * sched.lr_lambdas[0](
+                i + 1), dtype=torch.float32)
+            assert float(state.optimizer.inner.param_groups[0]["lr"]) == \
+                float(want)
+        runs.append([p.detach().clone() for p in state.model.parameters()])
+    assert _within_eager(_max_diff(runs[0], runs[1]),
+                         _max_diff(runs[2], runs[1]))
 
 
 def _bhnd_inputs(cuda, B, N, H, D, seed=0):

@@ -131,16 +131,20 @@ def build_vit(cfg: Config, device, seed: int = 0):
     return fold_layerscale(vit).to(device).eval(), vit_cfg
 
 
-def build_image_encoder(cfg: Config, device, seed: int = 0):
+def build_image_encoder(cfg: Config, device, seed: int = 0,
+                        graph: bool = True):
     """Frozen ViT (:func:`build_vit`) + encode fn on ``device``; returns
-    (encode_fn, vit_cfg), or (None, None) for the LiDAR-only path."""
+    (encode_fn, vit_cfg), or (None, None) for the LiDAR-only path. With
+    ``graph`` the encode fn is :func:`tpu3dssf_torch.train.graph.graphed`
+    (one CUDA graph replay per call on the card), else the eager one."""
+    from tpu3dssf_torch.train.graph import graphed
     from tpu3dssf_torch.train.loop import make_image_encode_fn
 
     if cfg.image_encoder == "none":
         return None, None
     vit, vit_cfg = build_vit(cfg, device, seed)
-    return make_image_encode_fn(vit, vit_cfg.image_size,
-                                vit_cfg.dtype), vit_cfg
+    encode = make_image_encode_fn(vit, vit_cfg.image_size, vit_cfg.dtype)
+    return (graphed(encode, "encode") if graph else encode), vit_cfg
 
 
 def build_pipeline(cfg: Config, vit_cfg=None, device="cpu", seed: int = 1):

@@ -5,7 +5,10 @@ latest checkpoint under ``test_params.checkpoint_path`` (else
 ``checkpoint_path``) with ``train.checkpoint.restore_checkpoint``, streams
 a split through the frozen ViT and the fusion pipeline and prints the
 metric block and the throughput line of the JAX CLI. Without a checkpoint
-it evaluates the seeded random init and says so.
+it evaluates the seeded random init and says so. On the card the encode
+and eval steps each replay one CUDA graph per batch shape
+(:mod:`tpu3dssf_torch.train.graph`); the first batch of a shape runs
+eagerly, then its graph is captured.
 
     python -m tpu3dssf_torch.cli.main_infer --config <yaml> [--split test]
 
@@ -41,6 +44,7 @@ def main(argv=None):
     from tpu3dssf_torch.cli import common
     from tpu3dssf_torch.metrics import format_metrics
     from tpu3dssf_torch.train.checkpoint import restore_checkpoint
+    from tpu3dssf_torch.train.graph import graphed
     from tpu3dssf_torch.train.loop import MetricAccumulator, make_eval_step
 
     cfg = common.load_config(args.config)
@@ -66,7 +70,7 @@ def main(argv=None):
         print(f"[warn] no checkpoint in {ckpt}; random init")
     model = state.model
     loss_fn = common.build_loss(cfg)
-    eval_step = make_eval_step(loss_fn, cfg.mlp_class)
+    eval_step = graphed(make_eval_step(loss_fn, cfg.mlp_class), "eval_step")
 
     acc = MetricAccumulator(cfg.mlp_class)
     total_points = 0

@@ -10,7 +10,8 @@ has camera images and PIL is installed, ``cam_{i}_prediction.png``.
 
 ``--device`` defaults to ``cuda``: without a CUDA device the CLI raises
 (it never drops to the CPU). ``--device cpu`` runs the plain versions of
-the kernels, for tests on a tiny config.
+the kernels, for tests on a tiny config. It runs its one batch eagerly: a
+CUDA graph pays for its capture only over many batches.
 """
 
 from __future__ import annotations
@@ -47,7 +48,8 @@ def main(argv=None):
     device = common.resolve_device(args.device)
 
     loaders = common.build_dataloaders(cfg)
-    encode_fn, vit_cfg = common.build_image_encoder(cfg, device)
+    encode_fn, vit_cfg = common.build_image_encoder(cfg, device,
+                                                    graph=False)
     model, _ = common.build_pipeline(cfg, vit_cfg, device)
     state = common.init_state(cfg, model)
 

@@ -6,7 +6,9 @@ Port of ``tpu3dssf.cli.main_test``: restores the latest checkpoint under
 ``train.checkpoint.restore_checkpoint``, evaluates the test split, prints
 the metric block and writes ``per_class_iou.png`` into that directory.
 Without a checkpoint it evaluates the seeded random init and says so;
-without matplotlib it skips the chart and says so.
+without matplotlib it skips the chart and says so. On the card the encode
+and eval steps replay one CUDA graph per batch shape
+(:mod:`tpu3dssf_torch.train.graph`).
 
 ``--device`` defaults to ``cuda``: without a CUDA device the CLI raises
 (it never drops to the CPU). ``--device cpu`` runs the plain versions of
@@ -33,6 +35,7 @@ def main(argv=None):
 
     from tpu3dssf_torch.cli import common
     from tpu3dssf_torch.train.checkpoint import restore_checkpoint
+    from tpu3dssf_torch.train.graph import graphed
     from tpu3dssf_torch.train.loop import evaluate_model, make_eval_step
     from tpu3dssf_torch.utils.viz import plot_iou_per_class
 
@@ -57,7 +60,8 @@ def main(argv=None):
 
     metrics = evaluate_model(
         state.model, loaders["test"],
-        make_eval_step(common.build_loss(cfg), cfg.mlp_class), encode_fn,
+        graphed(make_eval_step(common.build_loss(cfg), cfg.mlp_class),
+                "eval_step"), encode_fn,
         cfg.mlp_class, zero_tokens_fn=None if encode_fn else zero_tokens_fn)
 
     class_names = None

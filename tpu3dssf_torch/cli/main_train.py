@@ -16,7 +16,10 @@ defaults to ``cuda``: without a CUDA device the CLI raises (it never drops
 to the CPU). ``--device cpu`` runs the plain versions of the kernels, for
 tests on a tiny config. The model starts from seeded random weights; the
 frozen image encoder from a local DINO checkpoint where one exists
-(``common.build_vit``).
+(``common.build_vit``). On the card the encode, train and eval steps each
+replay one CUDA graph per batch shape (:mod:`tpu3dssf_torch.train.graph`),
+except a train step whose config makes a host decision inside the update
+(``graph.eager_reason``), which stays eager and says why.
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ def main(argv=None):
 
     from tpu3dssf_torch.cli import common
     from tpu3dssf_torch.train.checkpoint import restore_checkpoint
+    from tpu3dssf_torch.train.graph import eager_reason
     from tpu3dssf_torch.train.loop import train_model
 
     cfg = common.load_config(args.config)
@@ -120,6 +124,7 @@ def main(argv=None):
         best_acc=best_acc,
         dropout_seed=DROPOUT_SEED if cfg.drop_path > 0 else None,
         grad_accum=cfg.tpu.grad_accum,
+        eager_reason=eager_reason(cfg),
     )
     logger.finish()
     try:

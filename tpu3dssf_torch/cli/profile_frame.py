@@ -92,7 +92,8 @@ def main(argv=None):
     print(card)
     device = torch.device("cuda")
     cfg = common.load_config(args.config)
-    encode, vit_cfg = common.build_image_encoder(cfg, device)
+    # eager, stage by stage (chip_smoke.py phase 22 times the graphed batch)
+    encode, vit_cfg = common.build_image_encoder(cfg, device, graph=False)
     model, _ = common.build_pipeline(cfg, vit_cfg, device)
     loss_fn = common.build_loss(cfg)
     step = make_eval_step(loss_fn, cfg.mlp_class)

@@ -10,6 +10,8 @@ elementwise product cannot take a TF32 path on the card.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -56,6 +58,14 @@ def multi_camera_projector(points, cam_intrinsics, lidar2cam_extrinsics,
     return pixel_coords, depth, valid
 
 
+@functools.lru_cache(maxsize=None)
+def _scale(sx, sy, device):
+    """(sx, sy) as an f32 tensor on ``device``, made once (a step holds no
+    host-to-device copy, which a CUDA graph could not replay)."""
+    with torch.inference_mode(False):
+        return torch.tensor([sx, sy], dtype=torch.float32, device=device)
+
+
 def scale_pixel_coords(pixel_coords, origin_size, new_size):
     """Rescale (u, v) from ``origin_size`` to ``new_size`` (H, W): factors
     (W_new / W_orig, H_new / H_orig)."""
@@ -66,8 +76,7 @@ def scale_pixel_coords(pixel_coords, origin_size, new_size):
     if isinstance(origin_size, (tuple, list)):
         h_orig = max(float(origin_size[0]), 1e-6)
         w_orig = max(float(origin_size[1]), 1e-6)
-        scale = torch.tensor([w_new / w_orig, h_new / h_orig],
-                             dtype=torch.float32, device=pixel_coords.device)
+        scale = _scale(w_new / w_orig, h_new / h_orig, pixel_coords.device)
     else:
         hw = torch.as_tensor(origin_size, dtype=torch.float32)
         scale = torch.stack([w_new / hw[..., 1].clamp_min(1e-6),

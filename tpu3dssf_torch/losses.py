@@ -69,8 +69,19 @@ class CELSLoss:
                  lamda_lovasz: float = 1.0):
         self.weight = (None if weight is None
                        else torch.as_tensor(weight, dtype=torch.float32))
+        self._weights = {}   # device -> the weights there, copied once
         self.ignore_index = ignore_index
         self.lamda_lovasz = lamda_lovasz
+
+    def _weight_on(self, device):
+        """The class weights on ``device``, copied there once: a step holds
+        no host-to-device copy, which a CUDA graph could not replay."""
+        if self.weight is None:
+            return None
+        if device not in self._weights:
+            with torch.inference_mode(False):
+                self._weights[device] = self.weight.to(device)
+        return self._weights[device]
 
     def __call__(self, pred_scores, gt_labels,
                  mask: Optional[torch.Tensor] = None) -> LossOutput:
@@ -80,7 +91,8 @@ class CELSLoss:
         if mask is not None:
             valid = valid & mask
         labels0 = (labels - 1).clamp(0, C - 1)
-        ce = weighted_cross_entropy(pred_scores, labels0, valid, self.weight)
+        ce = weighted_cross_entropy(pred_scores, labels0, valid,
+                                    self._weight_on(pred_scores.device))
         probs = torch.softmax(pred_scores.float(), dim=-1)
         lov = lovasz_softmax(probs.reshape(-1, C), labels0.reshape(-1),
                              valid.reshape(-1))

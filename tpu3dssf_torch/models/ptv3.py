@@ -19,11 +19,20 @@ other stage takes :func:`tpu3dssf_torch.kernels.window_attention` on
 is kept for config compatibility and selects nothing: a CPU tensor takes
 the plain versions and a CUDA tensor the kernels. DropPath draws from an
 explicit ``torch.Generator`` passed to the forward (None, like JAX's
-``deterministic=True``, disables it). Not ported
-here: ``scan_blocks`` (a TPU compile workaround; the unrolled model
-computes the same function), ``remat`` and ``remat_attention`` (they
-raise), and ``_pool_structure``, the pooling by a fresh sort that
-``PointTransformerV3`` never takes.
+``deterministic=True``, disables it).
+
+``remat`` and ``remat_attention`` are JAX's ``nn.remat(PTv3Block)`` and
+``nn.remat(SerializedAttention)``: ``torch.utils.checkpoint`` (non-
+reentrant) around each block, or around each block's attention branch, so
+the backward recomputes their activations instead of keeping them. A block
+draws its DropPath masks before the checkpointed region and passes them
+in, since a recompute cannot replay an explicit generator: remat changes
+no bit of the forward or the gradients. The recompute runs with a gradient
+pending, so it launches the training forward kernel (K2 or K4) once more
+per block it recomputes. Under no gradient (eval) nothing is
+checkpointed. Not ported here: ``scan_blocks`` (a TPU compile workaround;
+the unrolled model computes the same function) and ``_pool_structure``,
+the pooling by a fresh sort that ``PointTransformerV3`` never takes.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from tpu3dssf_torch.kernels.flash_attention import (flash_attention_packed,
                                                     pick_head_group)
@@ -54,8 +64,7 @@ from tpu3dssf_torch.serialization import (
 class PTv3Config:
     """Mirrors ``tpu3dssf.models.ptv3.PTv3Config`` (same defaults) minus
     the TPU-compile field ``scan_blocks``. ``use_pallas`` is kept for
-    config compatibility and selects nothing; ``remat`` and
-    ``remat_attention`` must stay False (not ported yet)."""
+    config compatibility and selects nothing."""
 
     in_channels: int = 4
     orders: Tuple[str, ...] = SERIALIZATION_ORDERS
@@ -292,20 +301,29 @@ class DropPath(nn.Module):
     ``generator``; kept samples are scaled by 1/keep. With rate 0 or no
     generator it is the identity (JAX's ``deterministic=True``). The masks
     are drawn on the generator's device and moved to ``x``'s.
+    :meth:`draw` and :meth:`apply` are the two halves of the forward, for a
+    caller that draws before a checkpointed region.
     """
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x, generator=None):
+    def draw(self, n, device, generator=None):
+        """The (n,) keep mask on ``device``, or None for the identity."""
         if self.rate == 0.0 or generator is None:
+            return None
+        u = torch.rand((n,), generator=generator, device=generator.device)
+        return (u < 1.0 - self.rate).to(device)
+
+    def apply(self, x, keep_mask):
+        if keep_mask is None:
             return x
-        keep = 1.0 - self.rate
-        u = torch.rand((x.shape[0],), generator=generator,
-                       device=generator.device)
-        mask = (u < keep).to(x.device).reshape((-1,) + (1,) * (x.dim() - 1))
-        return torch.where(mask, x / keep, 0.0)
+        mask = keep_mask.reshape((-1,) + (1,) * (x.dim() - 1))
+        return torch.where(mask, x / (1.0 - self.rate), 0.0)
+
+    def forward(self, x, generator=None):
+        return self.apply(x, self.draw(x.shape[0], x.device, generator))
 
 
 class PTv3Block(nn.Module):
@@ -314,11 +332,14 @@ class PTv3Block(nn.Module):
     The residual stream is in the CPE curve's sorted space; ``perm``/``inv``
     are the attention order's RELATIVE permutations, None when the block
     attends along the CPE order itself. ``generator`` drives DropPath.
+    ``remat`` checkpoints the whole block, ``remat_attention`` its
+    attention branch (see the module docstring).
     """
 
     def __init__(self, channels, heads, window, mlp_ratio, drop_path=0.0,
-                 dtype=torch.float32):
+                 dtype=torch.float32, remat=False, remat_attention=False):
         super().__init__()
+        self.remat, self.remat_attention = remat, remat_attention
         hidden = int(channels * mlp_ratio)
         self.cpe = SerializedCPE(channels, dtype)
         self.norm1 = LayerNorm(channels, dtype=dtype)
@@ -330,12 +351,29 @@ class PTv3Block(nn.Module):
         self.dp2 = DropPath(drop_path)
 
     def forward(self, x, perm, inv, mask, generator=None):
+        # both masks drawn here, in the order the branches use them
+        keep = [dp.draw(x.shape[0], x.device, generator)
+                for dp in (self.dp1, self.dp2)]
+        return _remat(self.remat, self._body, x, perm, inv, mask, *keep)
+
+    def _body(self, x, perm, inv, mask, keep1, keep2):
         x = self.cpe(x, None, None, mask)
-        h = self.attn(self.norm1(x), perm, inv, mask)
-        x = x + self.dp1(h, generator)
+        h = _remat(self.remat_attention, self.attn, self.norm1(x), perm, inv,
+                   mask)
+        x = x + self.dp1.apply(h, keep1)
         h = F.gelu(self.mlp_in(self.norm2(x)), approximate="tanh")
-        x = x + self.dp2(self.mlp_out(h), generator)
+        x = x + self.dp2.apply(self.mlp_out(h), keep2)
         return x * mask[..., None]
+
+
+def _remat(on, fn, *args):
+    """``fn(*args)``, checkpointed (non-reentrant) when ``on`` and a
+    gradient is pending. Nothing inside draws random numbers, so no RNG
+    state is stashed."""
+    if on and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
 
 
 class SerializedPooling(nn.Module):
@@ -400,12 +438,8 @@ class PointTransformerV3(nn.Module):
 
     def __init__(self, config: PTv3Config):
         super().__init__()
-        if config.remat or config.remat_attention:
-            raise NotImplementedError(
-                "PTv3 remat / remat_attention are not ported yet "
-                "(ROADMAP.md §1, H100 port: DropPath masks must be drawn "
-                "outside the checkpointed region first)")
         cfg = self.config = config
+        remat = dict(remat=cfg.remat, remat_attention=cfg.remat_attention)
         dt = cfg.dtype
         self.embed = Dense(cfg.in_channels, cfg.enc_channels[0], dt)
         self.embed_norm = LayerNorm(cfg.enc_channels[0], dtype=dt)
@@ -418,7 +452,8 @@ class PointTransformerV3(nn.Module):
             for b in range(cfg.enc_depths[s]):
                 self.add_module(f"enc{s}_blk{b}", PTv3Block(
                     cfg.enc_channels[s], cfg.enc_heads[s],
-                    cfg.enc_window[s], cfg.mlp_ratio, cfg.drop_path, dt))
+                    cfg.enc_window[s], cfg.mlp_ratio, cfg.drop_path, dt,
+                    **remat))
         for d in reversed(range(cfg.num_stages - 1)):
             coarse = (cfg.enc_channels[-1] if d == cfg.num_stages - 2
                       else cfg.dec_channels[d + 1])
@@ -427,7 +462,8 @@ class PointTransformerV3(nn.Module):
             for b in range(cfg.dec_depths[d]):
                 self.add_module(f"dec{d}_blk{b}", PTv3Block(
                     cfg.dec_channels[d], cfg.dec_heads[d],
-                    cfg.dec_window[d], cfg.mlp_ratio, cfg.drop_path, dt))
+                    cfg.dec_window[d], cfg.mlp_ratio, cfg.drop_path, dt,
+                    **remat))
 
     def _run_blocks(self, x, perms, msk, depth, name, generator):
         orders = self.config.orders

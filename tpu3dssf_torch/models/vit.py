@@ -33,6 +33,7 @@ CLI config's ``vit_looped`` is accepted and has no effect).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -292,6 +293,18 @@ def _resize_matrix(n_in: int, n_out: int) -> np.ndarray:
     return np.where(inside[None, :], weights, f32(0.0)).T.astype(f32)
 
 
+@functools.lru_cache(maxsize=None)
+def _device_constants(H, W, Ho, Wo, mm, device):
+    """The two resize matrices (in ``mm`` and back to f32) and the ImageNet
+    mean and std on ``device``, made once: a step holds no host-to-device
+    copy, which a CUDA graph could not replay."""
+    with torch.inference_mode(False):
+        wh, ww = (torch.from_numpy(_resize_matrix(n, m)).to(device).to(mm)
+                  .float() for n, m in ((H, Ho), (W, Wo)))
+        return (wh, ww, torch.tensor(IMAGENET_MEAN, device=device),
+                torch.tensor(IMAGENET_STD, device=device))
+
+
 def preprocess_images(images, target_hw, dtype=torch.float32):
     """Resize + ImageNet-normalise a batch of images.
 
@@ -313,11 +326,8 @@ def preprocess_images(images, target_hw, dtype=torch.float32):
     def rounded(t):
         return t.to(mm).float()
 
-    wh = rounded(torch.from_numpy(_resize_matrix(H, Ho)).to(x.device))
-    ww = rounded(torch.from_numpy(_resize_matrix(W, Wo)).to(x.device))
+    wh, ww, mean, std = _device_constants(H, W, Ho, Wo, mm, x.device)
     y = torch.einsum("oh,bhwc->bowc", wh, rounded(x.reshape((-1, H, W, 3))))
     y = torch.einsum("pw,bowc->bopc", ww, rounded(y))
-    mean = torch.tensor(IMAGENET_MEAN, device=x.device)
-    std = torch.tensor(IMAGENET_STD, device=x.device)
     y = (y - mean) / std
     return y.reshape(lead + (Ho, Wo, 3)).to(dtype)

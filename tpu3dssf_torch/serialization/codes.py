@@ -107,7 +107,10 @@ def serialization_keys(grid_coords, order):
     """Sort keys (hi, lo) int32 for one order of SERIALIZATION_ORDERS, lo
     with bit 31 flipped (signed lexicographic = unsigned code order)."""
     if order.endswith("-trans"):
-        grid_coords = grid_coords[..., [1, 0, 2]]
+        # x and y swapped by slices: an index list would be a host tensor
+        # copied to the device on every call
+        grid_coords = torch.cat([grid_coords[..., 1:2], grid_coords[..., :1],
+                                 grid_coords[..., 2:]], dim=-1)
         order = order[: -len("-trans")]
     if order == "z":
         code = _interleave3(*_to_grid_uint(grid_coords))

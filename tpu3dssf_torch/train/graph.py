@@ -1,0 +1,227 @@
+"""CUDA graphs of the port's steps: the counterpart of ``jax.jit``.
+
+The JAX package compiles its image encode, train step and eval step to one
+program each (``jax.jit`` in ``tpu3dssf/train/loop.py``). The port runs the
+same steps eagerly, one kernel launch from Python at a time, which leaves
+the card waiting on the host. :func:`graphed` wraps a step so that on a
+CUDA device each call replays one CUDA graph: one launch for the step.
+
+A step is ``step(*args) -> outputs``, ``args`` and ``outputs`` pytrees
+whose leaves are tensors or objects the step reads through (a model, a
+train state). Per key of the arguments' tree structure, their tensors'
+shapes, dtypes and devices, and their other leaves, by equality (a module
+or a train state is equal only to itself), as JAX's jit caches a program
+per shape and static argument:
+
+1. the first call runs the eager step on a side stream. That call is the
+   step: its result is returned, and an optimizer update it makes counts;
+2. then the step is captured into a CUDA graph over static copies of the
+   arguments. Capture executes nothing, so no parameter or optimizer state
+   moves (there are no warm-up steps, which would update the weights). The
+   graphs of a device share one memory pool, that of a live graph (a new
+   one once none lives): they replay one at a time on one stream, their
+   inputs live outside the pool and their outputs are cloned right after
+   each replay;
+3. every later call copies its arguments into the static copies, replays
+   the graph and returns clones of its outputs: callers keep outputs across
+   calls, and a replay overwrites the static ones.
+
+``after(*args)``, where given, runs on the host after every call:
+the host half of a step, which a graph cannot replay (a train step's
+schedule count and update count).
+
+The kernels' launch counters (:data:`tpu3dssf_torch.kernels.modules.
+COUNTERS`) are Python integers, which a capture raises though nothing runs
+then. The wrapper puts them back after a capture and adds the capture's
+counts on every replay, so they go on counting the kernel launches made in
+this process. :data:`CAPTURES` and :data:`REPLAYS` count the graphs
+captured and replayed in this process, so a caller can tell that a path
+ran through graphs.
+
+On CPU tensors the wrapper calls the eager step: there are no graphs. A
+capture that fails raises; nothing falls back to the eager step. A restore
+that replaces state a graph reads (``TrainState.load_state_dict``) drops the
+graphs over that state with :func:`drop_graphs`; the next call captures
+anew.
+"""
+
+from __future__ import annotations
+
+import time
+import weakref
+from typing import Callable, Optional
+
+import torch
+from torch.utils import _pytree as pytree
+
+from tpu3dssf_torch.kernels import modules as kernel_modules
+
+# graphs captured and replayed in this process
+CAPTURES = 0
+REPLAYS = 0
+_LIVE = weakref.WeakSet()   # every GraphedStep, for drop_graphs
+_STREAMS: dict = {}         # device index -> the side stream
+
+
+def _pool(device):
+    """The memory pool of a live graph on ``device``, which the next
+    capture shares, or None (a new pool) where no graph lives there. A pool
+    is taken only from a live graph: once its last graph is gone, the
+    allocator releases it."""
+    for step in list(_LIVE):
+        for g in step.graphs.values():
+            if g.device == device:
+                return g.graph.pool()
+    return None
+
+
+def _side_stream(device):
+    if device.index not in _STREAMS:
+        _STREAMS[device.index] = torch.cuda.Stream(device)
+    return _STREAMS[device.index]
+
+
+def _leaf_key(x):
+    if isinstance(x, torch.Tensor):
+        return (tuple(x.shape), x.dtype, x.device)
+    return x
+
+
+class _Graph:
+    """One captured step: the graph, its static inputs and outputs, and the
+    kernel launches it makes per replay."""
+
+    def __init__(self, graph, device, inputs, outputs, out_spec, launches):
+        self.graph, self.device = graph, device
+        self.inputs, self.outputs, self.out_spec = inputs, outputs, out_spec
+        self.launches = launches
+
+    def replay(self, leaves):
+        global REPLAYS
+        for dst, src in zip(self.inputs, leaves):
+            if isinstance(dst, torch.Tensor):
+                dst.copy_(src)
+        self.graph.replay()
+        REPLAYS += 1
+        counts = kernel_modules.launch_counts()
+        kernel_modules.set_launch_counts(
+            {k: counts[k] + n for k, n in self.launches.items() if n})
+        return pytree.tree_unflatten(
+            [x.clone() if isinstance(x, torch.Tensor) else x
+             for x in self.outputs], self.out_spec)
+
+
+class GraphedStep:
+    """``step`` replayed as one CUDA graph per input key (see the module
+    docstring); ``graphs`` maps each key to its capture."""
+
+    def __init__(self, step: Callable, name: Optional[str] = None,
+                 after: Optional[Callable] = None):
+        self.step, self.after = step, after
+        self.name = name or getattr(step, "__name__", "step")
+        self.graphs: dict = {}
+        _LIVE.add(self)
+
+    def __call__(self, *args):
+        leaves, spec = pytree.tree_flatten(args)
+        device = next((x.device for x in leaves
+                       if isinstance(x, torch.Tensor)), None)
+        if device is None or device.type != "cuda":
+            out = self.step(*args)
+        else:
+            key = (spec, tuple(map(_leaf_key, leaves)))
+            graph = self.graphs.get(key)
+            if graph is None:
+                out = self._first_call(key, device, args, leaves, spec)
+            else:
+                out = graph.replay(leaves)
+        if self.after is not None:
+            self.after(*args)
+        return out
+
+    def _first_call(self, key, device, args, leaves, spec):
+        """The eager step on the side stream, then its capture."""
+        global CAPTURES
+        with torch.cuda.device(device):
+            stream = _side_stream(device)
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                out = self.step(*args)
+            torch.cuda.current_stream().wait_stream(stream)
+
+            t0 = time.perf_counter()
+            inputs = [x.clone() if isinstance(x, torch.Tensor) else x
+                      for x in leaves]
+            graph = torch.cuda.CUDAGraph()
+            before = kernel_modules.launch_counts()
+            try:
+                with torch.cuda.graph(graph, pool=_pool(device),
+                                      stream=stream):
+                    captured = self.step(
+                        *pytree.tree_unflatten(inputs, spec))
+                counts = kernel_modules.launch_counts()
+            finally:
+                kernel_modules.set_launch_counts(before)
+            outputs, out_spec = pytree.tree_flatten(captured)
+            self.graphs[key] = _Graph(
+                graph, device, inputs, outputs, out_spec,
+                {k: counts[k] - before[k] for k in before})
+            CAPTURES += 1
+        first = next((x for x in leaves if isinstance(x, torch.Tensor)),
+                     None)
+        print(f"[graph] {self.name}: captured CUDA graph "
+              f"{len(self.graphs)} (first input {tuple(first.shape)}) in "
+              f"{(time.perf_counter() - t0) * 1e3:.0f} ms; later calls of "
+              "this shape replay it")
+        return out
+
+    def drop(self, obj):
+        """Drop every graph captured over ``obj``."""
+        self.graphs = {key: g for key, g in self.graphs.items()
+                       if not any(x is obj for x in key[1])}
+
+
+def graphed(step: Callable, name: Optional[str] = None,
+            after: Optional[Callable] = None) -> GraphedStep:
+    """``step(*args)`` as a :class:`GraphedStep` (the module docstring says
+    how it runs)."""
+    return GraphedStep(step, name, after)
+
+
+def drop_graphs(obj):
+    """Drop every graph captured over ``obj`` (a restore replaced state
+    those graphs read)."""
+    for step in list(_LIVE):
+        step.drop(obj)
+
+
+def eager_reason(cfg) -> Optional[str]:
+    """Why the train step of ``cfg`` (a :class:`tpu3dssf_torch.config.
+    Config`) stays eager on the card, or None where it is graphed: each of
+    these makes a host decision inside the update, or copies from the host,
+    which a graph cannot replay."""
+    reasons = []
+    if cfg.lr_scheduler == "ReduceLROnPlateau":
+        reasons.append("lr_scheduler ReduceLROnPlateau scales each update "
+                       "by a plateau state folded on the host")
+    if cfg.skip_nonfinite:
+        reasons.append("skip_nonfinite decides on the host whether an "
+                       "update applies")
+    if cfg.optimizer == "SGD":
+        reasons.append("optimizer SGD has no capturable update in torch")
+    if cfg.drop_path > 0:
+        reasons.append("drop_path > 0 draws DropPath masks from a CPU "
+                       "generator and copies them to the card")
+    return "; ".join(reasons) or None
+
+
+def graph_train_step(train_step, reason: Optional[str] = None):
+    """The train step a loop runs: ``train_step`` itself where ``reason``
+    (from :func:`eager_reason`) says why it stays eager, printed once;
+    else its device half (``train_step.update``) graphed, with its host
+    half (``train_step.advance``) after every call."""
+    if reason is not None:
+        print(f"[graph] train step stays eager: {reason}")
+        return train_step
+    return graphed(train_step.update, "train_step",
+                   after=train_step.advance)

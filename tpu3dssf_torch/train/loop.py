@@ -1,12 +1,15 @@
 """Train and eval loops: image encode, train/eval steps, metric sums, the
 epoch loop.
 
-Port of ``tpu3dssf.train.loop``. One eager step per batch (forward, loss,
+Port of ``tpu3dssf.train.loop``. One step per batch (forward, loss,
 backward, optimizer update) on the model's device; the frozen ViT encodes
 all views of a batch as one forward under ``torch.inference_mode``; eval
 metrics are confusion matrices summed on the device; checkpoints keep the
 best-by-val-accuracy state and, every epoch, the full train state under
-``last/``.
+``last/``. ``make_*`` return the eager steps, as JAX's return the functions
+it jits; :func:`train_model` runs its train and eval steps through
+:mod:`tpu3dssf_torch.train.graph` (on the card, one CUDA graph replay per
+step, the counterpart of ``jax.jit``).
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from tpu3dssf_torch.metrics import (confusion_matrix, evaluate_from_confusion,
                                     format_metrics)
 from tpu3dssf_torch.models.vit import preprocess_images
 from tpu3dssf_torch.train.checkpoint import save_checkpoint
+from tpu3dssf_torch.train.graph import graph_train_step, graphed
 from tpu3dssf_torch.utils.logging import MetricLogger, NullLogger
 
 
@@ -65,6 +69,11 @@ def make_train_step(loss_fn: CELSLoss, dropout_seed: Optional[int] = None,
     the mean of their gradients in one update; the metrics are the mean
     loss and the summed counts, as in the JAX step. Metrics stay on the
     device.
+
+    The step is its device half ``train_step.update(state, batch,
+    patch_tokens)`` (forward, backward and the optimizer's update: what a
+    CUDA graph captures) and its host half ``train_step.advance(state,
+    ...)`` (the schedule's count and ``state.step``).
     """
 
     def split(x):
@@ -73,7 +82,7 @@ def make_train_step(loss_fn: CELSLoss, dropout_seed: Optional[int] = None,
                              f"grad_accum={grad_accum}")
         return x.chunk(grad_accum, dim=0)
 
-    def train_step(state, batch, patch_tokens):
+    def update(state, batch, patch_tokens):
         model = state.model
         micro = {k: split(v) for k, v in batch.items()}
         tokens = (split(patch_tokens) if patch_tokens is not None
@@ -102,9 +111,18 @@ def make_train_step(loss_fn: CELSLoss, dropout_seed: Optional[int] = None,
                     p.grad.mul_(inv)
             for k in ("loss", "ce", "lovasz"):
                 sums[k] = sums[k] * inv
-        state.apply_gradients(value=sums["loss"])
+        state.optimizer.update(value=sums["loss"])
         return sums
 
+    def advance(state, *_):
+        state.advance()
+
+    def train_step(state, batch, patch_tokens):
+        sums = update(state, batch, patch_tokens)
+        advance(state)
+        return sums
+
+    train_step.update, train_step.advance = update, advance
     return train_step
 
 
@@ -144,12 +162,13 @@ class MetricAccumulator:
         self._cm = self._loss = self._correct = self._valid = None
 
     def add(self, m: Dict):
-        loss = m["loss"].to(torch.float64)
-        cor = m["correct"].to(torch.int64)
-        val = m["valid"].to(torch.int64)
+        # copies: a caller may overwrite its tensors after this returns
+        loss = m["loss"].to(torch.float64, copy=True)
+        cor = m["correct"].to(torch.int64, copy=True)
+        val = m["valid"].to(torch.int64, copy=True)
         if self._cm is None:
-            self._cm, self._loss = m["confusion"].to(torch.int64), loss
-            self._correct, self._valid = cor, val
+            self._cm = m["confusion"].to(torch.int64, copy=True)
+            self._loss, self._correct, self._valid = loss, cor, val
         else:
             self._cm = self._cm + m["confusion"]
             self._loss = self._loss + loss
@@ -221,19 +240,24 @@ def train_model(state, dataloaders: Dict, loss_fn: CELSLoss, encode_fn,
                 start_epoch: int = 0,
                 best_acc: float = -1.0,
                 dropout_seed: Optional[int] = None,
-                grad_accum: int = 1):
+                grad_accum: int = 1,
+                eager_reason: Optional[str] = None):
     """Epoch loop with best-val-acc checkpointing (port of JAX's).
 
     Returns (train_acc_history, val_acc_history) and leaves ``state``
     holding the final weights. Per-step metrics stay on the device and are
     read at ``log_every`` boundaries. ``profile_dir`` captures a
     ``torch.profiler`` trace of the steps in ``profile_steps`` (from, to)
-    into ``<profile_dir>/train_trace.json``.
+    into ``<profile_dir>/train_trace.json``. The train and eval steps are
+    graphed (:mod:`tpu3dssf_torch.train.graph`), the train step unless
+    ``eager_reason`` (``graph.eager_reason`` of the config) says why it
+    stays eager.
     """
     logger = logger or NullLogger()
     device = next(state.model.parameters()).device
-    train_step = make_train_step(loss_fn, dropout_seed, grad_accum)
-    eval_step = make_eval_step(loss_fn, num_classes)
+    train_step = graph_train_step(
+        make_train_step(loss_fn, dropout_seed, grad_accum), eager_reason)
+    eval_step = graphed(make_eval_step(loss_fn, num_classes), "eval_step")
 
     tr_hist, val_hist, history = [], [], []
     global_step = 0
@@ -269,9 +293,9 @@ def train_model(state, dataloaders: Dict, loss_fn: CELSLoss, encode_fn,
             batch, tokens = _device_batch(batch, encode_fn, zero_tokens_fn,
                                           device)
             m = train_step(state, batch, tokens)
-            m = {"loss": m["loss"].float(),
-                 "correct": m["correct"].to(torch.int64),
-                 "valid": m["valid"].to(torch.int64)}
+            m = {"loss": m["loss"].to(torch.float32, copy=True),
+                 "correct": m["correct"].to(torch.int64, copy=True),
+                 "valid": m["valid"].to(torch.int64, copy=True)}
             win = m if win is None else {k: win[k] + m[k] for k in m}
             it += 1
             global_step += 1

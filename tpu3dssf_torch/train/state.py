@@ -22,9 +22,20 @@ where torch's stock pieces differ:
 AdamW, Adam and SGD themselves are ``torch.optim``'s, which compute
 optax's updates in exact arithmetic. Adam's β1, β2 are passed as their f32
 values, which is what optax computes with (0.999 is 0.99900001 in f32, so
-1 − β2 differs by 1.3e-5 relative); optax's f32 bias corrections still
-differ from torch's float64 ones by up to ~7e-6 relative over the first
-steps.
+1 − β2 differs by 1.3e-5 relative); on the CPU, optax's f32 bias
+corrections still differ from torch's float64 ones by up to ~7e-6 relative
+over the first steps.
+
+On a CUDA device AdamW and Adam run ``capturable=True`` with the learning
+rate as a 0-d f32 tensor on the card, so that a CUDA graph of the train
+step (:mod:`tpu3dssf_torch.train.graph`) reads the rate the schedule
+``fill_``s between replays instead of one baked in at capture; the eager
+step on the card takes the same construction, so both run the same
+arithmetic. Their bias corrections are then f32 on the device, as optax's.
+
+An update has a device half, :meth:`Optimizer.update` (what a graph
+captures), and a host half, :meth:`Optimizer.advance` (the schedule's
+count, which runs after every replay); :meth:`Optimizer.step` is both.
 """
 
 from __future__ import annotations
@@ -34,6 +45,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from tpu3dssf_torch.train.graph import drop_graphs
 
 MAX_CONSECUTIVE_NONFINITE = 100
 # optax.adam's defaults, as the f32 values optax computes with
@@ -147,6 +160,7 @@ class Optimizer:
         self.skip_nonfinite = skip_nonfinite
         self.plateau = plateau
         self.notfinite_count = 0
+        self.skipped = False   # the last update was skipped (non-finite)
 
     @property
     def params(self):
@@ -159,8 +173,18 @@ class Optimizer:
         return [p.grad if p.grad is not None else torch.zeros_like(p)
                 for p in self.params]
 
-    @torch.no_grad()
     def step(self, value=None):
+        """One update: :meth:`update`, then :meth:`advance`."""
+        self.update(value)
+        self.advance()
+
+    @torch.no_grad()
+    def update(self, value=None):
+        """The device half of an update: the plateau folds in ``value``,
+        non-finite gradients are skipped, the norm is clipped and the
+        torch optimizer steps. With neither plateau nor ``skip_nonfinite``
+        it makes no host decision and no host copy, so a CUDA graph can
+        capture it."""
         scale = 1.0
         if self.plateau is not None:
             if value is None:
@@ -168,12 +192,14 @@ class Optimizer:
                                  "(step(value=...))")
             scale = self.plateau.update(float(value))
         grads = self._grads()
+        self.skipped = False
         if self.skip_nonfinite:
             finite = bool(torch.stack([torch.isfinite(g).all()
                                        for g in grads]).all())
             self.notfinite_count = 0 if finite else self.notfinite_count + 1
             if (not finite and self.notfinite_count
                     <= MAX_CONSECUTIVE_NONFINITE):
+                self.skipped = True
                 return  # optax.apply_if_finite: a zero update
         if self.grad_clip:
             norm = torch.stack([g.float().square().sum()
@@ -185,12 +211,18 @@ class Optimizer:
             p.grad = g
         lrs = [g["lr"] for g in self.inner.param_groups]
         if scale != 1.0:
+            # a new value, never in place: a tensor rate stays the same
             for g in self.inner.param_groups:
-                g["lr"] *= scale
+                g["lr"] = g["lr"] * scale
         self.inner.step()
         for g, lr in zip(self.inner.param_groups, lrs):
             g["lr"] = lr
-        self.scheduler.step()
+
+    def advance(self):
+        """The host half: the schedule advances, unless the last update
+        was skipped."""
+        if not self.skipped:
+            self.scheduler.step()
 
     def state_dict(self):
         return {"inner": self.inner.state_dict(),
@@ -200,7 +232,12 @@ class Optimizer:
                 "notfinite_count": self.notfinite_count}
 
     def load_state_dict(self, state):
+        lrs = [g["lr"] for g in self.inner.param_groups]
         self.inner.load_state_dict(state["inner"])
+        for g, lr in zip(self.inner.param_groups, lrs):
+            if isinstance(lr, torch.Tensor):   # keep the rate a tensor
+                lr.fill_(float(g["lr"]))
+                g["lr"] = lr
         self.scheduler.load_state_dict(state["scheduler"])
         if (state["plateau"] is None) != (self.plateau is None):
             raise ValueError("optimizer state: plateau mismatch")
@@ -220,14 +257,20 @@ def create_optimizer(params, name: str, learning_rate: float,
     parameters, which optax takes at ``init``)."""
     schedule = create_schedule(lr_scheduler, steps_per_epoch, num_epochs)
     params = list(params)
+    device = params[0].device if params else torch.device("cpu")
+    # on the card: the rate a tensor there and the update capturable (the
+    # module docstring says why)
+    adam_kw = (dict(lr=torch.tensor(learning_rate, dtype=torch.float32,
+                                    device=device), capturable=True)
+               if device.type == "cuda" else dict(lr=learning_rate))
     if name == "AdamW":
-        inner = torch.optim.AdamW(params, lr=learning_rate, betas=ADAM_BETAS,
-                                  weight_decay=weight_decay)
+        inner = torch.optim.AdamW(params, betas=ADAM_BETAS,
+                                  weight_decay=weight_decay, **adam_kw)
     elif name == "Adam":
         # torch Adam applies weight_decay as L2 into the gradient, like
         # optax.chain(add_decayed_weights, adam)
-        inner = torch.optim.Adam(params, lr=learning_rate, betas=ADAM_BETAS,
-                                 weight_decay=weight_decay)
+        inner = torch.optim.Adam(params, betas=ADAM_BETAS,
+                                 weight_decay=weight_decay, **adam_kw)
     elif name == "SGD":
         # optax's trace with decay 0 is plain SGD (torch refuses nesterov
         # without momentum)
@@ -235,6 +278,13 @@ def create_optimizer(params, name: str, learning_rate: float,
                                 nesterov=nesterov and momentum > 0)
     else:
         raise ValueError(f"unknown optimizer: {name}")
+    if device.type == "cuda" and name != "SGD":
+        # the schedule's base rate a float, so that it fills the tensor
+        # rate without reading it back from the card
+        for g in inner.param_groups:
+            g["initial_lr"] = learning_rate
+        # the eager step on the card runs capturable by design
+        inner._warned_capturable_if_run_uncaptured = True
     plateau = (Plateau(accumulation_size=max(1, steps_per_epoch))
                if lr_scheduler == "ReduceLROnPlateau" else None)
     return Optimizer(inner, schedule, grad_clip=grad_clip,
@@ -255,7 +305,13 @@ class TrainState:
         self.step = step
 
     def apply_gradients(self, value=None):
-        self.optimizer.step(value)
+        self.optimizer.update(value)
+        self.advance()
+
+    def advance(self):
+        """The host half of an update (:meth:`Optimizer.advance`) and the
+        update count: what a graphed train step runs after each replay."""
+        self.optimizer.advance()
         self.step += 1
 
     def state_dict(self):
@@ -264,6 +320,9 @@ class TrainState:
                 "step": self.step}
 
     def load_state_dict(self, state):
+        """Restore in place. The optimizer's state tensors are replaced, so
+        the CUDA graphs captured over this state are dropped."""
+        drop_graphs(self)
         self.model.load_state_dict(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
         self.step = int(state["step"])

@@ -19,6 +19,7 @@ takes the plain version :func:`topk_neighbors_reference`.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -205,6 +206,14 @@ def _topk_neighbors(queries, refs, ref_mask, k):
     return knn.knn(queries, refs, ref_mask, k)
 
 
+@functools.lru_cache(maxsize=None)
+def _weights(weights, device):
+    """``weights`` as an f32 tensor on ``device``, made once (a step holds
+    no host-to-device copy, which a CUDA graph could not replay)."""
+    with torch.inference_mode(False):
+        return torch.tensor(weights, dtype=torch.float32, device=device)
+
+
 def knn_intensity_transfer(centroids, voxel_mask, points_xyz, intensity,
                            point_mask, weights=KNN_INTENSITY_WEIGHTS):
     """Weighted 5-NN intensity from the raw points onto the centroids (the
@@ -215,7 +224,7 @@ def knn_intensity_transfer(centroids, voxel_mask, points_xyz, intensity,
     _, idx = _topk_neighbors(centroids, points_xyz, point_mask, k)
     B, V, _ = idx.shape
     near = torch.gather(intensity, 1, idx.reshape(B, V * k).to(torch.int64))
-    w = torch.tensor(weights, dtype=torch.float32, device=intensity.device)
+    w = _weights(tuple(weights), intensity.device)
     return torch.where(voxel_mask, (near.reshape(B, V, k) * w).sum(-1), 0.0)
 
 
