@@ -13,12 +13,15 @@ parity path (``main_infer``, ``main_test``, ``main_sample``) over
 with the ViT-L/16 encoder on both of its attention routes, that encoder's
 gradient, and ``configs/synthetic_convergence_lidar.yaml`` at window 48,
 where every PTv3 block takes the (W, K, H, D) window route; then each of
-those paths eager against its CUDA graphs, and the train step with PTv3's
-remat flags. On the card the CLIs replay their encode, eval and train
-steps as CUDA graphs (``tpu3dssf_torch.train.graph``, one capture per step
-and batch shape), so every CLI run below also checks that each of its step
-calls was a capture or a replay. It checks, in order (any failure raises,
-exit code ≠ 0):
+those paths eager against its CUDA graphs, the train step with PTv3's
+remat flags, and four inference programs exported with ``torch.export``
+and run in a process without model code. Every kernel launch goes through
+its ``torch.library`` op (``tpu3dssf::*``, tpu3dssf_torch/kernels/ops.py),
+whose CUDA kernel counts it. On the card the CLIs replay their encode,
+eval and train steps as CUDA graphs (``tpu3dssf_torch.train.graph``, one
+capture per step and batch shape), so every CLI run below also checks
+that each of its step calls was a capture or a replay. It checks, in
+order (any failure raises, exit code ≠ 0):
 
 1. a CUDA device is present; prints the card's name and power limit, and
    its maximum SM clock, which sets the exp's rate in the bounds;
@@ -166,11 +169,28 @@ exit code ≠ 0):
     step's without), exact launches per replay (the recompute runs K2 and
     K4 again: 28 and 16, K3 14, K5 8), the clipped gradients from one
     state within 2× the difference of two eager steps from it, and the
-    replay's time and device time.
+    replay's time and device time;
+25. four programs exported on the card with ``tpu3dssf_torch.export.
+    export_infer_bytes`` on the first test batch: the fusion pipeline
+    (through ``cli.export_model.export_pipeline``, the CLI's own function),
+    the parity pipeline, the window-48 LiDAR pipeline and the ViT-S/16
+    encode of the fusion config; each eager model run on that batch (the
+    fusion pipeline on the encode's tokens). Then one fresh process that
+    imports only torch and the op library (no ``tpu3dssf_torch.models``,
+    ``.voxel`` or ``.serialization``, no JAX) loads all four with
+    ``load_exported`` and calls each twice, eager then a graph replay:
+    exactly K1 22 (fusion), K1 22 + K7 2 (parity), K6 22 (window 48) and
+    K1 12 (encode) per call, no other kernel, and outputs bit-identical to
+    the eager model's where two eager calls are, else within 2× their
+    difference. ``export`` prints the export and load seconds, the
+    artifacts' size and the wall ms of a call of each: the eager model,
+    the port's own graphed call, the loaded program eager and graphed;
+    and the host µs of a K1 call through its launcher, its op and its
+    wrapper (:func:`op_dispatch_us`).
 
-``graphs`` and ``remat`` print phases 22–24's records (times in ms,
-memory in bytes). The last two lines are a JSON record of the kernels and
-the device line.
+``graphs``, ``remat`` and ``export`` print phases 22–25's records (times
+in ms, memory in bytes). The last two lines are a JSON record of the
+kernels and the device line.
 Every kernel record has ``launches`` (from its path's run), ``max_abs_err``
 (the largest error of its checks), ``ms`` (device time inside the path),
 ``plain_ms``, ``bound_ms`` and ``bound_by`` (the least time the card could
@@ -247,6 +267,12 @@ GRAPH_DIFF_FACTOR = 2.0
 # attention forward again with a gradient pending (K2 at C >= 128, K4 at
 # C in {32, 64}); the backward kernels run once
 REMAT_LAUNCHES = {"K2": 28, "K3": 14, "K4": 16, "K5": 8}
+# phase 25: launches per call of each exported program (the fusion
+# pipeline takes its tokens as an input; the ViT-S encode is a program of
+# its own)
+EXPORT_LAUNCHES = {"fusion": {"K1": 22}, "parity": dict(PARITY_LAUNCHES),
+                   "window48": {"K6": WINDOW_LAUNCHES}, "vits_encode":
+                   {"K1": LAUNCHES_PER_BATCH - 22}}
 # K8 route vs K1 route patch tokens, max abs error over max |token|: the K1
 # route rotates q·(1/8) and k inside its kernel, the K8 route rotates them
 # outside in plain torch and scales q in its kernel; both round once, the
@@ -491,7 +517,8 @@ def k7_spec(calls):
         d, mismatches = knn_mismatch(got, want)
         return d if mismatches == 0 else float("inf")
 
-    return dict(pattern=K7_KERNELS, module=knn, attr="knn", plain=knn_plain,
+    return dict(pattern=K7_KERNELS, module=knn, attr="_launch",
+                plain=knn_plain,
                 error=error, ok=lambda err: err == 0.0,
                 launches=PARITY_LAUNCHES["K7"], library=cdist_topk,
                 bound=knn_bound, device_kernels=sum(
@@ -2559,6 +2586,194 @@ def run_remat(card, tokens, batch, vit_cfg):
     return rows
 
 
+def no_grad(fn):
+    def run(*args):
+        import torch
+        with torch.no_grad():
+            return fn(*args)
+    return run
+
+
+def export_programs(tmp):
+    """Phase 25, in this process: the four programs exported on the card
+    (``export_infer_bytes``; the fusion pipeline through the CLI's own
+    ``export_pipeline``), each written under ``tmp`` with the first test
+    batch's inputs and the eager model's output on them. Returns {program:
+    row} with the export's seconds and size, the eager calls' launches,
+    spread (largest difference of two eager calls) and wall ms, and the
+    port's own graphed call's wall ms."""
+    import statistics
+    import torch
+    from tpu3dssf_torch.cli import common
+    from tpu3dssf_torch.cli.export_model import export_pipeline
+    from tpu3dssf_torch.export import export_infer_bytes
+    from tpu3dssf_torch.train.graph import graphed
+
+    device = torch.device("cuda")
+    rows = {}
+
+    def save(name, blob, seconds, fn, args):
+        with open(os.path.join(tmp, f"{name}.pt2"), "wb") as f:
+            f.write(blob)
+        eager = [fn(*args) for _ in range(2)]
+        counts = frame_counts(lambda: fn(*args))
+        torch.save({"args": args, "eager": eager[0]},
+                   os.path.join(tmp, f"{name}.io.pt"))
+        g = graphed(fn, f"port_{name}")
+        g(*args)                                  # the eager call + capture
+        rows[name] = dict(
+            export_s=seconds, artifact_mb=len(blob) / 1e6,
+            eager_launches=counts, eager_spread=max_diff([eager[0]],
+                                                         [eager[1]]),
+            eager_ms=statistics.median(event_times(lambda: fn(*args))),
+            port_graphed_ms=statistics.median(event_times(lambda: g(*args))))
+        print(f"export {name}: {json.dumps(rows[name])}", flush=True)
+
+    for name, src, tpu in (
+            ("fusion", CONFIG, {}), ("parity", PARITY_CONFIG, {}),
+            ("window48", LIDAR_CONFIG, dict(window_size=WINDOW,
+                                            voxel_capacity=WINDOW_CAPACITY))):
+        cfg = common.load_config(config_copy(src, tmp, f"{name}_x.yaml",
+                                             tpu=tpu)[0])
+        batch, images, _ = first_batch(cfg, "test", device)
+        t0 = time.perf_counter()
+        blob, model, args = export_pipeline(cfg, batch, device)
+        seconds = time.perf_counter() - t0
+        if name == "fusion":
+            encode, _ = common.build_image_encoder(cfg, device, graph=False)
+            t0 = time.perf_counter()
+            vit_blob = export_infer_bytes(encode, (images,))
+            save("vits_encode", vit_blob, time.perf_counter() - t0, encode,
+                 (images,))
+            # the batch's own tokens (a clone: the encode returns
+            # inference tensors)
+            args = args[:2] + (encode(images).clone(),) + args[3:]
+        save(name, blob, seconds, no_grad(model), args)
+        del model, blob
+        torch.cuda.empty_cache()
+    return rows
+
+
+def run_loaded(directory):
+    """Phase 25, in a fresh process that imports only torch and the op
+    library: every artifact under ``directory`` loaded by
+    ``load_exported`` and called twice on its saved inputs (the first call
+    eager, the second a graph replay), with its launches per call and its
+    largest difference from the eager model's output; then the loaded
+    program's wall ms eager and graphed. Prints one JSON line."""
+    import statistics
+    import torch
+    import tpu3dssf_torch.kernels  # noqa: F401  (registers the ops)
+    from tpu3dssf_torch.export import load_exported
+    from tpu3dssf_torch.kernels import modules
+
+    def launches(fn):
+        before = modules.launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: v - before[k] for k, v in
+                     modules.launch_counts().items() if v != before[k]}
+
+    rows = {}
+    for name in EXPORT_LAUNCHES:
+        saved = torch.load(os.path.join(directory, f"{name}.io.pt"))
+        args = saved["args"]
+        t0 = time.perf_counter()
+        with open(os.path.join(directory, f"{name}.pt2"), "rb") as f:
+            program = load_exported(f.read())
+        load_s = time.perf_counter() - t0
+        outs, counts = zip(*(launches(lambda: program(*args))
+                             for _ in range(2)))
+        rows[name] = dict(
+            load_s=load_s, eager_call_launches=counts[0],
+            replay_launches=counts[1], captures=len(program.graphs),
+            max_diff=max(max_diff([o], [saved["eager"]]) for o in outs),
+            loaded_eager_ms=statistics.median(event_times(
+                lambda: program.step(*args))),
+            loaded_graphed_ms=statistics.median(event_times(
+                lambda: program(*args))))
+    model_code = sorted(m for m in sys.modules if m.startswith((
+        "tpu3dssf_torch.models", "tpu3dssf_torch.voxel",
+        "tpu3dssf_torch.serialization")) or m.split(".")[0] in (
+            "jax", "jaxlib", "tpu3dssf"))
+    print(json.dumps(dict(programs=rows, model_code=model_code,
+                          modules=sorted(m for m in sys.modules
+                                         if m.startswith("tpu3dssf")))))
+
+
+def op_dispatch_us(calls=200, runs=5):
+    """Host µs per K1 call at a small D = 16 shape (8 windows of 48, H = 2),
+    where the host's enqueue outlasts the kernel: the launcher alone (as
+    the wrappers called it before the ops), the op ``tpu3dssf::
+    packed_attention`` (the dispatcher, then the launcher and the count)
+    and the wrapper ``flash_attention_packed``. Each the median of
+    ``runs`` loops of ``calls`` calls, timed on the host from the first
+    call to a synchronisation after the last."""
+    import statistics
+    import torch
+    from tpu3dssf_torch.kernels.modules import flash_attention as fa
+
+    gen = torch.Generator().manual_seed(5)
+    qkv = torch.randn(8, 48, 96, generator=gen).to("cuda", torch.bfloat16)
+    bias = torch.zeros(8, 1, 48, device="cuda")
+    ways = {"launcher": lambda: fa._launch(qkv, bias, 2, 0.25),
+            "op": lambda: torch.ops.tpu3dssf.packed_attention(
+                qkv, bias, 2, 0.25, None, None),
+            "wrapper": lambda: fa.flash_attention_packed(qkv, bias, 2, 0.25)}
+    out = {}
+    with torch.no_grad():
+        for name, fn in ways.items():
+            times = []
+            for _ in range(runs + 1):                 # the first warms up
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) / calls * 1e6)
+            out[name] = statistics.median(times[1:])
+    return out
+
+
+def run_export(card, tmp):
+    """Phase 25: export, load in a fresh process, check counts and outputs
+    (see :func:`export_programs` and :func:`run_loaded`). Returns the
+    ``export`` record."""
+    rows = export_programs(tmp)
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "chip_smoke.run_loaded(sys.argv[1])", tmp], cwd=ROOT,
+        capture_output=True, text=True, timeout=600)
+    print(res.stderr[-4000:], end="", flush=True)
+    if res.returncode != 0:
+        raise AssertionError(f"loading the artifacts failed (exit "
+                             f"{res.returncode}):\n{res.stdout[-4000:]}")
+    loaded = json.loads(res.stdout.strip().splitlines()[-1])
+    if loaded["model_code"]:
+        raise AssertionError(f"the loading process imported model code: "
+                             f"{loaded['model_code']}")
+    bad = []
+    for name, want in EXPORT_LAUNCHES.items():
+        row = dict(rows[name], **loaded["programs"][name])
+        row["outputs_ok"] = within_eager(row["max_diff"], row["eager_spread"])
+        if (row["eager_launches"] != want
+                or row["eager_call_launches"] != want
+                or row["replay_launches"] != want or row["captures"] != 1
+                or not row["outputs_ok"]):
+            bad.append(name)
+        rows[name] = row
+    record = dict(programs=rows, loading_process_modules=loaded["modules"],
+                  loading_process_s=time.perf_counter() - t0,
+                  dispatch_us=op_dispatch_us(), card=card)
+    print("export " + json.dumps(record), flush=True)
+    if bad:
+        raise AssertionError(f"exported programs off their launches or the "
+                             f"eager outputs: {bad} (expected "
+                             f"{EXPORT_LAUNCHES})")
+    return record
+
+
 def per_path(rows, key, count):
     """Σ over a kernel's shapes of (calls per batch or step × per call)."""
     return sum(r[count] * r[key] for r in rows)
@@ -2678,6 +2893,12 @@ def main():
     graph_rows["train_step"], train_inputs = run_graph_train(card)
     remat = run_remat(card, *train_inputs)
     del train_inputs
+    # phase 25: the inference programs exported, loaded without model code
+    tmp = tempfile.mkdtemp(prefix="tpu3dssf_smoke_")
+    try:
+        export = run_export(card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     records = [{
         "name": KERNELS["K1"][0], "route": "cuda",
@@ -2808,6 +3029,7 @@ def main():
     print("parity_batch " + json.dumps(dict(parity_frame, card=card)))
     print("graphs " + json.dumps(graph_rows))
     print("remat " + json.dumps(dict(remat, card=card)))
+    print("export " + json.dumps(export))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -931,3 +931,117 @@ def test_d16_backward_block_size_matches_the_kernel(cuda):
     """The wrapper sizes the dq partials by the kernel's key block."""
     lib = fa._build.load_library(fa._BWD_SOURCE)
     assert lib.fa_backward_d16_block_keys() == fa.D16_BWD_KEYS
+
+
+# the kernels as torch.library ops (tpu3dssf_torch/kernels/ops.py): each op
+# on the card against its CPU kernel (the plain version) on the same bf16
+# inputs, one count a call for the TPU kernel it names
+def _op_cases(cuda, D):
+    gen = torch.Generator().manual_seed(7)
+    B, N, H = 2, 77, 6 if D == 64 else 3
+    C = H * D
+    qkv = torch.randn(B, N, 3 * C, generator=gen).to(cuda, torch.bfloat16)
+    keep = torch.rand(B, N, generator=gen) > 0.3
+    keep[:, 0] = True
+    bias = torch.where(keep, 0.0, -1e9)[:, None, :].to(cuda).contiguous()
+    keep = keep.to(cuda)
+    dout = torch.randn(B, N, C, generator=gen).to(cuda, torch.bfloat16)
+    scale = D ** -0.5
+    out, lse = fa.flash_attention_packed_lse_reference(qkv, bias, H, scale)
+    delta = fa.row_delta(dout, out, H)
+    q, k, v = fa._split_heads(qkv, H)
+    do4 = dout.unflatten(-1, (H, D))
+    cases = [
+        ("packed_attention", (qkv, bias, H, scale, None, None), "K1"),
+        ("packed_attention_lse", (qkv, bias, H, scale, None, None, "K2"),
+         "K2"),
+        ("packed_attention_lse", (qkv, bias, H, scale, None, None, "K4"),
+         "K4"),
+        ("packed_attention_bwd", (qkv, bias, dout, lse, delta, H, scale,
+                                  "K3"), "K3"),
+        ("packed_attention_bwd", (qkv, bias, dout, lse, delta, H, scale,
+                                  "K5"), "K5"),
+        ("attention", (q, k, v, bias, None, "K8"), "K8"),
+        ("attention", (q, k, v, bias, keep, "K6"), "K6"),
+        ("attention_lse", (q, k, v, bias, scale, "K8"), "K8"),
+        ("attention_lse", (q, k, v, bias, scale, "K4"), "K4"),
+        ("attention_bwd", (q, k, v, bias, do4, lse, delta.contiguous(),
+                           scale, "K9"), "K9"),
+        ("attention_bwd", (q, k, v, bias, do4, lse, delta.contiguous(),
+                           scale, "K5"), "K5"),
+    ]
+    if D == 64:
+        angles = torch.rand(N, 32, generator=gen) * 6 - 3
+        cos, sin = torch.cos(angles).to(cuda), torch.sin(angles).to(cuda)
+        cases += [
+            ("packed_attention", (qkv, bias, H, 0.125, cos, sin), "K1"),
+            ("packed_attention_lse", (qkv, bias, H, 0.125, cos, sin, "K1"),
+             "K1")]
+    else:
+        queries, refs, mask = _knn_inputs(cuda, 2, 300, 500)
+        cases.append(("knn", (queries, refs, mask, 5), "K7"))
+    return cases
+
+
+@pytest.mark.parametrize("D", [16, 64])
+def test_ops_on_the_card_match_their_cpu_kernels(cuda, D):
+    for name, args, kernel in _op_cases(cuda, D):
+        op = getattr(torch.ops.tpu3dssf, name)
+        got = None
+
+        def run():
+            nonlocal got
+            got = op(*args)
+        assert _launches(run) == {kernel: 1}, name
+        want = op(*(a.cpu() if isinstance(a, torch.Tensor) else a
+                    for a in args))
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        assert all(g.device.type == "cuda" for g in got)
+        if name == "knn":
+            assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+        elif name.endswith("_bwd"):
+            _grads_close([g.cpu() for g in got], want)
+        else:
+            assert (got[0].cpu().float() - want[0].float()).abs().max() < TOL
+            if len(got) == 2:
+                assert (got[1].cpu() - want[1]).abs().max().item() < 1e-3
+
+
+def test_export_round_trip_on_the_card_counts_its_launches(cuda, tmp_path):
+    """A tiny LiDAR-only model in the parity modes, exported on the card:
+    the loaded program's first call (eager) and its replay each launch
+    K1 3 and K7 2, as the eager model does, and give its output."""
+    from tpu3dssf_torch.export import export_infer_bytes, load_exported
+    from tpu3dssf_torch.models import fusion, lidar_only, ptv3
+    from tpu3dssf_torch.models.layers import init_weights
+
+    bf16 = torch.bfloat16
+    cfg = fusion.PipelineConfig(
+        fusion=fusion.FusionConfig(output_dim=16, dtype=bf16),
+        ptv3=ptv3.PTv3Config(
+            enc_depths=(1, 1), enc_channels=(32, 128), enc_heads=(2, 8),
+            enc_window=(128, 128), dec_depths=(1,), dec_channels=(32,),
+            dec_heads=(2,), dec_window=(128,), dtype=bf16),
+        voxel_size=0.4, voxel_capacity=1024, intensity_mode="knn5",
+        devoxelize_mode="nearest")
+    model = init_weights(lidar_only.LidarSegmentationModel(cfg), 2)
+    model = model.to(cuda).eval()
+    gen = torch.Generator().manual_seed(4)
+    pts = torch.cat([torch.rand(2, 3000, 3, generator=gen) * 40 - 20,
+                     torch.rand(2, 3000, 1, generator=gen)], -1).to(cuda)
+    mask = (torch.rand(2, 3000, generator=gen) > 0.1).to(cuda)
+    path = tmp_path / "model.pt2"
+    path.write_bytes(export_infer_bytes(model, (pts, mask)))
+    with torch.no_grad():
+        eager = [model(pts, mask) for _ in range(2)]
+        counts = _launches(lambda: model(pts, mask))
+    assert counts == {"K1": 3, "K7": 2}
+    f = load_exported(path.read_bytes())
+    outs = []
+    for _ in range(2):
+        assert _launches(lambda: outs.append(f(pts, mask))) == counts
+    assert len(f.graphs) == 1
+    spread = _max_diff([eager[0]], [eager[1]])
+    assert all(_within_eager(_max_diff([o], [eager[0]]), spread)
+               for o in outs)

@@ -10,9 +10,9 @@ elementwise product cannot take a TF32 path on the card.
 
 from __future__ import annotations
 
-import functools
-
 import torch
+
+from tpu3dssf_torch.utils.constants import device_constants
 
 
 def multi_camera_projector(points, cam_intrinsics, lidar2cam_extrinsics,
@@ -58,7 +58,7 @@ def multi_camera_projector(points, cam_intrinsics, lidar2cam_extrinsics,
     return pixel_coords, depth, valid
 
 
-@functools.lru_cache(maxsize=None)
+@device_constants
 def _scale(sx, sy, device):
     """(sx, sy) as an f32 tensor on ``device``, made once (a step holds no
     host-to-device copy, which a CUDA graph could not replay)."""

@@ -1,3 +1,7 @@
+"""The port's kernels: the wrappers, their plain versions, and the
+``torch.library`` ops ``tpu3dssf::*`` (:mod:`tpu3dssf_torch.kernels.ops`),
+which importing this package registers."""
+
 from tpu3dssf_torch.kernels.flash_attention import (
     FlashAttention,
     FlashAttentionPacked,
@@ -17,6 +21,7 @@ from tpu3dssf_torch.kernels.window_attention import (
     window_attention_packed,
     window_attention_reference,
 )
+from tpu3dssf_torch.kernels import knn, ops  # noqa: F401  (registers the ops)
 
 __all__ = [
     "FlashAttention",

@@ -36,15 +36,20 @@ same two kernels and count them as K4, K5 and K6; the (W, K, H, D) one
 trains through :class:`FlashAttention` with a query mask and its own
 counters.
 
-Dispatch is by device and nothing else: a CUDA tensor launches the
-hand-written Hopper kernels or raises; a CPU tensor takes the plain
-versions. There is no fallback from one to the other.
+The wrappers and training rules here call the kernels as ``torch.library``
+custom ops (:mod:`tpu3dssf_torch.kernels.ops`: ``tpu3dssf::packed_attention``
+and the rest), so a tracer (``torch.export``) sees each launch as one node.
+The dispatcher picks an op's kernel by device and nothing else: a CUDA
+tensor runs its CUDA kernel, which calls a launcher here (``_launch``,
+``_launch_lse``, ``_launch_bwd``, ``_launch_flash``, ``_launch_flash_bwd``)
+and adds one to the counter of the TPU kernel it serves, or raises; a CPU
+tensor takes the plain version. There is no fallback from one to the
+other.
 """
 
 from __future__ import annotations
 
 import ctypes
-import sys
 
 import torch
 
@@ -54,7 +59,8 @@ _SOURCE = "flash_attention_packed.cu"
 _BWD_SOURCE = "flash_attention_packed_bwd.cu"
 SUPPORTED_HEAD_DIMS = (16, 64)
 
-# kernel launches made in this process: K1, K2, K3, K8 and K9
+# kernel launches made in this process: K1, K2, K3, K8 and K9 (counted by
+# the ops of tpu3dssf_torch.kernels.ops)
 LAUNCHES = 0
 LSE_LAUNCHES = 0
 BWD_LAUNCHES = 0
@@ -237,8 +243,9 @@ def flash_attention_packed(qkv, key_bias, heads, q_scale=None, rope_cos=None,
 
     When autograd needs a gradient of ``qkv`` this is
     :class:`FlashAttentionPacked` (K2 forward and K3 backward on a CUDA
-    tensor; with tables K1's forward with its LSE and K9); otherwise it
-    launches K1. The TPU version's ``block_q``, ``head_group`` and its
+    tensor; with tables K1's forward with its LSE and K9); otherwise the op
+    ``tpu3dssf::packed_attention``: K1 on a CUDA tensor, the plain version
+    on a CPU tensor. The TPU version's ``block_q``, ``head_group`` and its
     scratch option are gone: the first two are Mosaic tiling rules (N a
     q-block multiple, 128-lane head groups), and the scratch buffer only
     bounded VMEM. The kernels mask ragged N themselves.
@@ -250,19 +257,18 @@ def flash_attention_packed(qkv, key_bias, heads, q_scale=None, rope_cos=None,
     if torch.is_grad_enabled() and qkv.requires_grad:
         return FlashAttentionPacked.apply(qkv, key_bias, heads, q_scale,
                                           rope_cos, rope_sin)
-    if qkv.device.type == "cpu":
-        return flash_attention_packed_reference(qkv, key_bias, heads,
-                                                q_scale, rope_cos, rope_sin)
-    return _launch(qkv, key_bias, heads, q_scale, rope_cos, rope_sin)
+    return torch.ops.tpu3dssf.packed_attention(qkv, key_bias, heads,
+                                               q_scale, rope_cos, rope_sin)
 
 
 class FlashAttentionPacked(torch.autograd.Function):
     """The training rule of :func:`flash_attention_packed` (port of
     ``_fap_fwd``/``_fap_bwd``).
 
-    RoPE-free: the forward launches K2 and saves (qkv, key_bias, lse, out);
-    the backward computes delta = rowsum(g·out) per head in plain torch, as
-    JAX does outside Pallas, and launches K3.
+    RoPE-free: the forward runs the op ``tpu3dssf::packed_attention_lse``
+    as K2 and saves (qkv, key_bias, lse, out); the backward computes delta
+    = rowsum(g·out) per head in plain torch, as JAX does outside Pallas,
+    and runs ``tpu3dssf::packed_attention_bwd`` as K3.
 
     With tables: the forward launches K1's RoPE branch with its LSE,
     counted as K1 (JAX runs K1 there). The backward follows JAX's RoPE
@@ -275,55 +281,35 @@ class FlashAttentionPacked(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, qkv, key_bias, heads, q_scale, rope_cos, rope_sin):
-        global LAUNCHES, LSE_LAUNCHES
-        if qkv.device.type == "cpu":
-            out, lse = flash_attention_packed_lse_reference(
-                qkv, key_bias, heads, q_scale, rope_cos, rope_sin)
-        else:
-            out, lse = _launch_lse(qkv, key_bias, heads, q_scale, rope_cos,
-                                   rope_sin)
-            if rope_cos is None:
-                LSE_LAUNCHES += 1
-            else:
-                LAUNCHES += 1
+        out, lse = torch.ops.tpu3dssf.packed_attention_lse(
+            qkv, key_bias, heads, q_scale, rope_cos, rope_sin,
+            "K2" if rope_cos is None else "K1")
         ctx.save_for_backward(qkv, key_bias, lse, out, rope_cos, rope_sin)
         ctx.heads, ctx.q_scale = heads, q_scale
         return out
 
     @staticmethod
     def backward(ctx, g):
-        global BWD_LAUNCHES
         qkv, key_bias, lse, out, rope_cos, rope_sin = ctx.saved_tensors
         delta = row_delta(g, out, ctx.heads)
         if rope_cos is not None:
             dqkv = _rope_bwd(qkv, key_bias, g, lse, delta, ctx.heads,
                              ctx.q_scale, rope_cos, rope_sin)
-        elif qkv.device.type == "cpu":
-            dqkv = flash_attention_packed_bwd_reference(
-                qkv, key_bias, g, lse, delta, ctx.heads, ctx.q_scale)
         else:
-            dqkv = _launch_bwd(qkv, key_bias, g, lse, delta, ctx.heads,
-                               ctx.q_scale)
-            BWD_LAUNCHES += 1
+            dqkv = torch.ops.tpu3dssf.packed_attention_bwd(
+                qkv, key_bias, g, lse, delta, ctx.heads, ctx.q_scale, "K3")
         return dqkv, None, None, None, None, None
 
 
 def _rope_bwd(qkv, key_bias, g, lse, delta, heads, q_scale, rope_cos,
               rope_sin):
-    """dqkv of the RoPE branch (see :class:`FlashAttentionPacked`): K9 on a
-    CUDA tensor, counted in :data:`FLASH_BWD_LAUNCHES`, its plain version
-    on a CPU tensor."""
-    global FLASH_BWD_LAUNCHES
+    """dqkv of the RoPE branch (see :class:`FlashAttentionPacked`): the
+    op ``tpu3dssf::attention_bwd`` as K9 (its plain version on a CPU
+    tensor) on the rotated q and k with q_scale 1."""
     qs, kr, v, _ = _rope_views(qkv, heads, q_scale, rope_cos, rope_sin)
     dout = g.contiguous().unflatten(-1, (heads, -1))
-    if qkv.device.type == "cpu":
-        dqs, dkr, dv = flash_attention_bwd_reference(qs, kr, v, key_bias,
-                                                     dout, lse, delta)
-    else:
-        dqs, dkr, dv = _launch_flash_bwd(qs, kr, v, key_bias, dout, lse,
-                                         delta, 1.0,
-                                         name="flash_attention_packed")
-        FLASH_BWD_LAUNCHES += 1
+    dqs, dkr, dv = torch.ops.tpu3dssf.attention_bwd(
+        qs, kr, v, key_bias, dout, lse, delta, 1.0, "K9")
     dq = rope_rotate(dqs, rope_cos, rope_sin, q_scale, inverse=True)
     dk = rope_rotate(dkr, rope_cos, rope_sin, inverse=True)
     return torch.cat([dq.flatten(2), dk.flatten(2), dv.flatten(2)], dim=-1)
@@ -339,37 +325,22 @@ def flash_attention(q, k, v, key_bias=None):
     −1e9 pad keys got zero weight, so the result is the same.
 
     When autograd needs a gradient of q, k or v this is
-    :class:`FlashAttention`, counted as K8 and K9; otherwise K8 on a CUDA
-    tensor and :func:`mha_reference` on a CPU tensor. On a CUDA tensor:
+    :class:`FlashAttention`, counted as K8 and K9; otherwise the op
+    ``tpu3dssf::attention`` as K8: the kernel on a CUDA tensor and
+    :func:`mha_reference` on a CPU tensor. On a CUDA tensor:
     bf16, D in :data:`SUPPORTED_HEAD_DIMS`, each of q, k, v with a
     contiguous head dim, 16-byte-aligned rows and strides that are
     multiples of 8 (views of a packed projection qualify); anything else
     raises.
     """
-    global FLASH_LAUNCHES
     B, N = q.shape[:2]
     if key_bias is None:
         key_bias = torch.zeros((B, 1, N), dtype=torch.float32,
                                device=q.device)
     key_bias = key_bias.to(torch.float32).contiguous()
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        return FlashAttention.apply(q, k, v, key_bias, None, _K8_K9,
-                                    "flash_attention")
-    if q.device.type == "cpu":
-        return mha_reference(q, k, v, key_bias)
-    out = _launch_flash(q, k, v, key_bias, _softmax_scale(q))
-    FLASH_LAUNCHES += 1
-    return out
-
-
-def _count(counter):
-    """Add one to a launch counter given as (module, name of its global)."""
-    module, name = counter
-    setattr(module, name, getattr(module, name) + 1)
-
-
-_K8_K9 = ((sys.modules[__name__], "FLASH_LAUNCHES"),
-          (sys.modules[__name__], "FLASH_BWD_LAUNCHES"))
+        return FlashAttention.apply(q, k, v, key_bias, None, ("K8", "K9"))
+    return torch.ops.tpu3dssf.attention(q, k, v, key_bias, None, "K8")
 
 
 class FlashAttention(torch.autograd.Function):
@@ -378,33 +349,27 @@ class FlashAttention(torch.autograd.Function):
     ``_wa_fwd``/``_wa_bwd`` for
     :func:`tpu3dssf_torch.kernels.window_attention.window_attention`.
 
-    ``apply(q, k, v, key_bias, query_mask, counters, name)``. The forward
-    launches the forward kernel with its LSE, zeroes the query rows that
-    ``query_mask`` (broadcastable to the output, in its dtype; None keeps
-    every row) drops, and saves (q, k, v, key_bias, query_mask, lse, out).
-    The backward masks the incoming gradient the same way, takes delta =
-    rowsum(g·out) per head in plain torch and launches the backward kernel,
-    which the TPU kernel fed from a full-row recompute instead (the same
-    gradient). ``counters`` are the (forward, backward) launch counters as
-    :func:`_count` takes them: K8/K9 for :func:`flash_attention`, K4/K5 for
-    the window route. ``name`` names the caller in errors. ``key_bias``
-    gets no gradient (JAX returns zeros for it).
+    ``apply(q, k, v, key_bias, query_mask, kernels)``. The forward runs
+    the op ``tpu3dssf::attention_lse`` (the forward kernel with its LSE),
+    zeroes the query rows that ``query_mask`` (broadcastable to the output,
+    in its dtype; None keeps every row) drops, and saves (q, k, v,
+    key_bias, query_mask, lse, out). The backward masks the incoming
+    gradient the same way, takes delta = rowsum(g·out) per head in plain
+    torch and runs ``tpu3dssf::attention_bwd`` (the backward kernel, which
+    the TPU kernel fed from a full-row recompute instead: the same
+    gradient). ``kernels`` names the TPU kernels the two ops count as:
+    ("K8", "K9") for :func:`flash_attention`, ("K4", "K5") for the window
+    route. ``key_bias`` gets no gradient (JAX returns zeros for it).
     """
 
     @staticmethod
-    def forward(ctx, q, k, v, key_bias, query_mask, counters, name):
-        scale = _softmax_scale(q)
-        if q.device.type == "cpu":
-            out, lse = flash_attention_lse_reference(q, k, v, key_bias,
-                                                     scale)
-        else:
-            out, lse = _launch_flash(q, k, v, key_bias, scale, with_lse=True,
-                                     name=name)
-            _count(counters[0])
+    def forward(ctx, q, k, v, key_bias, query_mask, kernels):
+        out, lse = torch.ops.tpu3dssf.attention_lse(
+            q, k, v, key_bias, _softmax_scale(q), kernels[0])
         if query_mask is not None:
             out = out * query_mask
         ctx.save_for_backward(q, k, v, key_bias, query_mask, lse, out)
-        ctx.counter, ctx.name = counters[1], name
+        ctx.kernel = kernels[1]
         return out
 
     @staticmethod
@@ -413,24 +378,17 @@ class FlashAttention(torch.autograd.Function):
         if query_mask is not None:
             g = g * query_mask
         delta = row_delta(g, out)
-        scale = _softmax_scale(q)
-        if q.device.type == "cpu":
-            grads = flash_attention_bwd_reference(q, k, v, key_bias, g, lse,
-                                                  delta, scale)
-        else:
-            grads = _launch_flash_bwd(q, k, v, key_bias, g.contiguous(), lse,
-                                      delta, scale, name=ctx.name)
-            _count(ctx.counter)
-        return (*grads, None, None, None, None)
+        grads = torch.ops.tpu3dssf.attention_bwd(
+            q, k, v, key_bias, g, lse, delta, _softmax_scale(q), ctx.kernel)
+        return (*grads, None, None, None)
 
 
 def _softmax_scale(q):
     return 1.0 / (q.shape[-1] ** 0.5)
 
 
-def _check(qkv, heads):
-    """The packed layout's contract; :func:`_check_views` checks the rest on
-    the q, k, v views."""
+def check_packed(qkv, heads):
+    """The packed layout's shape, which every device needs."""
     if qkv.dim() != 3 or qkv.shape[-1] % 3:
         raise ValueError(f"flash_attention_packed: qkv must be (B, N, 3C), "
                          f"got {tuple(qkv.shape)}")
@@ -438,16 +396,38 @@ def _check(qkv, heads):
     if C % heads:
         raise ValueError(f"flash_attention_packed: head dim C/heads = "
                          f"{C}/{heads} is not an integer")
+
+
+def _check(qkv, heads):
+    """The packed layout's contract; :func:`check_layout` checks the rest
+    on the q, k, v views."""
+    check_packed(qkv, heads)
     if not qkv.is_contiguous():
         raise ValueError("flash_attention_packed: qkv must be contiguous")
 
 
 def _check_views(name, views, key_bias):
-    """The kernels' contract on (B, N, H, D) views; raises on the first
-    breach."""
+    """The kernels' contract on (B, N, H, D) views of CUDA tensors; raises
+    on the first breach."""
     q = views[0]
     if q.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {q.device}")
+    check_layout(name, views, key_bias)
+    for x in views:
+        if x.data_ptr() % 16:
+            raise ValueError(_layout_error(name, x))
+
+
+def _layout_error(name, x):
+    return (f"{name}: each head's D channels must be contiguous, with "
+            f"16-byte-aligned rows and strides a multiple of 8, got strides "
+            f"{x.stride()}")
+
+
+def check_layout(name, views, key_bias):
+    """The part of :func:`_check_views` that needs no data (dtypes, shapes,
+    strides, devices, D), which the ops' fake kernels check too."""
+    q = views[0]
     for x in views:
         if x.dtype != torch.bfloat16:
             raise TypeError(f"{name}: the CUDA kernel takes bfloat16 "
@@ -456,12 +436,8 @@ def _check_views(name, views, key_bias):
             raise ValueError(f"{name}: every tensor must be (B, N, H, D) = "
                              f"{tuple(q.shape)} on {q.device}, got "
                              f"{tuple(x.shape)} on {x.device}")
-        if (x.stride(-1) != 1 or any(s % 8 for s in x.stride()[:3])
-                or x.data_ptr() % 16):
-            raise ValueError(f"{name}: each head's D channels must be "
-                             f"contiguous, with 16-byte-aligned rows and "
-                             f"strides a multiple of 8, got strides "
-                             f"{x.stride()}")
+        if x.stride(-1) != 1 or any(s % 8 for s in x.stride()[:3]):
+            raise ValueError(_layout_error(name, x))
     B, N, H, D = q.shape
     if D not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"{name}: head dim {D} must be one of "
@@ -475,24 +451,28 @@ def _check_views(name, views, key_bias):
                          f"{key_bias.device}")
 
 
-def _check_rope(name, q, rope):
-    """The RoPE branch's contract: D = 64 (the D = 16 kernel has no RoPE
-    branch) and contiguous 16-byte-aligned (N, D/2) f32 tables on q's
-    card."""
+def check_rope(name, q, rope):
+    """The RoPE branch's contract but for the tables' 16-byte alignment
+    (which the launcher adds): D = 64 (the D = 16 kernel has no RoPE
+    branch) and contiguous (N, D/2) f32 tables on q's card."""
     B, N, H, D = q.shape
     if D != 64:
         raise ValueError(f"{name}: RoPE in the kernel is built for head dim "
                          f"64 only, got {D} (the plain version takes any D)")
     for x in rope:
         if (x.device != q.device or x.dtype != torch.float32
-                or tuple(x.shape) != (N, D // 2) or not x.is_contiguous()
-                or x.data_ptr() % 16):
-            raise ValueError(f"{name}: rope_cos/rope_sin must be contiguous "
-                             f"float32 {(N, D // 2)} tables on {q.device}, "
-                             f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+                or tuple(x.shape) != (N, D // 2) or not x.is_contiguous()):
+            raise ValueError(_rope_error(name, q, x))
 
 
-def _check_stats(name, q, lse, delta):
+def _rope_error(name, q, x):
+    N, D = q.shape[1], q.shape[3]
+    return (f"{name}: rope_cos/rope_sin must be contiguous float32 "
+            f"{(N, D // 2)} tables on {q.device}, got {x.dtype} "
+            f"{tuple(x.shape)} on {x.device}")
+
+
+def check_stats(name, q, lse, delta):
     B, N, H, _ = q.shape
     for what, x in (("lse", lse), ("delta", delta)):
         if (x.device != q.device or x.dtype != torch.float32
@@ -542,15 +522,18 @@ def _launch_flash(q, k, v, key_bias, q_scale, with_lse=False,
                   name="flash_attention", rope=None):
     """Launch the forward kernel on (B, N, H, D) views of q, k, v: out
     (B, N, H, D) bf16, and with ``with_lse`` also lse (B, H, N) f32. It
-    serves K8, the window routes' K6 and K4, and the packed K1/K2; the
-    caller counts it. ``rope`` (cos, sin), D = 64 only: the RoPE branch,
+    serves K8, the window routes' K6 and K4, and the packed K1/K2; the op
+    that calls it counts it. ``rope`` (cos, sin), D = 64 only: the RoPE branch,
     q·q_scale rotated in the kernel's Q pass and k rotated once by a
     pre-kernel into a (B, N, H, D) bf16 scratch taken here, which the
     attention kernel then reads in place of k (two device kernels)."""
     _check_views(name, (q, k, v), key_bias)
     B, N, H, D = q.shape
     if rope is not None:
-        _check_rope(name, q, rope)
+        check_rope(name, q, rope)
+        for x in rope:
+            if x.data_ptr() % 16:
+                raise ValueError(_rope_error(name, q, x))
     out = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, H, N), dtype=torch.float32, device=q.device)
            if with_lse else None)
@@ -574,9 +557,10 @@ def _launch_flash_bwd(q, k, v, key_bias, dout, lse, delta, q_scale,
     """Launch the backward kernel on (B, N, H, D) views: (dq, dk, dv),
     written into ``out`` (three views) when given, else into new (B, N, H,
     D) tensors. It serves K9, the window route's K5 and the packed K3; the
-    caller counts it. The scratch for dq is :func:`dq_scratch`'s."""
+    op that calls it counts it. The scratch for dq is
+    :func:`dq_scratch`'s."""
     _check_views(name, (q, k, v, dout), key_bias)
-    _check_stats(name, q, lse, delta)
+    check_stats(name, q, lse, delta)
     if out is None:
         out = tuple(torch.empty_like(q, memory_format=torch.contiguous_format)
                     for _ in range(3))
@@ -631,7 +615,7 @@ def _scale(q_scale):
     return 1.0 if q_scale is None else float(q_scale)
 
 
-def _rope(rope_cos, rope_sin):
+def rope_pair(rope_cos, rope_sin):
     if (rope_cos is None) != (rope_sin is None):
         raise ValueError("flash_attention_packed: pass both rope_cos and "
                          "rope_sin, or neither")
@@ -639,31 +623,29 @@ def _rope(rope_cos, rope_sin):
 
 
 def _launch(qkv, key_bias, heads, q_scale, rope_cos=None, rope_sin=None):
-    """Launch K1 (with tables: its RoPE branch) on the packed layout and
-    count it."""
-    global LAUNCHES
+    """Launch K1 (with tables: its RoPE branch) on the packed layout; the
+    op counts it."""
     _check(qkv, heads)
     out = _launch_flash(*_split_heads(qkv, heads), key_bias, _scale(q_scale),
                         name="flash_attention_packed",
-                        rope=_rope(rope_cos, rope_sin))
-    LAUNCHES += 1
+                        rope=rope_pair(rope_cos, rope_sin))
     return out.flatten(2)
 
 
 def _launch_lse(qkv, key_bias, heads, q_scale, rope_cos=None, rope_sin=None):
     """Launch the forward-with-LSE kernel on the packed layout: K2/K4, or
-    with tables K1's RoPE branch; the caller counts it."""
+    with tables K1's RoPE branch; the op counts it."""
     _check(qkv, heads)
     out, lse = _launch_flash(*_split_heads(qkv, heads), key_bias,
                              _scale(q_scale), with_lse=True,
                              name="flash_attention_packed",
-                             rope=_rope(rope_cos, rope_sin))
+                             rope=rope_pair(rope_cos, rope_sin))
     return out.flatten(2), lse
 
 
 def _launch_bwd(qkv, key_bias, dout, lse, delta, heads, q_scale):
     """Launch the backward kernel (K3/K5) on the packed layout, into one
-    packed dqkv (B, N, 3C); the caller counts it."""
+    packed dqkv (B, N, 3C); the op counts it."""
     _check(qkv, heads)
     dqkv = torch.empty_like(qkv)
     _launch_flash_bwd(*_split_heads(qkv, heads), key_bias,

@@ -14,8 +14,9 @@ Each name is looked up when it is first asked for, so the kernel modules
 may use this one too.
 
 :data:`COUNTERS` is the one list of the launch counters, by the TPU kernel
-each counts (K1–K9): :func:`launch_counts` reads them and
-:func:`set_launch_counts` writes them (the CUDA-graph wrapper of
+each counts (K1–K9): :func:`count` adds a launch (the ops of
+:mod:`tpu3dssf_torch.kernels.ops` call it), :func:`launch_counts` reads
+them and :func:`set_launch_counts` writes them (the CUDA-graph wrapper of
 :mod:`tpu3dssf_torch.train.graph` puts them back after a capture and adds a
 capture's counts on every replay).
 """
@@ -51,6 +52,15 @@ def launch_counts() -> dict:
     """{"K1": launches, ..., "K9": launches} made in this process."""
     return {k: getattr(__getattr__(m), name)
             for k, (m, name) in COUNTERS.items()}
+
+
+def count(kernel: str):
+    """Add one launch to the counter of ``kernel`` ("K1" ... "K9"): the
+    ops of :mod:`tpu3dssf_torch.kernels.ops` call it where their CUDA
+    kernels launch."""
+    m, name = COUNTERS[kernel]
+    module = __getattr__(m)
+    setattr(module, name, getattr(module, name) + 1)
 
 
 def set_launch_counts(counts: dict):

@@ -8,8 +8,9 @@ its custom VJP (:class:`WindowAttentionPacked`, the training rule of the
 C ∈ {32, 64} stages at a window that is a multiple of 128); and the plain
 ``window_attention_reference``. Windows are batch rows of a full MHA, so
 both launch the strided attention kernels of
-:mod:`tpu3dssf_torch.kernels.flash_attention`, counted here as the TPU
-kernels they replace:
+:mod:`tpu3dssf_torch.kernels.flash_attention` through the ops of
+:mod:`tpu3dssf_torch.kernels.ops`, counted here as the TPU kernels they
+replace:
 
 * K6 ``_attn_kernel``, the inference forward of :func:`window_attention`
   (:data:`LAUNCHES`);
@@ -28,8 +29,6 @@ buffer per block; the packed rule writes dqkv in place).
 
 from __future__ import annotations
 
-import sys
-
 import torch
 
 from tpu3dssf_torch.kernels.modules import flash_attention as fa
@@ -37,7 +36,7 @@ from tpu3dssf_torch.kernels.modules import flash_attention as fa
 _NEG = -1e9
 
 # kernel launches made in this process: K6 by window_attention, and K4 and
-# K5 by the training rules of both window routes
+# K5 by the training rules of both window routes (counted by the ops)
 LAUNCHES = 0
 LSE_LAUNCHES = 0
 BWD_LAUNCHES = 0
@@ -84,27 +83,17 @@ def window_attention(q, k, v, key_mask):
 
     When autograd needs a gradient of q, k or v this is
     :class:`~tpu3dssf_torch.kernels.flash_attention.FlashAttention` with the
-    query mask, counted as K4 forward and K5 backward; otherwise K6 on a
-    CUDA tensor and the plain version on a CPU tensor. On a CUDA tensor q,
+    query mask, counted as K4 forward and K5 backward; otherwise the op
+    ``tpu3dssf::attention`` as K6: the kernel on a CUDA tensor (then the
+    query mask) and the plain version on a CPU tensor. On a CUDA tensor q,
     k and v follow :func:`flash_attention`'s contract (bf16, D in {16, 64},
     strided views allowed); anything else raises.
     """
-    global LAUNCHES
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         return fa.FlashAttention.apply(q, k, v, key_bias(key_mask),
-                                       _query_mask(key_mask, q), _K4_K5,
-                                       "window_attention")
-    if q.device.type == "cpu":
-        return window_attention_reference(q, k, v, key_mask)
-    out = fa._launch_flash(q, k, v, key_bias(key_mask),
-                           1.0 / (q.shape[-1] ** 0.5),
-                           name="window_attention")
-    LAUNCHES += 1
-    return out * _query_mask(key_mask, out)
-
-
-_K4_K5 = ((sys.modules[__name__], "LSE_LAUNCHES"),
-          (sys.modules[__name__], "BWD_LAUNCHES"))
+                                       _query_mask(key_mask, q), ("K4", "K5"))
+    return torch.ops.tpu3dssf.attention(q, k, v, key_bias(key_mask),
+                                        key_mask, "K6")
 
 
 def window_attention_packed(qkv, key_mask, heads):
@@ -127,24 +116,21 @@ class WindowAttentionPacked(torch.autograd.Function):
     """The training rule of :func:`window_attention_packed` (port of
     ``_wap_fwd``/``_wap_bwd``).
 
-    Forward: the LSE kernel (K4), then the masked query rows are zeroed;
-    (qkv, bias, mask, lse, zeroed out) are saved. Backward: the incoming
-    gradient is masked on the query side, delta = rowsum(g·out) per head is
-    taken in plain torch, and the backward kernel (K5) returns dqkv.
+    Forward: the LSE kernel (the op ``tpu3dssf::packed_attention_lse`` as
+    K4), then the masked query rows are zeroed; (qkv, bias, mask, lse,
+    zeroed out) are saved. Backward: the incoming gradient is masked on the
+    query side, delta = rowsum(g·out) per head is taken in plain torch, and
+    the backward kernel (``tpu3dssf::packed_attention_bwd`` as K5) returns
+    dqkv.
     """
 
     @staticmethod
     def forward(ctx, qkv, key_mask, heads):
-        global LSE_LAUNCHES
         D = (qkv.shape[-1] // 3) // heads
         scale = 1.0 / (D ** 0.5)
         bias = key_bias(key_mask)
-        if qkv.device.type == "cpu":
-            out, lse = fa.flash_attention_packed_lse_reference(
-                qkv, bias, heads, scale)
-        else:
-            out, lse = fa._launch_lse(qkv, bias, heads, scale)
-            LSE_LAUNCHES += 1
+        out, lse = torch.ops.tpu3dssf.packed_attention_lse(
+            qkv, bias, heads, scale, None, None, "K4")
         out = out * _query_mask(key_mask, out)
         ctx.save_for_backward(qkv, bias, key_mask, lse, out)
         ctx.heads, ctx.scale = heads, scale
@@ -152,15 +138,9 @@ class WindowAttentionPacked(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        global BWD_LAUNCHES
         qkv, bias, key_mask, lse, out = ctx.saved_tensors
         g = g * _query_mask(key_mask, g)
         delta = fa.row_delta(g, out, ctx.heads)
-        if qkv.device.type == "cpu":
-            dqkv = fa.flash_attention_packed_bwd_reference(
-                qkv, bias, g, lse, delta, ctx.heads, ctx.scale)
-        else:
-            dqkv = fa._launch_bwd(qkv, bias, g, lse, delta, ctx.heads,
-                                  ctx.scale)
-            BWD_LAUNCHES += 1
+        dqkv = torch.ops.tpu3dssf.packed_attention_bwd(
+            qkv, bias, g, lse, delta, ctx.heads, ctx.scale, "K5")
         return dqkv, None, None

@@ -33,7 +33,6 @@ CLI config's ``vit_looped`` is accepted and has no effect).
 from __future__ import annotations
 
 import dataclasses
-import functools
 import math
 from typing import Optional, Tuple
 
@@ -47,6 +46,7 @@ from tpu3dssf_torch.kernels.flash_attention import (flash_attention,
                                                     pick_head_group,
                                                     rope_rotate)
 from tpu3dssf_torch.models.layers import Dense, LayerNorm
+from tpu3dssf_torch.utils.constants import device_constants
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -293,7 +293,7 @@ def _resize_matrix(n_in: int, n_out: int) -> np.ndarray:
     return np.where(inside[None, :], weights, f32(0.0)).T.astype(f32)
 
 
-@functools.lru_cache(maxsize=None)
+@device_constants
 def _device_constants(H, W, Ho, Wo, mm, device):
     """The two resize matrices (in ``mm`` and back to f32) and the ImageNet
     mean and std on ``device``, made once: a step holds no host-to-device

@@ -12,21 +12,24 @@ sums are taken in an order that changes from run to run (integer outputs
 do not depend on it).
 
 The k-NN parity modes (``intensity_mode="knn5"``, :func:`devoxelize_nearest`)
-find neighbours with :func:`_topk_neighbors`: a CUDA tensor launches the
-hand-written kernel K7 (:mod:`tpu3dssf_torch.kernels.knn`), a CPU tensor
-takes the plain version :func:`topk_neighbors_reference`.
+find neighbours with :func:`_topk_neighbors`, the op ``tpu3dssf::knn``: a
+CUDA tensor launches the hand-written kernel K7
+(:mod:`tpu3dssf_torch.kernels.knn`), a CPU tensor takes the plain version
+:func:`~tpu3dssf_torch.kernels.knn.topk_neighbors_reference` (importable
+from here too).
 """
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import torch
 
 from tpu3dssf_torch.kernels import knn
+from tpu3dssf_torch.kernels.knn import topk_neighbors_reference  # noqa: F401
 from tpu3dssf_torch.serialization.codes import pack_cell_keys
 from tpu3dssf_torch.serialization.partition import argsort_lex
+from tpu3dssf_torch.utils.constants import device_constants
 
 # the reference's 5-NN intensity weights (utils/lidar.py:101)
 KNN_INTENSITY_WEIGHTS = (0.4, 0.3, 0.2, 0.05, 0.05)
@@ -147,66 +150,14 @@ def devoxelize_own_voxel(point_voxel, point_ok, voxel_values):
     return torch.where(point_ok[..., None], values, 0.0), point_voxel
 
 
-def topk_neighbors_reference(queries, refs, ref_mask, k, chunk=1 << 24):
-    """Plain PyTorch version of K7: the k nearest valid refs per query.
-
-    Same function as the JAX package's ``_tiled_topk_neighbors`` (its XLA
-    path): squared distances ``(|q|² − 2·q·r) + |r|²`` with every product
-    and sum rounded in f32 in that order (written elementwise, so no matmul
-    and no fused multiply-add: the kernel does the same operations and
-    both are bit-identical), masked refs at :data:`KNN_BAD_DIST`, then k
-    rounds of argmin (first index of the minimum) that each set the winner
-    to :data:`KNN_BAD_DIST`. Neighbours come in (distance, index) order;
-    a query with fewer than k valid refs gets (KNN_BAD_DIST, 0) in the
-    slots left over. Rows of queries are taken ``chunk // R`` at a time,
-    so no (Q, R) matrix exists for the whole sample.
-
-    Args:
-      queries: (B, Q, 3) float32; refs: (B, R, 3) float32; ref_mask:
-        (B, R) bool; k: neighbours per query (1 ≤ k ≤ R).
-
-    Returns (distances (B, Q, k) float32, indices (B, Q, k) int32).
-    """
-    B, Q, _ = queries.shape
-    R = refs.shape[1]
-    qn = _sq_norm(queries)                                # (B, Q)
-    rn = _sq_norm(refs)                                   # (B, R)
-    rows = max(1, chunk // R)
-    dist, idx = [], []
-    for s in range(0, Q, rows):
-        q = queries[:, s:s + rows, None, :]               # (B, q, 1, 3)
-        r = refs[:, None, :, :]                           # (B, 1, R, 3)
-        dot = (q[..., 0] * r[..., 0] + q[..., 1] * r[..., 1]) \
-            + q[..., 2] * r[..., 2]
-        d = (qn[:, s:s + rows, None] - 2.0 * dot) + rn[:, None, :]
-        d = torch.where(ref_mask[:, None, :], d, KNN_BAD_DIST)
-        best_d, best_i = [], []
-        for _ in range(k):
-            a = d.argmin(dim=-1, keepdim=True)            # first minimum
-            best_d.append(d.gather(-1, a))
-            best_i.append(a)
-            d.scatter_(-1, a, KNN_BAD_DIST)
-        dist.append(torch.cat(best_d, -1))
-        idx.append(torch.cat(best_i, -1))
-    return torch.cat(dist, 1), torch.cat(idx, 1).to(torch.int32)
-
-
-def _sq_norm(x):
-    """(x·x + y·y) + z·z in f32, the JAX package's order."""
-    return (x[..., 0] * x[..., 0] + x[..., 1] * x[..., 1]) \
-        + x[..., 2] * x[..., 2]
-
-
 def _topk_neighbors(queries, refs, ref_mask, k):
-    """K7 on a CUDA tensor, the plain version on a CPU tensor. Like the
-    JAX function, it takes no query mask: every query gets neighbours and
-    the callers mask the invalid ones."""
-    if queries.device.type == "cpu":
-        return topk_neighbors_reference(queries, refs, ref_mask, k)
-    return knn.knn(queries, refs, ref_mask, k)
+    """The op ``tpu3dssf::knn``: K7 on a CUDA tensor, the plain version on
+    a CPU tensor. Like the JAX function, it takes no query mask: every
+    query gets neighbours and the callers mask the invalid ones."""
+    return torch.ops.tpu3dssf.knn(queries, refs, ref_mask, k)
 
 
-@functools.lru_cache(maxsize=None)
+@device_constants
 def _weights(weights, device):
     """``weights`` as an f32 tensor on ``device``, made once (a step holds
     no host-to-device copy, which a CUDA graph could not replay)."""
