@@ -186,10 +186,34 @@ order (any failure raises, exit code ≠ 0):
     artifacts' size and the wall ms of a call of each: the eager model,
     the port's own graphed call, the loaded program eager and graphed;
     and the host µs of a K1 call through its launcher, its op and its
-    wrapper (:func:`op_dispatch_us`).
+    wrapper (:func:`op_dispatch_us`);
+26. two gloo ranks sharing the card (:func:`run_parallel`, one process
+    each, ``tpu3dssf_torch.parallel``), each checking on its own: (a)
+    ``main_infer`` over the fusion config with ``mesh_shape: [2]`` (3 test
+    scenes at batch 2, one per rank; the second batch padded by
+    ``pad_to``): exactly 34 K1 per batch on each rank and no other kernel,
+    the all-reduced counts equal to the sum of the ranks' own and to
+    one-process ``main_infer``'s on the same scenes (``mesh_shape: [1]``,
+    the loss within ``REL_TOL``), finite metrics, and the rank's logits on
+    the first batch within ``REL_TOL`` of the same rows of the one-process
+    batch; (b) one data-parallel train step (batch 2, one scene per rank,
+    eager) against the one-process step from the same state: per rank K2
+    14, K3 14, K4 8, K5 8 as one process has, the loss within
+    ``REL_TOL``, the gradients' and the updates' cosines at least
+    ``DP_COSINE`` (two faulty controls must fall below it) and every
+    updated parameter within ``DP_PARAM_LRS`` learning rates; (c) the
+    ViT-L/16 encode of one scene (6 images) at TP = 2: exactly 24 K1 per
+    rank, each at 8 heads of a 512-wide qkv with the RoPE branch, no K8,
+    the patch tokens within ``REL_TOL`` of the unsharded encode's; (d) one
+    block of PTv3's first stage (C = 32, window 1024) over 2 x 17,408 of
+    the 34,816 points at batch 2: one K1 per rank forward and one K4 + K5
+    for the input gradient, both within ``REL_TOL`` of the unsharded
+    block's. Every kernel call of (a)-(d) is also held against its plain
+    version on its own inputs (:func:`hold_calls`). The ranks' wall times
+    are two ranks sharing one H100: not a scaling result.
 
-``graphs``, ``remat`` and ``export`` print phases 22–25's records (times
-in ms, memory in bytes). The last two lines are a JSON record of the
+``graphs``, ``remat``, ``export`` and ``parallel`` print phases 22–26's
+records (times in ms or s as named, memory in bytes). The last two lines are a JSON record of the
 kernels and the device line.
 Every kernel record has ``launches`` (from its path's run), ``max_abs_err``
 (the largest error of its checks), ``ms`` (device time inside the path),
@@ -206,7 +230,10 @@ from the one-epoch run of step 8); K7's per parity batch (step 15;
 launches from step 14's main_infer run); K6's
 per window-48 batch (step 20), K8's per ViT-L encode (step 18) and K9's
 per ViT-L backward (step 19), with the bound and SDPA's time summed over
-that run's own calls.
+that run's own calls. ``parallel_launches_per_rank`` holds each kernel's
+launches on rank 0 of step 26 in each of its paths (the DP inference run,
+the DP train step, the TP ViT-L encode, the SP block's forward and its
+gradient).
 Every ``ms`` is device time from the profiler.
 Needs the repository checkout around it; JAX is never imported.
 """
@@ -899,6 +926,63 @@ class Capture:
         self.fa._launch_lse, self.fa._launch_bwd = self.lse, self.bwd
 
 
+def plain_call(k, args):
+    """The plain version of one captured call of a packed launcher on its
+    own inputs: K1 (``fa._launch``), K2/K4 (``_launch_lse``) or K3/K5
+    (``_launch_bwd``)."""
+    from tpu3dssf_torch.kernels.modules import flash_attention as fa
+    if k in ("K2", "K4"):
+        return fa.flash_attention_packed_lse_reference(*args)
+    if k in ("K3", "K5"):
+        return fa.flash_attention_packed_bwd_reference(*args)
+    return fa.flash_attention_packed_reference(*args)
+
+
+def call_error(k, args, out, ref):
+    """One captured call of ``k`` against its plain version's ``ref``:
+    (max abs error, its limit, error / max |plain|, LSE error on the rows
+    with a live key). The limit is KERNEL_TOL for K1, as in
+    :func:`k1_spec`; 0.05 · max(1, max |plain|) for K2–K5, whose outputs
+    (train-step activations and gradients) reach |x| ≥ 4, where one bf16
+    ulp is 0.03."""
+    lse = 0.0
+    if k in ("K2", "K4"):
+        live = (args[1][:, 0] == 0).any(-1)
+        if bool(live.any()):
+            lse = (out[1] - ref[1])[live].abs().max().item()
+        out, ref = out[0], ref[0]
+    e, limit = grad_error(out, ref)
+    if k == "K1":
+        limit = KERNEL_TOL
+    return e, limit, e / max(peak(ref), 1e-30), lse
+
+
+def hold_calls(what, calls):
+    """Every captured call ({K: [(inputs, outputs)]}, from
+    :func:`capture_calls` or :class:`Capture`) against its plain version on
+    the same inputs on the card, within :func:`call_error`'s limit, REL_TOL
+    of max |plain| and LSE_TOL. Returns {K: dict(calls, max_abs_err,
+    rel_err, lse_err)}; raises where a call is off."""
+    import torch
+    rows = {}
+    for k, kcalls in calls.items():
+        row = dict(calls=len(kcalls), max_abs_err=0.0, rel_err=0.0,
+                   lse_err=0.0)
+        for args, out in kcalls:
+            e, limit, rel, lse = call_error(k, args, out, plain_call(k, args))
+            row.update(max_abs_err=max(row["max_abs_err"], e),
+                       rel_err=max(row["rel_err"], rel),
+                       lse_err=max(row["lse_err"], lse))
+            if not (e < limit and rel <= REL_TOL and lse < LSE_TOL):
+                raise AssertionError(
+                    f"{what}: {k} on its own inputs against its plain "
+                    f"version: error {e} (limit {limit}), relative {rel} "
+                    f"(limit {REL_TOL}), LSE error {lse} (limit {LSE_TOL})")
+        rows[k] = row
+        torch.cuda.empty_cache()
+    return rows
+
+
 def time_train_step(card):
     """Phase 9: one train step at full width: its time, peak memory, and
     K2–K5 inside it (device time from the profiler; plain time and error on
@@ -985,22 +1069,10 @@ def time_train_step(card):
     for k, calls in cap.calls.items():
         plain_ms, err, rel, lse_err = 0.0, 0.0, 0.0, 0.0
         for args, out in calls:
-            if k in ("K2", "K4"):
-                def plain(args=args):
-                    return fa.flash_attention_packed_lse_reference(*args)
-                ref = plain()
-                e, limit = grad_error(out[0], ref[0])
-                live = (args[1][:, 0] == 0).any(-1)
-                lse_err = max(lse_err, (out[1] - ref[1])[live].abs()
-                              .max().item())
-                scale = ref[0].float().abs().max().item()
-            else:
-                def plain(args=args):
-                    return fa.flash_attention_packed_bwd_reference(*args)
-                ref = plain()
-                e, limit = grad_error(out, ref)
-                scale = ref.float().abs().max().item()
-            err, rel = max(err, e), max(rel, e / max(scale, 1e-30))
+            def plain(k=k, args=args):
+                return plain_call(k, args)
+            e, limit, r, lse = call_error(k, args, out, plain())
+            err, rel, lse_err = max(err, e), max(rel, r), max(lse_err, lse)
             if not (e < limit and rel <= REL_TOL and lse_err < LSE_TOL):
                 raise AssertionError(f"{k} on the train step's inputs: "
                                      f"error {e} (limit {limit}, relative "
@@ -2774,6 +2846,478 @@ def run_export(card, tmp):
     return record
 
 
+# ---- phase 26: two gloo ranks sharing the one card ----------------------
+# DP inference: 3 test scenes at batch 2 (1 per rank), the second batch
+# padded by pad_to; TP: the ViT-L/16 encode of one scene (6 images) at
+# TP = 2; SP: one block of PTv3's first stage (C = 32, 2 heads, window
+# 1024) at the fusion config's N = 34,816 and batch 2
+PARALLEL_RANKS = 2
+PARALLEL_SAMPLES, PARALLEL_BATCHES = 12, 2
+PARALLEL_TIMEOUT = 900
+PARALLEL_LABEL = "two ranks sharing one H100: not a scaling result"
+# the data-parallel train step against the one-process step from the same
+# state (both bf16 on the card, the kernels): loss within REL_TOL of its
+# value, the whole gradient's cosine at least DP_COSINE, and the cosine of
+# the two updates (every parameter's change, less the key part of each qkv
+# bias: see update_parts) at least DP_COSINE. Adam's first update is about
+# lr · sign(gradient), so a fault that changes the gradient's direction
+# anywhere flips signs and lowers that cosine: the step without its
+# gradient all-reduce, and the step with per-rank losses (no gather), run
+# as controls every time and must fall below it. Every updated parameter
+# is also within DP_PARAM_LRS learning rates (Adam moves each by at most
+# one lr in its first update)
+DP_COSINE = 0.999
+DP_PARAM_LRS = 2.0
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def rank_print(mesh, what, record):
+    print(f"parallel rank {mesh.rank} {what} " + json.dumps(record),
+          flush=True)
+
+
+def cosine(a, b):
+    import torch
+    a = torch.cat([x.float().reshape(-1) for x in a])
+    b = torch.cat([x.float().reshape(-1) for x in b])
+    return float(a @ b / (a.norm() * b.norm()).clamp_min(1e-30))
+
+
+def all_ranks(mesh, obj):
+    """``obj`` of every rank, in rank order."""
+    import torch.distributed as dist
+    out = [None] * mesh.size
+    dist.all_gather_object(out, obj)
+    return out
+
+
+def recorded_infer(path):
+    """``main_infer`` through its own entry point on config ``path``, its
+    metric sums recorded: (metrics, this rank's sums, the sums over the
+    mesh, batches)."""
+    from tpu3dssf_torch.cli import main_infer
+    from tpu3dssf_torch.train import loop
+    sums = []
+
+    class Recording(loop.MetricAccumulator):
+        def sums(self):
+            local = self.local_sums()
+            total = super().sums()
+            sums.append((local, total, self.it))
+            return total
+
+    plain = loop.MetricAccumulator
+    loop.MetricAccumulator = Recording
+    try:
+        metrics = main_infer.main(["--config", path])
+    finally:
+        loop.MetricAccumulator = plain
+    (local, total, batches), = sums
+    return metrics, local, total, batches
+
+
+def host_sums(sums):
+    return {k: (v.tolist() if hasattr(v, "tolist") else v)
+            for k, v in sums.items()}
+
+
+def parallel_infer(mesh, tmp):
+    """(a) ``main_infer`` on ``mesh_shape: [2]``: this rank's launches; the
+    all-reduced counts against the sum of each rank's own and against
+    ``main_infer`` in one process on the same scenes (``mesh_shape: [1]``,
+    run by rank 0): confusion, correct and valid equal, the loss within
+    REL_TOL; this rank's logits of the first test batch against the same
+    rows of the one-process batch, with each of the 34 K1 calls of that
+    frame held against its plain version."""
+    import numpy as np
+    import torch
+    from tpu3dssf_torch.cli import common
+    from tpu3dssf_torch.kernels.modules import flash_attention as fa
+    from tpu3dssf_torch.parallel import shard_batch
+
+    path, _ = config_copy(CONFIG, tmp, "dp.yaml", tpu=dict(
+        mesh_shape=[PARALLEL_RANKS], synthetic_samples=PARALLEL_SAMPLES))
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics, local, total, batches = recorded_infer(path)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = counters()
+    every = all_ranks(mesh, host_sums(local))
+    want = {k: 0 for k in counts}
+    want["K1"] = LAUNCHES_PER_BATCH * batches
+    summed = {k: sum(np.asarray(e[k]) for e in every)
+              for k in ("confusion", "correct", "valid")}
+    sums_ok = bool(np.array_equal(summed["confusion"], total["confusion"])
+                   and summed["correct"] == total["correct"]
+                   and summed["valid"] == total["valid"])
+
+    one = None
+    if mesh.rank == 0:
+        one_path, _ = config_copy(CONFIG, tmp, "one.yaml", tpu=dict(
+            mesh_shape=[1], synthetic_samples=PARALLEL_SAMPLES))
+        one_metrics, one_sums, _, one_batches = recorded_infer(one_path)
+        one = dict(host_sums(one_sums), batches=one_batches,
+                   metric_loss=float(one_metrics["loss"]))
+    one = all_ranks(mesh, one)[0]
+    loss, one_loss = float(metrics["loss"]), one["metric_loss"]
+    one_ok = bool(np.array_equal(total["confusion"],
+                                 np.asarray(one["confusion"]))
+                  and total["correct"] == one["correct"]
+                  and total["valid"] == one["valid"]
+                  and batches == one["batches"])
+
+    cfg = common.load_config(path)
+    device = mesh.device
+    encode, vit_cfg = common.build_image_encoder(cfg, device, graph=False)
+    model, _ = common.build_pipeline(cfg, vit_cfg, device)
+    batch, images, _ = first_batch(cfg, "test", device)
+    mine = {}
+    with torch.inference_mode():
+        def logits(b, imgs):
+            return model(b["points"], b["point_valid"], encode(imgs),
+                         b["cam_intrinsics"], b["lidar2cam"])
+        rows = shard_batch(logits(batch, images), mesh)
+
+        def frame():
+            mine["logits"] = logits(shard_batch(batch, mesh),
+                                    shard_batch(images, mesh))
+        calls = capture_calls(fa, "_launch", frame)
+    err = rel_err(mine["logits"], rows)
+    held = hold_calls(f"rank {mesh.rank} DP inference",
+                      {"K1": calls})["K1"]
+    del calls
+    record = dict(
+        launches=counts, want=want, batches=batches, cli_wall_s=wall,
+        sums_ok=sums_ok, one_process_ok=one_ok, loss=loss,
+        one_process_loss=one_loss,
+        loss_rel_err=abs(loss - one_loss) / abs(one_loss),
+        local_valid=int(local["valid"]), total_valid=int(total["valid"]),
+        logits_rel_err=err, k1_vs_plain=held, finite=bool(all(
+            np.isfinite(metrics[k]) for k in ("loss", "overall_acc",
+                                              "mean_iou"))),
+        note=PARALLEL_LABEL)
+    rank_print(mesh, "dp_infer", record)
+    if (counts != want or batches != PARALLEL_BATCHES or not sums_ok
+            or not one_ok or record["loss_rel_err"] > REL_TOL
+            or err > REL_TOL or held["calls"] != LAUNCHES_PER_BATCH
+            or not record["finite"]):
+        raise AssertionError(f"rank {mesh.rank}: DP inference off: {record}")
+    return record
+
+
+def update_parts(names, after, start):
+    """Each parameter's change, flattened, less the key part of each
+    ``attn.qkv.bias``: the key bias adds q·b_k to every score of a query
+    row, which softmax ignores, so its gradient is 0 in exact arithmetic and
+    rounding noise on both sides, which Adam's first step turns into ±lr
+    (tests/test_torch_parallel.py leaves it out likewise)."""
+    import torch
+    parts = []
+    for name, a, s in zip(names, after, start):
+        d = (a.float() - s.float()).reshape(-1)
+        if name.endswith("attn.qkv.bias"):
+            C = d.numel() // 3
+            d = torch.cat([d[:C], d[2 * C:]])
+        parts.append(d)
+    return parts
+
+
+def parallel_train(mesh):
+    """(b) one data-parallel train step at batch 2 (1 per rank), eager,
+    against the one-process step from the same state: launches, loss,
+    gradient and update (see DP_COSINE), and each of its K2–K5 calls
+    against its plain version; then the two controls, which must fail the
+    update's limit."""
+    import torch
+    from tpu3dssf_torch.cli import common
+    from tpu3dssf_torch.parallel import replicate, shard_batch
+    from tpu3dssf_torch.train import loop
+
+    cfg = load_config_plain()
+    device = mesh.device
+    encode, vit_cfg = common.build_image_encoder(cfg, device, graph=False)
+    batch, images, _ = first_batch(cfg, "test", device)
+    tokens = encode(images)
+    del encode
+    state, single, _ = fusion_state(cfg, vit_cfg, device)
+    replicate(state, mesh)
+    snap = snapshot(state, device)
+    names, params = zip(*state.model.named_parameters())
+    dp = loop.make_train_step(common.build_loss(cfg), mesh=mesh)
+    mine = shard_batch(batch, mesh), shard_batch(tokens, mesh)
+
+    def run(step, b, tok):
+        restore_in_place(state, snap)
+        reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(state, b, tok)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0, counters(), float(m["loss"]),
+                [p.detach().clone() for p in params],
+                [p.grad.detach().clone() for p in params])
+
+    def update_cosine(after, other):
+        return cosine(update_parts(names, after, snap["params"]),
+                      update_parts(names, other, snap["params"]))
+
+    dp_run = run(dp, *mine)
+    one_run = run(single, batch, tokens)
+    restore_in_place(state, snap)
+    with Capture(record=True) as cap:
+        dp(state, *mine)
+        torch.cuda.synchronize()
+    held = hold_calls(f"rank {mesh.rank} DP train step", cap.calls)
+    del cap
+    controls = {}
+    for name, attr, fault in (
+            ("no_all_reduce", "all_reduce_grads", lambda *a, **k: None),
+            ("no_gather", "gather_batch", lambda x, *a, **k: x)):
+        kept = getattr(loop, attr)
+        setattr(loop, attr, fault)
+        try:
+            controls[name] = update_cosine(run(dp, *mine)[3], one_run[3])
+        finally:
+            setattr(loop, attr, kept)
+    restore_in_place(state, snap)
+    lr = cfg.learning_rate
+    param_diff = max_diff(dp_run[3], one_run[3])
+    record = dict(
+        launches=dp_run[1], one_process_launches=one_run[1],
+        wall_s=dp_run[0], one_process_wall_s=one_run[0],
+        loss=dp_run[2], one_process_loss=one_run[2],
+        loss_rel_err=abs(dp_run[2] - one_run[2]) / abs(one_run[2]),
+        grad_cosine=cosine(dp_run[4], one_run[4]),
+        update_cosine=update_cosine(dp_run[3], one_run[3]),
+        update_cosine_limit=DP_COSINE, control_update_cosines=controls,
+        max_param_diff=param_diff, param_limit=DP_PARAM_LRS * lr,
+        kernels_vs_plain=held, note=PARALLEL_LABEL)
+    rank_print(mesh, "dp_train", record)
+    train = {k: v for k, v in TRAIN_LAUNCHES.items() if k != "K1"}
+    got = {k: v for k, v in dp_run[1].items() if v}
+    if (got != train or {k: v for k, v in one_run[1].items() if v} != train
+            or {k: r["calls"] for k, r in held.items()} != train
+            or record["loss_rel_err"] > REL_TOL
+            or record["grad_cosine"] < DP_COSINE
+            or record["update_cosine"] < DP_COSINE
+            or param_diff > DP_PARAM_LRS * lr):
+        raise AssertionError(f"rank {mesh.rank}: DP train step off: "
+                             f"{record} (launches expected {train})")
+    if any(c >= DP_COSINE for c in controls.values()):
+        raise AssertionError(f"rank {mesh.rank}: a faulty DP step passes "
+                             f"the update's limit {DP_COSINE}: {controls}")
+    return record
+
+
+def load_config_plain():
+    from tpu3dssf_torch.cli.common import load_config
+    return load_config(CONFIG)
+
+
+def parallel_vitl(mesh):
+    """(c) the ViT-L/16 encode of one scene (6 images at 640 x 1138) at
+    TP = 2: 24 K1 at 8 heads (C = 512) with the RoPE branch and no K8 per
+    rank, each K1 call held against its plain version (the launcher's own
+    check refuses a qkv that is not contiguous), the patch tokens against
+    the unsharded encode's."""
+    import torch
+    from tpu3dssf_torch.kernels.modules import flash_attention as fa
+    from tpu3dssf_torch.models.vit import prepare_tp_params
+    from tpu3dssf_torch.parallel import create_mesh, vit_tp_shardings
+
+    tp = create_mesh((PARALLEL_RANKS,), ("model",))
+    cfg = load_config_plain()
+    vit, vit_cfg, encode = vitl_encoder(cfg, mesh.device)
+    _, images, _ = first_batch(cfg, "test", mesh.device)
+    images = images[:1]
+    full = encode(images)
+    prepare_tp_params(vit, vit.config, tp)
+    vit_tp_shardings(vit, tp)
+    encode(images)          # a warm-up call: the kernels' first launch
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = encode(images)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = counters()
+    calls = capture_calls(fa, "_launch", lambda: encode(images))
+    held = hold_calls(f"rank {mesh.rank} TP ViT-L", {"K1": calls})["K1"]
+    record = dict(
+        launches=counts, wall_s=wall,
+        heads=sorted({args[2] for args, _ in calls}),
+        channels=sorted({args[0].shape[-1] // 3 for args, _ in calls}),
+        rope=all(args[4] is not None for args, _ in calls),
+        k1_vs_plain=held, rel_err=rel_err(got, full), note=PARALLEL_LABEL)
+    rank_print(mesh, "tp_vitl", record)
+    del vit, encode, full, got, calls
+    torch.cuda.empty_cache()
+    if (counts["K1"] != VITL_LAYERS or counts["K8"] != 0
+            or held["calls"] != VITL_LAYERS
+            or record["heads"] != [8] or record["channels"] != [512]
+            or not record["rope"] or record["rel_err"] > REL_TOL):
+        raise AssertionError(f"rank {mesh.rank}: TP ViT-L off: {record}")
+    return record
+
+
+def parallel_sp(mesh):
+    """(d) one PTv3 block of the fusion config's first stage sequence-
+    parallel over 2 ranks (17,408 of 34,816 points each, batch 2): its
+    forward (K1) and input gradient (K4 + K5) against the unsharded
+    block's on the card, and each of those calls against its plain
+    version."""
+    import torch
+    import torch.distributed as dist
+    from tpu3dssf_torch.kernels.modules import flash_attention as fa
+    from tpu3dssf_torch.models.layers import init_weights
+    from tpu3dssf_torch.models.ptv3 import PTv3Block
+    from tpu3dssf_torch.parallel import create_mesh, sp_block_apply
+
+    seq = create_mesh((PARALLEL_RANKS,), ("seq",))
+    cfg = load_config_plain()
+    device, dt = mesh.device, torch.bfloat16
+    C, heads, window = 32, 2, cfg.tpu.window_size
+    B, N = 2, cfg.tpu.voxel_capacity
+    blocks = [init_weights(PTv3Block(C, heads, window, 4.0, dtype=dt,
+                                     sp_axis=sp), 3).to(device)
+              for sp in (None, "seq")]
+    gen = torch.Generator().manual_seed(26)
+    x = torch.randn(B, N, C, generator=gen).to(device, dt)
+    proj = torch.randn(B, N, C, generator=gen).to(device, dt)
+    mask = torch.ones(B, N, dtype=torch.bool)
+    mask[1, int(0.9 * N):] = False          # a padded tail
+    mask[0, 17000:17800] = False            # a hole across the boundary
+    mask = mask.to(device)
+    span = N // seq.size
+    lo = seq.coords["seq"] * span
+
+    def forward():
+        with torch.no_grad():
+            return sp_block_apply(blocks[1], x, mask, seq, axis="seq")
+
+    def gradient():
+        xs = x.clone().requires_grad_()
+        y = sp_block_apply(blocks[1], xs, mask, seq, axis="seq")
+        (y * proj[:, lo:lo + span]).float().sum().backward()
+        return xs.grad
+
+    def timed(run):
+        reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, counters()
+
+    with torch.no_grad():
+        want = blocks[0](x, None, None, mask)
+    got, fwd_wall, fwd_counts = timed(forward)
+    xr = x.clone().requires_grad_()
+    (blocks[0](xr, None, None, mask) * proj).float().sum().backward()
+    g, grad_wall, grad_counts = timed(gradient)
+    g = g.float()
+    dist.all_reduce(g, group=seq.group("seq"))
+    calls = {"K1": capture_calls(fa, "_launch", forward)}
+    with Capture(record=True) as cap:
+        gradient()
+        torch.cuda.synchronize()
+    calls.update((k, v) for k, v in cap.calls.items() if v)
+    held = hold_calls(f"rank {mesh.rank} SP block", calls)
+    del calls, cap
+    record = dict(
+        points_per_rank=span, forward_launches=fwd_counts,
+        gradient_launches=grad_counts, forward_wall_s=fwd_wall,
+        gradient_wall_s=grad_wall,
+        rel_err=rel_err(got, want[:, lo:lo + span]),
+        grad_rel_err=rel_err(g, xr.grad.float()), kernels_vs_plain=held,
+        note=PARALLEL_LABEL)
+    rank_print(mesh, "sp_block", record)
+    fwd = {k: v for k, v in fwd_counts.items() if v}
+    grad = {k: v for k, v in grad_counts.items() if v}
+    if (fwd != {"K1": 1} or grad != {"K4": 1, "K5": 1}
+            or {k: r["calls"] for k, r in held.items()}
+            != {"K1": 1, "K4": 1, "K5": 1}
+            or record["rel_err"] > REL_TOL
+            or record["grad_rel_err"] > REL_TOL):
+        raise AssertionError(f"rank {mesh.rank}: SP block off: {record}")
+    return record
+
+
+def parallel_rank(out_dir):
+    """One rank of phase 26 (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and
+    ``MASTER_PORT`` in the environment): runs (a)-(d) and writes its record
+    to ``<out_dir>/rank<r>.json``; raises where a check fails."""
+    import torch
+    sys.path.insert(0, ROOT)
+    os.chdir(ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from tpu3dssf_torch.parallel import create_mesh
+    mesh = create_mesh((PARALLEL_RANKS,), ("data",))
+    tmp = tempfile.mkdtemp(prefix=f"tpu3dssf_rank{mesh.rank}_")
+    try:
+        record = dict(rank=mesh.rank, device=str(mesh.device),
+                      dp_infer=parallel_infer(mesh, tmp),
+                      dp_train=parallel_train(mesh),
+                      tp_vitl=parallel_vitl(mesh),
+                      sp_block=parallel_sp(mesh))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    with open(os.path.join(out_dir, f"rank{mesh.rank}.json"), "w") as f:
+        json.dump(record, f)
+    mesh.close()
+
+
+def run_parallel(card):
+    """Phase 26: two gloo ranks on the one card (one process each, started
+    together), running :func:`parallel_rank`; their output is relayed with
+    a ``[rank r]`` prefix. Raises where a rank fails. Returns the
+    ``parallel`` record."""
+    out_dir = tempfile.mkdtemp(prefix="tpu3dssf_parallel_")
+    env = dict(os.environ, WORLD_SIZE=str(PARALLEL_RANKS),
+               MASTER_ADDR="localhost", MASTER_PORT=str(free_port()))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "chip_smoke.parallel_rank(sys.argv[1])", out_dir], cwd=ROOT,
+        env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(PARALLEL_RANKS)]
+    try:
+        with ThreadPoolExecutor(max_workers=PARALLEL_RANKS) as pool:
+            logs = list(pool.map(
+                lambda p: p.communicate(timeout=PARALLEL_TIMEOUT)[0], procs))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r, log in enumerate(logs):
+        for line in log.splitlines()[-60:]:
+            print(f"[rank {r}] {line}")
+    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+    try:
+        if failed:
+            raise AssertionError(f"phase 26: rank(s) {failed} failed")
+        ranks = []
+        for r in range(PARALLEL_RANKS):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return dict(ranks=ranks, phase_wall_s=wall, card=card,
+                note=PARALLEL_LABEL)
+
+
 def per_path(rows, key, count):
     """Σ over a kernel's shapes of (calls per batch or step × per call)."""
     return sum(r[count] * r[key] for r in rows)
@@ -2900,6 +3444,20 @@ def main():
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    # phase 26: two gloo ranks sharing the card (DP inference and train
+    # step, ViT-L tensor parallelism, one sequence-parallel block)
+    torch.cuda.empty_cache()
+    parallel = run_parallel(card)
+
+    def parallel_launches(k):
+        """Launches of kernel ``k`` on rank 0 in each path of phase 26."""
+        r = parallel["ranks"][0]
+        return {"dp_infer": r["dp_infer"]["launches"][k],
+                "dp_train_step": r["dp_train"]["launches"][k],
+                "tp_vitl_encode": r["tp_vitl"]["launches"][k],
+                "sp_block_forward": r["sp_block"]["forward_launches"][k],
+                "sp_block_gradient": r["sp_block"]["gradient_launches"][k]}
+
     records = [{
         "name": KERNELS["K1"][0], "route": "cuda",
         "source": "tpu3dssf_torch/csrc/" + KERNELS["K1"][1],
@@ -3020,6 +3578,9 @@ def main():
         })
     records.sort(key=lambda r: next(k for k, v in KERNELS.items()
                                     if v[2] == r["replaces"]))
+    for record in records:
+        k = next(k for k, v in KERNELS.items() if v[2] == record["replaces"])
+        record["parallel_launches_per_rank"] = parallel_launches(k)
     print("slice " + json.dumps(dict(frame, card=card)))
     print("vitl_frame " + json.dumps(dict(
         vitl_frame, card=card, k8_route=route, gradient=grad,
@@ -3030,6 +3591,7 @@ def main():
     print("graphs " + json.dumps(graph_rows))
     print("remat " + json.dumps(dict(remat, card=card)))
     print("export " + json.dumps(export))
+    print("parallel " + json.dumps(parallel))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -814,6 +814,30 @@ def test_rope_rule_launches_k1_and_k9(cuda):
     _grads_close([x.grad], [f32.grad])
 
 
+@pytest.mark.parametrize("H", [3, 8])
+@pytest.mark.parametrize("N", [77, 2845])
+def test_rope_forward_at_the_tensor_parallel_head_counts(cuda, H, N):
+    """K1's RoPE branch at the head counts of a tensor-parallel shard (ViT-S
+    at TP = 2: 3 heads, C = 192; ViT-L at TP = 2: 8 heads, C = 512) on the
+    contiguous local qkv, against its plain version."""
+    gen = torch.Generator().manual_seed(H * N)
+    qkv = torch.randn(2, N, 3 * 64 * H, generator=gen).to(cuda,
+                                                           torch.bfloat16)
+    bias = torch.zeros(2, 1, N)
+    bias[1, :, -5:] = -1e9
+    n_pre = min(5, N)
+    angles = torch.rand(N - n_pre, 32, generator=gen) * 6 - 3
+    cos = torch.cat([torch.ones(n_pre, 32), torch.cos(angles)]).to(cuda)
+    sin = torch.cat([torch.zeros(n_pre, 32), torch.sin(angles)]).to(cuda)
+    bias = bias.to(cuda)
+    before = fa.LAUNCHES
+    out = fa.flash_attention_packed(qkv, bias, H, 0.125, cos, sin)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == before + 1
+    ref = fa.flash_attention_packed_reference(qkv, bias, H, 0.125, cos, sin)
+    _close(out, ref, f"H={H} N={N}")
+
+
 def test_rope_refuses_what_it_does_not_take(cuda):
     qkv, bias, cos, sin, _ = _rope_inputs(cuda, 64)
     with pytest.raises(ValueError, match="head dim 64 only"):   # D = 16

@@ -102,3 +102,15 @@ def test_jsonl_logger_writes_the_same_records(tmp_path):
 
     assert read("port") == read("jax")
     assert len(read("port")) == 2
+
+
+@pytest.mark.parametrize("C,H,S", [(32, 4, 2), (32, 4, 4), (384, 6, 2),
+                                   (384, 6, 3), (1024, 16, 2),
+                                   (1024, 16, 8), (64, 1, 1)])
+def test_qkv_tp_permutation_is_the_originals(C, H, S):
+    """The port's numpy copy of ``qkv_tp_permutation``, index for index."""
+    from tpu3dssf.models.vit import qkv_tp_permutation as jperm
+    from tpu3dssf_torch.models.vit import qkv_tp_permutation
+    got = qkv_tp_permutation(C, H, S)
+    np.testing.assert_array_equal(got, np.asarray(jperm(C, H, S)))
+    assert sorted(got.tolist()) == list(range(3 * C))

@@ -14,7 +14,9 @@ Flags: ``--config``, ``--resume`` (full train state from
 ``torch.profiler`` trace of train steps 10–13) and ``--device``, which
 defaults to ``cuda``: without a CUDA device the CLI raises (it never drops
 to the CPU). ``--device cpu`` runs the plain versions of the kernels, for
-tests on a tiny config. The model starts from seeded random weights; the
+tests on a tiny config. ``tpu_params.mesh_shape`` is ignored, as the JAX
+CLI ignores it: training runs on one device, and says so where the mesh is
+larger than one. The model starts from seeded random weights; the
 frozen image encoder from a local DINO checkpoint where one exists
 (``common.build_vit``). On the card the encode, train and eval steps each
 replay one CUDA graph per batch shape (:mod:`tpu3dssf_torch.train.graph`),
@@ -67,9 +69,10 @@ def main(argv=None):
         common.tee_stdout(cfg.checkpoint_path)
     device = common.resolve_device(args.device)
     if int(np.prod(cfg.tpu.mesh_shape)) > 1:
-        raise NotImplementedError(
-            "data-parallel meshes are not ported yet (ROADMAP.md, H100 "
-            "port); use mesh_shape: [1]")
+        # as the JAX CLI, which never reads the mesh: the data-parallel
+        # step is a library function (train.loop.make_train_step(mesh=...))
+        print(f"[warn] tpu_params.mesh_shape {list(cfg.tpu.mesh_shape)} is "
+              "ignored: main_train trains on one device")
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     print(f"Using device: {device} ({name})")

@@ -30,7 +30,10 @@ in, since a recompute cannot replay an explicit generator: remat changes
 no bit of the forward or the gradients. The recompute runs with a gradient
 pending, so it launches the training forward kernel (K2 or K4) once more
 per block it recomputes. Under no gradient (eval) nothing is
-checkpointed. Not ported here: ``scan_blocks`` (a TPU compile workaround;
+checkpointed. A block made with ``sp_axis`` runs on one rank's span of
+the sequence (:func:`tpu3dssf_torch.parallel.sp_block_apply`, JAX's
+sequence parallelism): its CPE takes one-row halos from the neighbouring
+spans. Not ported here: ``scan_blocks`` (a TPU compile workaround;
 the unrolled model computes the same function) and ``_pool_structure``,
 the pooling by a fresh sort that ``PointTransformerV3`` never takes.
 """
@@ -51,6 +54,8 @@ from tpu3dssf_torch.kernels.window_attention import (key_bias,
                                                      window_attention,
                                                      window_attention_packed)
 from tpu3dssf_torch.models.layers import Dense, LayerNorm, lecun_normal
+from tpu3dssf_torch.parallel.mesh import current_mesh
+from tpu3dssf_torch.parallel.sp import halo_rows
 from tpu3dssf_torch.serialization import (
     SERIALIZATION_ORDERS,
     argsort_lex,
@@ -199,11 +204,21 @@ def _segment_max(values, seg, out_cap):
 
 class _DepthwiseConv3(nn.Module):
     """Kernel-3 depthwise conv along the sequence as three shifted
-    multiply-adds; parameters keep the flax layout (kernel (3, 1, C))."""
+    multiply-adds; parameters keep the flax layout (kernel (3, 1, C)).
 
-    def __init__(self, channels, dtype=torch.float32):
+    Sequence parallelism: with ``sp_axis`` set, the input is this rank's
+    span of the sequence over that axis of the current mesh
+    (:func:`tpu3dssf_torch.parallel.mesh.current_mesh`, entered by
+    :func:`tpu3dssf_torch.parallel.sp_block_apply`), and the two shifted
+    taps take their one-row halos from the neighbouring spans
+    (:func:`tpu3dssf_torch.parallel.sp.halo_rows`); the end spans take
+    zeros, the global zero padding, as JAX's ``ppermute`` gives them.
+    """
+
+    def __init__(self, channels, dtype=torch.float32, sp_axis=None):
         super().__init__()
         self.dtype = dtype
+        self.sp_axis = sp_axis
         self.kernel = nn.Parameter(torch.zeros(3, 1, channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
@@ -215,8 +230,18 @@ class _DepthwiseConv3(nn.Module):
     def forward(self, xs):
         k = self.kernel.to(self.dtype)
         b = self.bias.to(self.dtype)
-        left = F.pad(xs[:, :-1], (0, 0, 1, 0))
-        right = F.pad(xs[:, 1:], (0, 0, 0, 1))
+        if self.sp_axis is not None:
+            mesh = current_mesh()
+            if mesh is None:
+                raise ValueError("a sequence-parallel CPE runs inside a "
+                                 "mesh (tpu3dssf_torch.parallel."
+                                 "sp_block_apply)")
+            halo_l, halo_r = halo_rows(xs, mesh, self.sp_axis)
+            left = torch.cat([halo_l, xs[:, :-1]], dim=1)
+            right = torch.cat([xs[:, 1:], halo_r], dim=1)
+        else:
+            left = F.pad(xs[:, :-1], (0, 0, 1, 0))
+            right = F.pad(xs[:, 1:], (0, 0, 0, 1))
         return left * k[0, 0] + xs * k[1, 0] + right * k[2, 0] + b
 
 
@@ -224,12 +249,17 @@ class SerializedCPE(nn.Module):
     """Conditional positional encoding: depthwise conv along the serialized
     order + pointwise dense, residual."""
 
-    def __init__(self, channels, dtype=torch.float32):
+    def __init__(self, channels, dtype=torch.float32, sp_axis=None):
         super().__init__()
-        self.depthwise = _DepthwiseConv3(channels, dtype)
+        self.sp_axis = sp_axis
+        self.depthwise = _DepthwiseConv3(channels, dtype, sp_axis)
         self.pointwise = Dense(channels, channels, dtype)
 
     def forward(self, x, perm, inv, mask):
+        if self.sp_axis is not None and perm is not None:
+            raise ValueError("sequence-parallel CPE requires the CPE "
+                             "order itself (perm=None): cross-order "
+                             "permutations are global gathers")
         xs = x * mask[..., None]
         if perm is not None:
             xs = permutation_gather(xs, perm, inv)
@@ -333,15 +363,20 @@ class PTv3Block(nn.Module):
     are the attention order's RELATIVE permutations, None when the block
     attends along the CPE order itself. ``generator`` drives DropPath.
     ``remat`` checkpoints the whole block, ``remat_attention`` its
-    attention branch (see the module docstring).
+    attention branch (see the module docstring). ``sp_axis``: the block
+    runs on one rank's span of the sequence over that mesh axis
+    (:func:`tpu3dssf_torch.parallel.sp_block_apply`) and attends along the
+    CPE order only.
     """
 
     def __init__(self, channels, heads, window, mlp_ratio, drop_path=0.0,
-                 dtype=torch.float32, remat=False, remat_attention=False):
+                 dtype=torch.float32, remat=False, remat_attention=False,
+                 sp_axis=None):
         super().__init__()
         self.remat, self.remat_attention = remat, remat_attention
+        self.window, self.sp_axis = window, sp_axis
         hidden = int(channels * mlp_ratio)
-        self.cpe = SerializedCPE(channels, dtype)
+        self.cpe = SerializedCPE(channels, dtype, sp_axis)
         self.norm1 = LayerNorm(channels, dtype=dtype)
         self.attn = SerializedAttention(channels, heads, window, dtype)
         self.dp1 = DropPath(drop_path)
@@ -351,6 +386,10 @@ class PTv3Block(nn.Module):
         self.dp2 = DropPath(drop_path)
 
     def forward(self, x, perm, inv, mask, generator=None):
+        if self.sp_axis is not None and perm is not None:
+            raise ValueError("sequence-parallel blocks must attend "
+                             "along the CPE order (perm=None); see "
+                             "tpu3dssf_torch.parallel.sp")
         # both masks drawn here, in the order the branches use them
         keep = [dp.draw(x.shape[0], x.device, generator)
                 for dp in (self.dp1, self.dp2)]

@@ -25,9 +25,22 @@ prefix tokens):
 Each is the Hopper kernel on a CUDA tensor and the plain version on a CPU
 tensor. No sequence padding: the kernels mask ragged N themselves.
 ``ViTConfig.use_flash`` is kept for config compatibility and selects
-nothing. Not ported: W8A8 (``QuantDense``, ``quantize_vit``), tensor
-parallelism and ``make_looped_encode`` (a TPU compiler workaround; the
-CLI config's ``vit_looped`` is accepted and has no effect).
+nothing: the port has no einsum route, so JAX's refusal of
+``prepare_tp_params`` with ``use_flash=False`` has no counterpart here.
+
+Tensor parallelism (Megatron, head-parallel), JAX's ``tp_axis`` /
+``tp_mesh``: :func:`prepare_tp_params` permutes each qkv projection's output
+rows into the per-shard [q_s|k_s|v_s] layout and stamps the mesh into the
+config, then :func:`tpu3dssf_torch.parallel.vit_tp_shardings` cuts every
+block to this rank's shard. A block then projects its local qkv (contiguous,
+as K1 takes it), runs attention on its Hl = H/S heads, routed by the local
+Hl and Cl as JAX's ``run_flash`` routes them (ViT-L at S = 2: Hl = 8, Cl =
+512, the packed K1 with its RoPE branch), and sums the partial outputs of
+``proj`` and ``mlp_out`` over the axis, adding their bias once after the
+sum. Norms, embeddings, LayerScale and the RoPE tables stay whole; any other
+mesh axis is a batch axis. Not ported: W8A8 (``QuantDense``,
+``quantize_vit``) and ``make_looped_encode`` (a TPU compiler workaround;
+the CLI config's ``vit_looped`` is accepted and has no effect).
 """
 
 from __future__ import annotations
@@ -46,6 +59,7 @@ from tpu3dssf_torch.kernels.flash_attention import (flash_attention,
                                                     pick_head_group,
                                                     rope_rotate)
 from tpu3dssf_torch.models.layers import Dense, LayerNorm
+from tpu3dssf_torch.parallel.mesh import all_reduce_sum, copy_to_axis
 from tpu3dssf_torch.utils.constants import device_constants
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -70,6 +84,10 @@ class ViTConfig:
     # many-head route (H > 8): True → the packed kernel (K1) when a
     # 128-aligned head group exists; False → the (B, N, H, D) kernel (K8)
     packed_head_groups: bool = True
+    # head-parallel tensor parallelism over ``tp_axis`` of ``tp_mesh`` (a
+    # tpu3dssf_torch.parallel.Mesh), set by prepare_tp_params
+    tp_axis: Optional[str] = None
+    tp_mesh: Optional[object] = None
 
     @property
     def grid_size(self) -> Tuple[int, int]:
@@ -162,31 +180,61 @@ class ViTBlock(nn.Module):
 
     def forward(self, x, rope, key_bias):
         """``rope``: the (cos, sin) tables of :func:`rope_tables`, or None
-        without RoPE."""
+        without RoPE. Under tensor parallelism the qkv, ``mlp_in``, ``proj``
+        and ``mlp_out`` weights are this rank's shard (the module
+        docstring)."""
         cfg = self.cfg
         B, N, C = x.shape
-        H = cfg.num_heads
-        D = C // H
+        D = C // cfg.num_heads
         cos, sin = (None, None) if rope is None else rope
-        qkv = self.qkv(self.norm1(x))
-        if H > 8 and (pick_head_group(H, C) is None
-                      or not cfg.packed_head_groups):
-            q, k, v = (t.reshape(B, N, H, D) for t in qkv.split(C, dim=-1))
+        if cfg.tp_mesh is not None and (self.qkv.out_features * cfg.tp_mesh
+                                        .shape[cfg.tp_axis] != 3 * C):
+            raise ValueError("a ViT block prepared for tensor parallelism "
+                             "runs on its shard: apply "
+                             "tpu3dssf_torch.parallel.vit_tp_shardings")
+        qkv = self.qkv(self._to_shards(self.norm1(x)))
+        # the widths of this rank's shard, which route the attention
+        Cl = qkv.shape[-1] // 3
+        Hl = Cl // D
+        if Hl > 8 and (pick_head_group(Hl, Cl) is None
+                       or not cfg.packed_head_groups):
+            q, k, v = (t.reshape(B, N, Hl, D)
+                       for t in qkv.split(Cl, dim=-1))
             if rope is not None:
                 q, k = rope_rotate(q, cos, sin), rope_rotate(k, cos, sin)
-            out = flash_attention(q, k, v, key_bias).reshape(B, N, C)
+            out = flash_attention(q, k, v, key_bias).reshape(B, N, Cl)
         else:
-            out = flash_attention_packed(qkv, key_bias, H, 1.0 / math.sqrt(D),
-                                         cos, sin)
-        out = self.proj(out)
+            out = flash_attention_packed(qkv, key_bias, Hl,
+                                         1.0 / math.sqrt(D), cos, sin)
+        out = self._row_parallel(self.proj, out)
         if cfg.layerscale_init is not None:
             out = self.ls1(out)
         x = x + out.to(x.dtype)
-        h = F.gelu(self.mlp_in(self.norm2(x)))  # exact (erf) GELU, as HF
-        h = self.mlp_out(h)
+        h = self._to_shards(self.norm2(x))
+        h = F.gelu(self.mlp_in(h))  # exact (erf) GELU, as HF
+        h = self._row_parallel(self.mlp_out, h)
         if cfg.layerscale_init is not None:
             h = self.ls2(h)
         return x + h.to(x.dtype)
+
+    def _to_shards(self, h):
+        """The replicated input of a column-parallel layer (its gradient is
+        the sum of the shards')."""
+        cfg = self.cfg
+        if cfg.tp_mesh is None:
+            return h
+        return copy_to_axis(h, cfg.tp_mesh, cfg.tp_axis)
+
+    def _row_parallel(self, dense, h):
+        """``dense(h)``; under tensor parallelism the sum over the axis of
+        the shards' partial products, then the whole bias, once."""
+        cfg = self.cfg
+        if cfg.tp_mesh is None:
+            return dense(h)
+        dt = dense.dtype
+        y = F.linear(h.to(dt), dense.weight.to(dt))
+        y = all_reduce_sum(y, cfg.tp_mesh, cfg.tp_axis)
+        return y + dense.bias.to(dt)
 
 
 class VisionTransformer(nn.Module):
@@ -268,6 +316,46 @@ def fold_layerscale(model: VisionTransformer) -> VisionTransformer:
     for blk in model.blocks:
         blk.cfg = cfg
     return model
+
+
+def qkv_tp_permutation(hidden_size: int, num_heads: int,
+                       num_shards: int) -> np.ndarray:
+    """Permutation of the qkv projection's 3C outputs from [q|k|v] (each
+    H heads of D channels) to [q_0|k_0|v_0 | q_1|k_1|v_1 | ...], block s
+    holding shard s's heads, so that a contiguous split of the outputs over
+    ``num_shards`` hands each shard its packed qkv (a numpy copy of
+    ``tpu3dssf.models.vit.qkv_tp_permutation``, index for index)."""
+    C, H, S = hidden_size, num_heads, num_shards
+    if H % S:
+        raise ValueError(f"num_heads={H} not divisible by shards={S}")
+    D = C // H
+    Hl = H // S
+    idx = np.arange(3 * C).reshape(3, H, D)
+    blocks = [idx[t, s * Hl:(s + 1) * Hl].reshape(-1)
+              for s in range(S) for t in range(3)]
+    return np.concatenate(blocks)
+
+
+@torch.no_grad()
+def prepare_tp_params(model: VisionTransformer, config: ViTConfig, mesh,
+                      axis: str = "model"):
+    """Permute every block's qkv output rows (a torch weight is (out, in))
+    and bias into the tensor-parallel layout of :func:`qkv_tp_permutation`
+    and stamp ``(tp_axis, tp_mesh)`` into the config, in place; then cut
+    the blocks to this rank's shard with
+    :func:`tpu3dssf_torch.parallel.vit_tp_shardings`. The permutation is
+    the identity when the axis has size 1. Returns (model, config)."""
+    perm = torch.from_numpy(qkv_tp_permutation(
+        config.hidden_size, config.num_heads, mesh.shape[axis]))
+    for blk in model.blocks:
+        qkv = blk.qkv
+        qkv.weight.copy_(qkv.weight[perm.to(qkv.weight.device)])
+        qkv.bias.copy_(qkv.bias[perm.to(qkv.bias.device)])
+    cfg = dataclasses.replace(config, tp_axis=axis, tp_mesh=mesh)
+    model.config = cfg
+    for blk in model.blocks:
+        blk.cfg = cfg
+    return model, cfg
 
 
 def _resize_matrix(n_in: int, n_out: int) -> np.ndarray:

@@ -26,6 +26,7 @@ from tpu3dssf_torch.losses import CELSLoss
 from tpu3dssf_torch.metrics import (confusion_matrix, evaluate_from_confusion,
                                     format_metrics)
 from tpu3dssf_torch.models.vit import preprocess_images
+from tpu3dssf_torch.parallel.mesh import all_reduce_grads, gather_batch
 from tpu3dssf_torch.train.checkpoint import save_checkpoint
 from tpu3dssf_torch.train.graph import graph_train_step, graphed
 from tpu3dssf_torch.utils.logging import MetricLogger, NullLogger
@@ -58,7 +59,7 @@ def _fold_seed(seed: int, i: int) -> int:
 
 
 def make_train_step(loss_fn: CELSLoss, dropout_seed: Optional[int] = None,
-                    grad_accum: int = 1):
+                    grad_accum: int = 1, mesh=None):
     """``train_step(state, batch, patch_tokens)`` → metrics dict; updates
     ``state`` (a :class:`~tpu3dssf_torch.train.state.TrainState`) in place.
 
@@ -74,7 +75,27 @@ def make_train_step(loss_fn: CELSLoss, dropout_seed: Optional[int] = None,
     patch_tokens)`` (forward, backward and the optimizer's update: what a
     CUDA graph captures) and its host half ``train_step.advance(state,
     ...)`` (the schedule's count and ``state.step``).
+
+    With a ``mesh`` (:mod:`tpu3dssf_torch.parallel`) it is the data-parallel
+    step with JAX's mesh semantics, the whole batch's loss: each rank runs
+    the forward on its rows (``shard_batch(batch, mesh,
+    microbatches=grad_accum)``: its 1/S of every microbatch), gathers the
+    logits, labels and mask over the ``data`` axis (:func:`~tpu3dssf_torch.
+    parallel.mesh.gather_batch`, whose backward keeps this rank's slice:
+    every rank computes the same loss), computes the loss of the gathered
+    microbatch (its CE denominator and Lovász class presence are the whole
+    microbatch's), runs the backward, sums the gradients over the axis and
+    makes one update, the same on every rank. The state must start the
+    same on every rank (:func:`~tpu3dssf_torch.parallel.replicate`). The
+    gloo collectives cannot be captured in a CUDA graph, so a mesh step
+    runs eagerly: it is never passed to :func:`~tpu3dssf_torch.train.graph.
+    graph_train_step` (``main_train`` ignores the mesh, as JAX's does).
+    DropPath is refused under a mesh: its masks are drawn per rank.
     """
+    if mesh is not None and dropout_seed is not None:
+        raise ValueError("make_train_step: DropPath (dropout_seed) under a "
+                         "data-parallel mesh is not supported: each rank "
+                         "would draw its own masks")
 
     def split(x):
         if x.shape[0] % grad_accum:
@@ -98,12 +119,18 @@ def make_train_step(loss_fn: CELSLoss, dropout_seed: Optional[int] = None,
             logits = model(b["points"], b["point_valid"], tokens[i],
                            b["cam_intrinsics"], b["lidar2cam"],
                            generator=gen)
-            out = loss_fn(logits, b["labels"], b["mask"])
+            labels, mask = b["labels"], b["mask"]
+            if mesh is not None:
+                logits, labels, mask = (gather_batch(x, mesh)
+                                        for x in (logits, labels, mask))
+            out = loss_fn(logits, labels, mask)
             out.total.backward()  # accumulates the sum into .grad
             m = {"loss": out.total.detach(), "ce": out.ce.detach(),
                  "lovasz": out.lovasz.detach(), "correct": out.num_correct,
                  "valid": out.num_valid}
             sums = m if sums is None else {k: sums[k] + m[k] for k in m}
+        if mesh is not None:
+            all_reduce_grads(model.parameters(), mesh)
         if grad_accum > 1:
             inv = 1.0 / grad_accum
             for p in model.parameters():
@@ -126,35 +153,86 @@ def make_train_step(loss_fn: CELSLoss, dropout_seed: Optional[int] = None,
     return train_step
 
 
-def make_eval_step(loss_fn: CELSLoss, num_classes: int):
+def make_eval_step(loss_fn: CELSLoss, num_classes: int, mesh=None):
     """``eval_step(model, batch, patch_tokens)`` → the JAX eval step's
     metrics dict (loss, ce, lovasz, correct, valid, confusion); ``batch``
-    holds tensors on the model's device."""
+    holds tensors on the model's device. Without a mesh the step is eager
+    (callers graph it with :func:`~tpu3dssf_torch.train.graph.graphed`).
 
-    @torch.inference_mode()
-    def eval_step(model, batch, patch_tokens):
-        logits = model(batch["points"], batch["point_valid"], patch_tokens,
-                       batch["cam_intrinsics"], batch["lidar2cam"])
-        out = loss_fn(logits, batch["labels"], batch["mask"])
-        cm = confusion_matrix(out.predictions, batch["labels"], num_classes,
-                              out.valid)
+    With a ``mesh`` the batch is this rank's rows of the global batch
+    (``shard_batch(batch, mesh)``), as under JAX's mesh, and the step is
+    the whole batch's: the forward on this rank's rows, then the logits,
+    labels and mask gathered over the ``data`` axis, then the loss of the
+    whole batch, the same on every rank, and the counts (correct, valid,
+    confusion) of this rank's rows, which :class:`MetricAccumulator` sums
+    over the axis. The forward and the loss are each graphed (``graphed``
+    runs CPU tensors eagerly); the gather runs between them, since a CUDA
+    graph cannot capture gloo.
+    """
+
+    def forward(model, batch, patch_tokens):
+        return model(batch["points"], batch["point_valid"], patch_tokens,
+                     batch["cam_intrinsics"], batch["lidar2cam"])
+
+    def metrics(logits, labels, mask, rows=None):
+        out = loss_fn(logits, labels, mask)
+        preds, valid = out.predictions, out.valid
+        correct, n_valid = out.num_correct, out.num_valid
+        if rows is not None:   # this rank's rows of the gathered batch
+            preds, labels, valid = (x[rows] for x in (preds, labels, valid))
+            correct = ((preds == labels.to(torch.int32)) & valid).sum(
+                dtype=torch.int32)
+            n_valid = valid.sum(dtype=torch.int32)
         return {
             "loss": out.total,
             "ce": out.ce,
             "lovasz": out.lovasz,
-            "correct": out.num_correct,
-            "valid": out.num_valid,
-            "confusion": cm,
+            "correct": correct,
+            "valid": n_valid,
+            "confusion": confusion_matrix(preds, labels, num_classes, valid),
         }
+
+    if mesh is None:
+        @torch.inference_mode()
+        def eval_step(model, batch, patch_tokens):
+            return metrics(forward(model, batch, patch_tokens),
+                           batch["labels"], batch["mask"])
+
+        return eval_step
+
+    local = graphed(torch.inference_mode()(forward), "eval_forward")
+
+    @torch.inference_mode()
+    def global_metrics(logits, labels, mask):
+        n = logits.shape[0] // mesh.shape["data"]
+        lo = mesh.coords["data"] * n
+        return metrics(logits, labels, mask, slice(lo, lo + n))
+
+    fold = graphed(global_metrics, "eval_loss")
+
+    @torch.inference_mode()
+    def eval_step(model, batch, patch_tokens):
+        logits = local(model, batch, patch_tokens)
+        return fold(*(gather_batch(x, mesh) for x in (
+            logits, batch["labels"], batch["mask"])))
 
     return eval_step
 
 
 class MetricAccumulator:
     """Eval-metric sums kept on the device, folded to host int64/float every
-    ``fold_every`` batches (one sync per window, not per batch)."""
+    ``fold_every`` batches (one sync per window, not per batch).
 
-    def __init__(self, num_classes: int, fold_every: int = 256):
+    With a ``mesh`` each rank sums the counts of its own rows (a mesh eval
+    step's ``correct``, ``valid`` and ``confusion``), and :meth:`metrics`
+    sums them over the ``data`` axis (one gloo ``all_reduce`` of the int64
+    counts) before it derives the metrics: the global sums JAX's eval under
+    a mesh computes. The loss sums are not reduced: a mesh eval step's loss is
+    already the whole batch's, the same on every rank.
+    """
+
+    def __init__(self, num_classes: int, fold_every: int = 256, mesh=None):
+        self.mesh = mesh
         self.fold_every = fold_every
         self.it = 0
         self._cm_h = np.zeros((num_classes, num_classes), np.int64)
@@ -186,12 +264,35 @@ class MetricAccumulator:
             self._valid_h += int(self._valid)
             self._cm = self._loss = self._correct = self._valid = None
 
-    def metrics(self) -> Dict:
-        """The reference ``evaluate`` dict as host numpy (syncs)."""
+    def local_sums(self) -> Dict:
+        """This rank's host sums: ``confusion`` (int64), ``loss``,
+        ``correct``, ``valid`` (folds pending device sums)."""
         self._fold()
+        return {"confusion": self._cm_h.copy(), "loss": self._loss_h,
+                "correct": self._correct_h, "valid": self._valid_h}
+
+    def sums(self) -> Dict:
+        """:meth:`local_sums`, the counts summed over the mesh axis."""
+        sums = self.local_sums()
+        if self.mesh is not None:
+            import torch.distributed as dist
+            cm = sums["confusion"]
+            flat = torch.from_numpy(np.concatenate(
+                [cm.reshape(-1), [sums["correct"], sums["valid"]]]))
+            dist.all_reduce(flat, group=self.mesh.group("data"))
+            flat = flat.numpy()
+            sums.update(confusion=flat[:cm.size].reshape(cm.shape),
+                        correct=int(flat[-2]), valid=int(flat[-1]))
+        return sums
+
+    def metrics(self) -> Dict:
+        """The reference ``evaluate`` dict as host numpy (syncs; under a
+        mesh every rank calls it)."""
+        sums = self.sums()
         out = evaluate_from_confusion(
-            torch.from_numpy(self._cm_h.astype(np.float32)), self._loss_h,
-            float(self._correct_h), float(self._valid_h), max(self.it, 1))
+            torch.from_numpy(sums["confusion"].astype(np.float32)),
+            sums["loss"], float(sums["correct"]), float(sums["valid"]),
+            max(self.it, 1))
         return {k: v.numpy() for k, v in out.items()}
 
 
