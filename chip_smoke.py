@@ -153,23 +153,30 @@ order (any failure raises, exit code ≠ 0):
     eager with their spread (max/min), the profiler's device time of a
     frame of each; exact launches per eager frame and per replay (34 K1,
     46 K1, 22 K1 + 2 K7, 22 K6); the graphed logits, loss and confusion
-    matrix against 5 eager runs: bit-identical where the eager runs are,
-    else within 2× their largest difference (``GRAPH_DIFF_FACTOR``); on
+    matrix against the eager ones under the rule of 22–24 and 27
+    (:func:`eager_rule`): 3 graphed and 3 eager frames, each held against
+    one more eager frame, the graphed ones bit-identical where the eager
+    ones are, else within 2× their largest difference
+    (``GRAPH_DIFF_FACTOR``); on
     the fusion path a batch of one scene captures a second graph of each
     step, with the same launches per replay;
 23. the fusion train step (encode + step) likewise: A/B, peak memory,
     exact launches per replay (K1 12, K2 14, K3 14, K4 8, K5 8); then 3
-    graphed steps and twice 3 eager steps from one saved state (restored
-    in place, so the graphs stay valid): the largest parameter difference
-    within 2× the eager runs', the same update and schedule counts, and the
-    learning rate on the card equal to the schedule's after every step;
+    runs of 3 graphed steps and 4 of 3 eager steps from one saved state
+    (restored in place, so the graphs stay valid), every parameter held
+    (:func:`hold_train_runs`): all but the key thirds of the qkv biases
+    under the rule of 22, the key thirds (their gradient is 0 in exact
+    arithmetic, so Adam turns rounding noise there into about ±lr a step)
+    within 2 base learning rates a step of the first eager run's; the
+    same update and schedule counts, and the learning rate on the card
+    equal to the schedule's after every step;
 24. the graphed fusion train step with ``remat: true`` and with
     ``remat_attention: true`` (config copies) beside the step without,
     each alone on the card: peak allocated memory (the remat ones below the
     step's without), exact launches per replay (the recompute runs K2 and
-    K4 again: 28 and 16, K3 14, K5 8), the clipped gradients from one
-    state within 2× the difference of two eager steps from it, and the
-    replay's time and device time;
+    K4 again: 28 and 16, K3 14, K5 8), the clipped gradients of 3 replays
+    from one state against those of eager steps without remat from it
+    under the rule of 22, and the replay's time and device time;
 25. four programs exported on the card with ``tpu3dssf_torch.export.
     export_infer_bytes`` on the first test batch: the fusion pipeline
     (through ``cli.export_model.export_pipeline``, the CLI's own function),
@@ -210,9 +217,27 @@ order (any failure raises, exit code ≠ 0):
     for the input gradient, both within ``REL_TOL`` of the unsharded
     block's. Every kernel call of (a)-(d) is also held against its plain
     version on its own inputs (:func:`hold_calls`). The ranks' wall times
-    are two ranks sharing one H100: not a scaling result.
+    are two ranks sharing one H100: not a scaling result;
+27. ``main_train`` on a copy of the LiDAR-only parity config (knn5,
+    nearest) cut to 3 epochs at full width (36 steps, 9 val batches, all
+    through graphs): exact launches per train step and per val batch,
+    derived from the model (:func:`lidar_launches`: K2 14, K3 14, K4 8,
+    K5 8, K7 2 a step; K1 22, K7 2 a val batch), finite metrics, a train
+    loss that falls from epoch 0 to epoch 2, each epoch beside the TPU's
+    record (``checkpoints/synthetic/convergence_lidar_parity``); then,
+    from the trained state, every kernel call of one eager train step
+    against its plain version (K2–K5 as in 26, K7 bit for bit), exact
+    launches per replay, and graphed runs of 3 steps from one state
+    against eager ones, every parameter held as in 23;
+28. the ported ``parity_ab`` (``tpu3dssf_torch/cli/parity_ab.py``) on
+    phase 27's checkpoint over 8 frames at batch 2: every forward through a
+    graph, exact launches per batch of each variant (default K1 22;
+    devox-parity K1 22, K7 1; full-parity K1 22, K7 2), finite
+    agreements; one batch of each variant eager, its K1 and K7 calls
+    against their plain versions (K7 bit for bit).
 
-``graphs``, ``remat``, ``export`` and ``parallel`` print phases 22–26's
+``graphs``, ``remat``, ``export``, ``parallel``, ``lidar_train`` and
+``parity_ab`` print phases 22–28's
 records (times in ms or s as named, memory in bytes). The last two lines are a JSON record of the
 kernels and the device line.
 Every kernel record has ``launches`` (from its path's run), ``max_abs_err``
@@ -233,7 +258,9 @@ per ViT-L backward (step 19), with the bound and SDPA's time summed over
 that run's own calls. ``parallel_launches_per_rank`` holds each kernel's
 launches on rank 0 of step 26 in each of its paths (the DP inference run,
 the DP train step, the TP ViT-L encode, the SP block's forward and its
-gradient).
+gradient). ``lidar_train_launches`` (K1 in the val passes, K2–K5, K7) are
+the launches of step 27's run, ``parity_ab_launches`` (K1, K7) those per
+batch of each variant in step 28.
 Every ``ms`` is device time from the profiler.
 Needs the repository checkout around it; JAX is never imported.
 """
@@ -283,13 +310,20 @@ WINDOW, WINDOW_CAPACITY, WINDOW_LAUNCHES = 48, 726 * 48, 22
 # mis-rescaled key tile would pass them, and far above the gradients that
 # reach K9 in the ViT-L backward; one bf16 ulp is at most 2**-7 of a value
 REL_TOL = 0.02
-# phases 22-24 (CUDA graphs, remat): CUDA-event frames per A/B leg, eager
-# runs of an eval frame, steps from one saved state; a graphed output or
-# parameter may differ from the eager one by at most GRAPH_DIFF_FACTOR x the
-# largest difference between eager runs (by none where they agree bit for
-# bit): the two differences are samples of the same run-to-run noise
-GRAPH_REPS, GRAPH_EAGER_RUNS, GRAPH_TRAIN_STEPS = 10, 5, 3
+# phases 22-24 and 27 (CUDA graphs, remat): CUDA-event frames per A/B leg,
+# steps from one saved state, and the rule that holds a graphed output,
+# gradient or parameter against the eager one: GRAPH_RUNS graphed samples
+# and GRAPH_RUNS eager samples are each compared with one more eager sample
+# (the first), and the graphed ones' largest difference may be at most
+# GRAPH_DIFF_FACTOR x the eager ones' (none where those agree bit for bit):
+# the two are samples of the same run-to-run noise (:func:`eager_rule`)
+GRAPH_REPS, GRAPH_RUNS, GRAPH_TRAIN_STEPS = 10, 3, 3
 GRAPH_DIFF_FACTOR = 2.0
+# phases 23 and 27: the key third of each qkv bias has a gradient of 0 in
+# exact arithmetic (:func:`split_key_bias`), so each Adam step moves it by
+# rounding noise scaled to about one learning rate; two runs' key biases
+# may differ by at most KEY_BIAS_LRS base learning rates a step
+KEY_BIAS_LRS = 2.0
 # per remat train step from given tokens: the recompute runs every block's
 # attention forward again with a gradient pending (K2 at C >= 128, K4 at
 # C in {32, 64}); the backward kernels run once
@@ -341,10 +375,10 @@ D16_NAMES = True
 
 
 def card_line():
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    """``cli.common.card_line`` (imported late: outside a checkout this
+    script must still start, and refuse)."""
+    from tpu3dssf_torch.cli.common import card_line
+    return card_line()
 
 
 def sm_clock_mhz():
@@ -1306,21 +1340,10 @@ def check_knn(card):
 
 
 def config_copy(src, tmp, name, train=None, tpu=None):
-    """A copy of config ``src`` under ``tmp`` with its checkpoints there too
-    (the stock ones point at committed TPU records), ``train`` and ``tpu``
-    updating its train_params and tpu_params. Returns (path, ckpt dir)."""
-    import yaml
-    with open(src) as f:
-        raw = yaml.safe_load(f)
-    ckpt = os.path.join(tmp, "ckpt")
-    raw["train_params"].update(checkpoint_path=ckpt, best_model_path=ckpt,
-                               **(train or {}))
-    raw["test_params"]["checkpoint_path"] = ckpt
-    raw["tpu_params"].update(tpu or {})
-    path = os.path.join(tmp, name)
-    with open(path, "w") as f:
-        yaml.safe_dump(raw, f)
-    return path, ckpt
+    """``cli.common.config_copy``: a copy of config ``src`` as
+    ``tmp/name`` whose checkpoints go to ``tmp/ckpt``."""
+    from tpu3dssf_torch.cli.common import config_copy
+    return config_copy(src, tmp, name, train, tpu)
 
 
 def run_parity_clis(tmp):
@@ -2275,11 +2298,24 @@ def max_diff(a, b):
 
 
 def within_eager(graph_diff, eager_diff):
-    """The rule of phases 22–24: bit-identical where the eager runs are,
-    else within GRAPH_DIFF_FACTOR × their largest difference."""
+    """The rule of phases 22–24 and 27: bit-identical where the eager runs
+    are, else within GRAPH_DIFF_FACTOR × their largest difference."""
     if eager_diff == 0.0:
         return graph_diff == 0.0
     return graph_diff <= GRAPH_DIFF_FACTOR * eager_diff
+
+
+def eager_rule(graphs, eagers):
+    """[graphed vs eager, eager vs eager] for :func:`within_eager`: the
+    largest difference (:func:`max_diff`) of each of GRAPH_RUNS graphed
+    samples and of each of the GRAPH_RUNS eager samples after the first
+    from that first eager sample (each sample a list of tensors)."""
+    if len(graphs) != GRAPH_RUNS or len(eagers) != GRAPH_RUNS + 1:
+        raise ValueError(f"{len(graphs)} graphed and {len(eagers)} eager "
+                         f"samples; the rule takes {GRAPH_RUNS} and "
+                         f"{GRAPH_RUNS + 1}")
+    return [max(max_diff(g, eagers[0]) for g in graphs),
+            max(max_diff(e, eagers[0]) for e in eagers[1:])]
 
 
 def eval_path(name, cfg, device):
@@ -2372,21 +2408,19 @@ def check_graphed_counts(name, eager, graphed, want):
 
 def check_graphed_outputs(path):
     """Phase 22: the graphed eval frame's logits, loss and confusion matrix
-    against the eager frame's (GRAPH_EAGER_RUNS eager runs, 3 graphed, each
-    held against the first eager run): per output, bit-identical where the
-    eager runs are, else within GRAPH_DIFF_FACTOR × their largest
-    difference. Returns {output: [graphed vs eager, eager vs eager]}."""
+    against the eager frame's, per output under :func:`eager_rule`
+    (GRAPH_RUNS graphed frames, GRAPH_RUNS + 1 eager). Returns {output:
+    [graphed vs eager, eager vs eager]}."""
     from tpu3dssf_torch.train.graph import graphed
 
     step = logits_step(path["loss_fn"], path["cfg"].mlp_class)
     g_step = graphed(step, "logits_step")
     model, batch, tokens = path["model"], path["batch"], path["tokens"]
     eager = [step(model, batch, tokens(path["encode"]))
-             for _ in range(GRAPH_EAGER_RUNS)]
+             for _ in range(GRAPH_RUNS + 1)]
     graphs = [g_step(model, batch, tokens(path["g_encode"]))
-              for _ in range(4)][1:]      # the first call runs eagerly
-    out = {k: [max(max_diff([x[k]], [eager[0][k]]) for x in graphs),
-               max(max_diff([x[k]], [eager[0][k]]) for x in eager[1:])]
+              for _ in range(GRAPH_RUNS + 1)][1:]   # the first runs eagerly
+    out = {k: eager_rule([[x[k]] for x in graphs], [[x[k]] for x in eager])
            for k in eager[0]}
     print(f"graphs {path['name']}: max abs difference [graphed vs eager, "
           f"eager vs eager] {json.dumps(out)}", flush=True)
@@ -2456,17 +2490,89 @@ def run_graph_paths(card, tmp):
     return rows
 
 
+def split_key_bias(names, tensors):
+    """Each tensor flattened and split into (the rest, the key thirds of the
+    ``attn.qkv.bias`` tensors): the key bias adds q·b_k to every score of a
+    query row, which softmax ignores, so its gradient is 0 in exact
+    arithmetic and rounding noise on both sides, which each Adam step turns
+    into an update of about ±lr (tests/test_torch_train.py and
+    tests/test_torch_parallel.py hold it apart likewise)."""
+    import torch
+    rest, keys = [], []
+    for name, t in zip(names, tensors):
+        t = t.reshape(-1)
+        if name.endswith("attn.qkv.bias"):
+            C = t.numel() // 3
+            rest.append(torch.cat([t[:C], t[2 * C:]]))
+            keys.append(t[C:2 * C])
+        else:
+            rest.append(t)
+    return rest, keys
+
+
+def hold_train_runs(what, state, g_step, step, args, each_step=None):
+    """Phases 23 and 27: from one saved state (restored in place before
+    each run, so the graphs stay valid), GRAPH_RUNS + 1 runs of
+    GRAPH_TRAIN_STEPS eager steps and GRAPH_RUNS of graphed ones, the
+    eager first and then the two kinds in turn. Every parameter is held:
+    all but the qkv key biases under :func:`eager_rule`, the key biases
+    (:func:`split_key_bias`) within KEY_BIAS_LRS × the schedule's base
+    learning rate × GRAPH_TRAIN_STEPS of the first eager run's; every run
+    ends at the same update and schedule counts. ``each_step(state)`` runs
+    after every step. Returns dict(params_diff, key_bias_diff,
+    key_bias_limit, counts)."""
+    import torch
+    names = [n for n, _ in state.model.named_parameters()]
+    snap = snapshot(state)
+    rest, keys, counts = {"graphed": [], "eager": []}, {}, set()
+    order = [("eager", step)] + [(kind, fn) for _ in range(GRAPH_RUNS)
+                                 for kind, fn in (("graphed", g_step),
+                                                  ("eager", step))]
+    for kind, fn in order:
+        restore_in_place(state, snap)
+        for _ in range(GRAPH_TRAIN_STEPS):
+            fn(state, *args)
+            if each_step is not None:
+                each_step(state)
+        r, k = split_key_bias(names, [p.detach().clone()
+                                      for p in state.model.parameters()])
+        rest[kind].append(r)
+        keys.setdefault(kind, []).append(k)
+        counts.add((state.step, state.optimizer.scheduler.last_epoch))
+    diff = eager_rule(rest["graphed"], rest["eager"])
+    key_diff = [max(max_diff(k, keys["eager"][0]) for k in keys[kind][i:])
+                for kind, i in (("graphed", 0), ("eager", 1))]
+    limit = (KEY_BIAS_LRS * state.optimizer.scheduler.base_lrs[0]
+             * GRAPH_TRAIN_STEPS)
+    row = dict(params_diff=diff, key_bias_diff=key_diff,
+               key_bias_limit=limit, counts=sorted(counts))
+    print(f"{what}: {GRAPH_TRAIN_STEPS} steps from one state, largest "
+          f"parameter difference [graphed vs eager, eager vs eager] {diff} "
+          f"less the qkv key biases, theirs {key_diff} (limit {limit}); "
+          f"(update count, schedule count) {row['counts']}", flush=True)
+    del rest, keys
+    torch.cuda.empty_cache()
+    if not within_eager(*diff) or key_diff[0] > limit or len(counts) != 1:
+        raise AssertionError(f"{what}: graphed steps off the eager ones: "
+                             f"{row}")
+    return row
+
+
 def snapshot(state, device="cpu"):
     """The train state's parameters, optimizer state, learning rates,
-    schedule and update count, copied to ``device``."""
+    schedule and update count, copied to ``device`` (a rate that is a
+    float, as on the CPU, as it is)."""
     import copy
+
+    import torch
     opt = state.optimizer
     params = list(state.model.parameters())
     return dict(
         params=[p.detach().to(device, copy=True) for p in params],
         inner=[{k: v.to(device, copy=True)
                 for k, v in opt.inner.state[p].items()} for p in params],
-        lr=[g["lr"].to(device, copy=True) for g in opt.inner.param_groups],
+        lr=[g["lr"].to(device, copy=True) if torch.is_tensor(g["lr"])
+            else g["lr"] for g in opt.inner.param_groups],
         scheduler=copy.deepcopy(opt.scheduler.state_dict()),
         step=state.step)
 
@@ -2484,7 +2590,10 @@ def restore_in_place(state, snap):
             for k, x in st.items():
                 opt.inner.state[p][k].copy_(x)
         for g, lr in zip(opt.inner.param_groups, snap["lr"]):
-            g["lr"].copy_(lr)
+            if torch.is_tensor(lr):
+                g["lr"].copy_(lr)
+            else:
+                g["lr"] = lr
     opt.scheduler.load_state_dict(snap["scheduler"])
     state.step = snap["step"]
 
@@ -2517,10 +2626,8 @@ def lr_error(state):
 def run_graph_train(card):
     """Phase 23: the fusion train step as ``main_train`` runs it, eager
     against graphed: A/B (encode + step) and exact launches per replay;
-    then from one saved state (the first graphed call's), 3 graphed steps
-    against 3 eager steps twice (the state restored in place between): the
-    largest parameter difference within GRAPH_DIFF_FACTOR × the eager runs'
-    (0 where theirs is 0), the update count and schedule alike, the learning
+    then from one saved state (the first graphed call's) graphed runs of 3
+    steps against eager ones (:func:`hold_train_runs`) and the learning
     rate on the card equal to the schedule's after every step. Returns the
     row and the step's tokens, batch and encoder config for phase 24."""
     import torch
@@ -2545,32 +2652,17 @@ def run_graph_train(card):
         "train_step", eager, graphed_frame, TRAIN_LAUNCHES)
 
     tokens = encode(images)
-    snap = snapshot(state)
-    runs, lr_err = {}, 0.0
-    for tag, fn in (("graphed", g_step), ("eager", step),
-                    ("eager_2", step)):
-        restore_in_place(state, snap)
-        for _ in range(GRAPH_TRAIN_STEPS):
-            fn(state, batch, tokens)
-            lr_err = max(lr_err, lr_error(state))
-        torch.cuda.synchronize()
-        runs[tag] = ([p.detach().clone() for p in state.model.parameters()],
-                     state.step, state.optimizer.scheduler.last_epoch)
-    params = {k: v[0] for k, v in runs.items()}
-    diff = [max_diff(params["graphed"], params["eager"]),
-            max_diff(params["eager_2"], params["eager"])]
-    counts = {k: v[1:] for k, v in runs.items()}
-    row.update(params_diff=diff, lr_err=lr_err, steps=counts)
-    print(f"graphs train step: {GRAPH_TRAIN_STEPS} steps from one state, "
-          f"largest parameter difference [graphed vs eager, eager vs "
-          f"eager] {diff}; (update count, schedule count) {counts}; "
-          f"learning rate vs the schedule, largest error {lr_err}",
-          flush=True)
-    if (not within_eager(*diff) or lr_err != 0.0
-            or len(set(counts.values())) != 1):
-        raise AssertionError(f"graphed train steps: parameters {diff}, "
-                             f"counts {counts}, lr error {lr_err}")
-    del state, step, g_step, encode, g_encode, runs, params, snap
+    lr_err = []
+    held = hold_train_runs("graphs train step", state, g_step, step,
+                           (batch, tokens),
+                           lambda st: lr_err.append(lr_error(st)))
+    row.update(held, lr_err=max(lr_err))
+    print(f"graphs train step: learning rate vs the schedule, largest "
+          f"error {row['lr_err']}", flush=True)
+    if row["lr_err"] != 0.0:
+        raise AssertionError(f"graphed train steps: lr error "
+                             f"{row['lr_err']}")
+    del state, step, g_step, encode, g_encode
     torch.cuda.empty_cache()
     return row, (tokens, batch, vit_cfg)
 
@@ -2580,20 +2672,24 @@ def run_remat(card, tokens, batch, vit_cfg):
     ``remat_attention`` (each on a config copy) beside the step without
     either, each alone on the card: peak allocated memory over the first
     call and the capture; from one state (the step's without remat after
-    its first call, copied in place into each), one replay's exact
-    launches (the recompute runs K2 and K4 again: REMAT_LAUNCHES) and
-    clipped gradients, held against the step without remat within
-    GRAPH_DIFF_FACTOR × the difference of two eager steps from that state
-    (0 where that is 0); the replay's time and device time. The remat peaks
-    must be below the step's without. Returns {variant: row}."""
+    its first call, copied in place into each), a replay's exact launches
+    (the recompute runs K2 and K4 again: REMAT_LAUNCHES), and the clipped
+    gradients of GRAPH_RUNS replays against those of eager steps without
+    remat under :func:`eager_rule`; the replay's time and device time. The
+    remat peaks must be below the step's without. Returns {variant:
+    row}."""
     import gc
     import statistics
     import torch
     from tpu3dssf_torch.cli import common
     from tpu3dssf_torch.utils import profile_kernels
 
+    def grads_of(state):
+        return [p.grad.detach().float().cpu()
+                for p in state.model.parameters()]
+
     device = torch.device("cuda")
-    rows, snap, ref, eager_diff = {}, None, None, None
+    rows, snap, eagers = {}, None, None
     tmp = tempfile.mkdtemp(prefix="tpu3dssf_smoke_")
     try:
         for variant in ("none", "remat", "remat_attention"):
@@ -2610,23 +2706,24 @@ def run_remat(card, tokens, batch, vit_cfg):
             peak = torch.cuda.max_memory_allocated()
             if snap is None:
                 snap = snapshot(state)
-            restore_in_place(state, snap)
-            launches = frame_counts(lambda: g_step(state, batch, tokens))
-            grads = [p.grad.detach().float().cpu()
-                     for p in state.model.parameters()]
-            row = dict(peak_bytes=peak, above_inputs_bytes=peak - base,
-                       launches=launches)
-            if ref is None:
-                ref, eager = grads, []
-                for _ in range(2):
+            graphs = []
+            for i in range(GRAPH_RUNS):
+                restore_in_place(state, snap)
+                if i == 0:
+                    launches = frame_counts(
+                        lambda: g_step(state, batch, tokens))
+                else:
+                    g_step(state, batch, tokens)
+                graphs.append(grads_of(state))
+            if eagers is None:          # the step without remat, eager
+                eagers = []
+                for _ in range(GRAPH_RUNS + 1):
                     restore_in_place(state, snap)
                     step(state, batch, tokens)
-                    eager.append([p.grad.detach().float().cpu()
-                                  for p in state.model.parameters()])
-                eager_diff = max_diff(eager[1], eager[0])
-                row["grad_diff"] = [max_diff(grads, eager[0]), eager_diff]
-            else:
-                row["grad_diff"] = [max_diff(grads, ref), eager_diff]
+                    eagers.append(grads_of(state))
+            row = dict(peak_bytes=peak, above_inputs_bytes=peak - base,
+                       launches=launches,
+                       grad_diff=eager_rule(graphs, eagers))
             times = event_times(lambda: g_step(state, batch, tokens),
                                 reps=5, warmup=1)
             _, kernels, _ = profile_kernels(
@@ -2638,7 +2735,8 @@ def run_remat(card, tokens, batch, vit_cfg):
             print(f"remat {variant}: peak allocated {peak / 2**30:.3f} GiB "
                   f"({(peak - base) / 2**30:.3f} above the inputs), launches "
                   f"per replay {launches}, gradient max abs difference "
-                  f"[vs the step without remat, eager vs eager] "
+                  f"[graphed vs the eager step without remat, eager vs "
+                  f"eager] "
                   f"{row['grad_diff']}; replay {row['ms']:.3f} ms (spread "
                   f"{row['spread']:.3f}), device {row['device_ms']:.3f} ms "
                   f"[{card}]", flush=True)
@@ -2648,7 +2746,7 @@ def run_remat(card, tokens, batch, vit_cfg):
                 raise AssertionError(f"remat {variant}: launches {launches} "
                                      f"(expected {want}), gradients "
                                      f"{row['grad_diff']}")
-            del state, step, g_step, grads
+            del state, step, g_step, graphs
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for variant in ("remat", "remat_attention"):
@@ -3015,19 +3113,9 @@ def parallel_infer(mesh, tmp):
 
 def update_parts(names, after, start):
     """Each parameter's change, flattened, less the key part of each
-    ``attn.qkv.bias``: the key bias adds q·b_k to every score of a query
-    row, which softmax ignores, so its gradient is 0 in exact arithmetic and
-    rounding noise on both sides, which Adam's first step turns into ±lr
-    (tests/test_torch_parallel.py leaves it out likewise)."""
-    import torch
-    parts = []
-    for name, a, s in zip(names, after, start):
-        d = (a.float() - s.float()).reshape(-1)
-        if name.endswith("attn.qkv.bias"):
-            C = d.numel() // 3
-            d = torch.cat([d[:C], d[2 * C:]])
-        parts.append(d)
-    return parts
+    ``attn.qkv.bias`` (:func:`split_key_bias`)."""
+    return split_key_bias(names, [a.float() - s.float()
+                                  for a, s in zip(after, start)])[0]
 
 
 def parallel_train(mesh):
@@ -3318,6 +3406,260 @@ def run_parallel(card):
                 note=PARALLEL_LABEL)
 
 
+# ---- phases 27-28: the LiDAR-only model trained, then parity_ab on it ----
+
+# phase 27: epochs of main_train on a copy of the parity config (12 steps
+# and 3 val batches an epoch); the TPU's record of that config
+LIDAR_TRAIN_EPOCHS = 3
+PARITY_RECORD = "checkpoints/synthetic/convergence_lidar_parity"
+# phase 28: frames of the ported parity_ab, at the CLI's batch size of 2
+PARITY_AB_FRAMES, PARITY_AB_BATCH = 8, 2
+
+
+def lidar_launches(cfg, intensity_mode=None, devoxelize_mode=None):
+    """Launches of the LiDAR-only model of ``cfg``, derived from the model:
+    (per train step, per eval batch). Each PTv3 block's attention is one
+    forward with LSE and one backward in a train step (K2/K3 at C % 128 ==
+    0, K4/K5 else: :func:`train_attention_shapes`) and one K1 in eval; K7
+    once per k-NN mode in use (the knn5 intensity transfer, the nearest
+    devoxelization), forward only: the nearest gather's backward is a
+    scatter-add. The modes default to the config's."""
+    modes = ((intensity_mode or cfg.tpu.intensity_mode) == "knn5",
+             (devoxelize_mode or cfg.tpu.devoxelize_mode) == "nearest")
+    train, blocks = {}, 0
+    for (fwd, bwd), _, _, _, _, _, n in train_attention_shapes(cfg):
+        train[fwd] = train.get(fwd, 0) + n
+        train[bwd] = train.get(bwd, 0) + n
+        blocks += n
+    k7 = sum(modes)
+    train["K7"] = k7
+    return ({k: v for k, v in train.items() if v},
+            {k: v for k, v in (("K1", blocks), ("K7", k7)) if v})
+
+
+def hold_knn(what, calls):
+    """Every captured K7 call (``capture_calls(knn, "_launch", ...)``)
+    against its plain version on the same inputs: bit-identical distances
+    and indices. Returns dict(calls, max_abs_err, index_mismatches)."""
+    import torch
+    row = dict(calls=len(calls), max_abs_err=0.0, index_mismatches=0)
+    for args, out in calls:
+        d, mismatches = knn_mismatch(out, knn_plain(*args))
+        row["max_abs_err"] = max(row["max_abs_err"], d)
+        row["index_mismatches"] += mismatches
+    torch.cuda.empty_cache()
+    if row["max_abs_err"] != 0.0 or row["index_mismatches"]:
+        raise AssertionError(f"{what}: K7 not bit-identical to its plain "
+                             f"version: {row}")
+    return row
+
+
+def run_lidar_training(card, tmp):
+    """Phase 27: ``main_train.main`` on a copy of the parity config cut to
+    LIDAR_TRAIN_EPOCHS epochs at full width: exact launches per train step
+    and per val batch (:func:`lidar_launches`), every step and val batch
+    through a graph, finite metrics and a train loss that falls from the
+    first epoch to the last, each epoch's val acc beside the TPU's. Then,
+    from the trained state, every kernel call of one train step held
+    against its plain version (K2–K5 by :func:`hold_calls`, K7 bit for bit)
+    and the graphed step against the eager one (:func:`hold_train_runs`).
+    Returns (record, checkpoint dir)."""
+    import numpy as np
+    import torch
+    from tpu3dssf_torch.cli import common, main_train
+    from tpu3dssf_torch.kernels import knn
+    from tpu3dssf_torch.train import loop
+    from tpu3dssf_torch.train.graph import eager_reason, graph_train_step
+    from tpu3dssf_torch.train.loop import make_train_step
+
+    path, ckpt = config_copy(PARITY_CONFIG, tmp, "lidar_train.yaml",
+                             train=dict(max_num_epochs=LIDAR_TRAIN_EPOCHS))
+    cfg = common.load_config(path)
+    per_step, per_batch = lidar_launches(cfg)
+    if (per_step != {"K2": 14, "K3": 14, "K4": 8, "K5": 8, "K7": 2}
+            or per_batch != PARITY_LAUNCHES):
+        raise AssertionError(f"derived launches {per_step} per step, "
+                             f"{per_batch} per val batch")
+    loaders = common.build_dataloaders(cfg)
+    steps, val_batches = len(loaders["train"]), len(loaders["val"])
+    epochs = LIDAR_TRAIN_EPOCHS
+
+    evaluate, val_counts = loop.evaluate_model, []
+
+    def counted_evaluate(*a, **kw):   # the val pass's launches alone
+        before = counters()
+        out = evaluate(*a, **kw)
+        val_counts.append({k: n - before[k] for k, n in counters().items()
+                           if n - before[k]})
+        return out
+
+    loop.evaluate_model = counted_evaluate
+    try:
+        reset_counters()
+        t0 = time.perf_counter()
+        # a train step per train batch, an eval step per val batch
+        state, _, _ = check_graphed_cli(
+            "lidar main_train", lambda: main_train.main(["--config", path]),
+            epochs * (steps + val_batches))
+        seconds = time.perf_counter() - t0
+        launches = {k: v for k, v in counters().items() if v}
+    finally:
+        loop.evaluate_model = evaluate
+    want_val = {k: n * val_batches for k, n in per_batch.items()}
+    want = {k: per_step.get(k, 0) * steps * epochs
+            + want_val.get(k, 0) * epochs
+            for k in set(per_step) | set(want_val)}
+    print(f"lidar training: {epochs} epochs of {steps} steps + "
+          f"{val_batches} val batches in {seconds:.1f} s; launches "
+          f"{launches} (expected {want}: per step {per_step}, per val "
+          f"batch {per_batch}); val passes {val_counts}", flush=True)
+    if launches != want or val_counts != [want_val] * epochs:
+        raise AssertionError(f"lidar training launched {launches}, val "
+                             f"{val_counts}; expected {want}, {want_val}")
+    with open(os.path.join(ckpt, "training_history.json")) as f:
+        history = json.load(f)["epochs"]
+    with open(os.path.join(ROOT, PARITY_RECORD,
+                           "training_history.json")) as f:
+        tpu = json.load(f)["epochs"]
+    for e, tp in zip(history, tpu):
+        print(f"lidar epoch {e['epoch']}: train loss {e['train_loss']:.4f} "
+              f"(TPU {tp['train_loss']:.4f}), val acc "
+              f"{e['overall_acc']:.4f} (TPU {tp['overall_acc']:.4f}), val "
+              f"mIoU {e['mean_iou']:.4f} (TPU {tp['mean_iou']:.4f}) "
+              f"[{card}]")
+    bad = [(e["epoch"], k) for e in history for k, v in e.items()
+           if not np.isfinite(v).all()]
+    losses = [e["train_loss"] for e in history]
+    if bad or len(history) != epochs or not losses[-1] < losses[0]:
+        raise AssertionError(f"lidar training: non-finite {bad}, train "
+                             f"loss per epoch {losses}")
+
+    # one train step's kernel calls on their own inputs, from the trained
+    # state (an eager step: a replay calls no launcher)
+    step = make_train_step(common.build_loss(cfg))
+    batches = iter(loaders["train"])
+    host = next(batches)
+    batches.close()
+    host.pop("images", None)
+    batch = common.batch_to_device(host, torch.device("cuda"))
+    tokens = common.zero_tokens(cfg, None, batch["points"].shape[0], "cuda")
+    with Capture(record=True) as cap:
+        k7_calls = capture_calls(knn, "_launch",
+                                 lambda: step(state, batch, tokens))
+    calls = {k: len(v) for k, v in cap.calls.items() if v}
+    calls["K7"] = len(k7_calls)
+    if calls != per_step:
+        raise AssertionError(f"lidar train step: calls {calls}, expected "
+                             f"{per_step}")
+    held = hold_calls("lidar train step", cap.calls)
+    held["K7"] = hold_knn("lidar train step", k7_calls)
+    del cap, k7_calls
+    torch.cuda.empty_cache()
+    print(f"lidar train step, every kernel call on its own inputs: "
+          f"{json.dumps(held)}", flush=True)
+
+    # graphed against eager from one state (restored in place)
+    g_step = graph_train_step(step, eager_reason(cfg))
+    g_step(state, batch, tokens)                  # eager call + capture
+    replay = frame_counts(lambda: g_step(state, batch, tokens))
+    if replay != per_step:
+        raise AssertionError(f"lidar train step: launches per replay "
+                             f"{replay}, expected {per_step}")
+    graph_runs = hold_train_runs("lidar train step", state, g_step, step,
+                                 (batch, tokens))
+    del state, step, g_step
+    torch.cuda.empty_cache()
+    return dict(launches=launches, per_step=per_step, per_val_batch=per_batch,
+                steps=steps * epochs, val_batches=val_batches * epochs,
+                seconds=seconds, held=held, graph_runs=graph_runs,
+                history=[{k: e[k] for k in ("epoch", "train_loss",
+                                            "overall_acc", "mean_iou",
+                                            "peak_hbm_mb")}
+                         for e in history], card=card), path, ckpt
+
+
+def run_parity_ab(card, path, ckpt, tmp):
+    """Phase 28: the ported ``parity_ab`` (``cli/parity_ab.main``) on
+    phase 27's checkpoint over PARITY_AB_FRAMES frames: every forward
+    through a graph, exact launches per batch of each variant (K1 a block,
+    K7 a k-NN mode: :func:`lidar_launches`), finite agreements and
+    accuracies; then one batch of each variant eager, its K1 and K7 calls
+    held against their plain versions (K7 bit for bit)."""
+    import numpy as np
+    import torch
+    from tpu3dssf_torch.cli import common, parity_ab
+    from tpu3dssf_torch.kernels import knn
+    from tpu3dssf_torch.kernels.modules import flash_attention as fa
+
+    cfg = common.load_config(path)
+    batches = -(-PARITY_AB_FRAMES // PARITY_AB_BATCH)
+    want = {name: {k: n * batches for k, n in lidar_launches(
+        cfg, *modes)[1].items()} for name, modes in parity_ab.VARIANTS.items()}
+    reset_counters()
+    t0 = time.perf_counter()
+    results = check_graphed_cli("parity_ab", lambda: parity_ab.main([
+        "--config", path, "--checkpoint", f"lidar-trained={ckpt}",
+        "--frames", str(PARITY_AB_FRAMES), "--batch-size",
+        str(PARITY_AB_BATCH), "--out", os.path.join(tmp, "parity_ab.md")]),
+        batches * len(parity_ab.VARIANTS))
+    seconds = time.perf_counter() - t0
+    r = results[0][1]
+    total = {k: v for k, v in counters().items() if v}
+    summed = {}
+    for counts in want.values():
+        for k, n in counts.items():
+            summed[k] = summed.get(k, 0) + n
+    rows = {row["variant"]: (row["agree_mean"], row["acc_mean"])
+            for row in r["rows"]}
+    print(f"parity_ab: {r['frames']} frames in {r['batches']} batches, "
+          f"{seconds:.1f} s (host frames {r['host_s']:.2f} s, device "
+          f"forwards {r['device_s']:.2f} s); launches per variant "
+          f"{r['launches']} (expected {want}); [agreement, accuracy] "
+          f"{rows}, full-parity accuracy {r['acc_full'][0]:.4f} [{card}]",
+          flush=True)
+    finite = np.isfinite([x for v in rows.values() for x in v]
+                         + list(r["acc_full"])).all()
+    if (r["launches"] != want or total != summed or not finite
+            or r["frames"] != PARITY_AB_FRAMES):
+        raise AssertionError(f"parity_ab: launches {r['launches']} (total "
+                             f"{total}), expected {want}; rows {rows}")
+
+    # one batch of each variant, eager: its K1 and K7 calls on their own
+    # inputs
+    device = torch.device("cuda")
+    models, _ = parity_ab.load_variants(cfg, None, ckpt, device)
+    it = iter(parity_ab.frame_stream(cfg, None, PARITY_AB_BATCH,
+                                     PARITY_AB_BATCH))
+    host = next(it)
+    it.close()
+    host.pop("images", None)
+    batch = common.batch_to_device(host, device)
+    tokens = common.zero_tokens(cfg, None, batch["points"].shape[0], device)
+    held = {}
+    for name, model in models.items():
+        k7_calls = []
+        k1_calls = capture_calls(fa, "_launch", lambda: k7_calls.extend(
+            capture_calls(knn, "_launch",
+                          lambda: parity_ab.forward(model, batch, tokens))))
+        n = {k: v for k, v in (("K1", len(k1_calls)),
+                               ("K7", len(k7_calls))) if v}
+        if n != {k: v // batches for k, v in want[name].items()}:
+            raise AssertionError(f"parity_ab {name}: calls {n} in a batch")
+        held[name] = hold_calls(f"parity_ab {name}", {"K1": k1_calls})
+        if k7_calls:
+            held[name]["K7"] = hold_knn(f"parity_ab {name}", k7_calls)
+        del k1_calls, k7_calls
+    print(f"parity_ab, one batch's kernel calls on their own inputs: "
+          f"{json.dumps(held)}", flush=True)
+    del models
+    torch.cuda.empty_cache()
+    return dict(launches=r["launches"], per_batch={
+        name: {k: v // batches for k, v in counts.items()}
+        for name, counts in r["launches"].items()}, batches=r["batches"],
+        rows=rows, acc_full=r["acc_full"], host_s=r["host_s"],
+        device_s=r["device_s"], seconds=seconds, held=held, card=card)
+
+
 def per_path(rows, key, count):
     """Σ over a kernel's shapes of (calls per batch or step × per call)."""
     return sum(r[count] * r[key] for r in rows)
@@ -3449,6 +3791,15 @@ def main():
     torch.cuda.empty_cache()
     parallel = run_parallel(card)
 
+    # phases 27 and 28: the LiDAR-only model trained through main_train,
+    # then the ported parity_ab on its checkpoint
+    tmp = tempfile.mkdtemp(prefix="tpu3dssf_smoke_")
+    try:
+        lidar_train, path, ckpt = run_lidar_training(card, tmp)
+        ab = run_parity_ab(card, path, ckpt, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
     def parallel_launches(k):
         """Launches of kernel ``k`` on rank 0 in each path of phase 26."""
         r = parallel["ranks"][0]
@@ -3465,6 +3816,8 @@ def main():
         "launches": launches,
         "max_abs_err": max([k1["max_abs_err"], in_parity["K1"]["max_abs_err"],
                             vitl_frame["k1"]["max_abs_err"]]
+                           + [h["K1"]["max_abs_err"]
+                              for h in ab["held"].values()]
                            + [r["max_abs_err"] for r in rows + parity_rows
                               + list(rope_rows.values())]),
         # per batch of the inference path, on that batch's own inputs;
@@ -3478,6 +3831,10 @@ def main():
         "per": "inference batch", "train_launches": train_launches["K1"],
         "parity_launches": parity["main_infer"][0]["K1"],
         "vitl_launches": vitl_k1,
+        # phase 27's val passes; phase 28's per batch of each variant
+        "lidar_train_launches": lidar_train["launches"]["K1"],
+        "parity_ab_launches": {n: c.get("K1", 0)
+                               for n, c in ab["per_batch"].items()},
         # per ViT-L fusion batch (phase 17), on that batch's own inputs
         "vitl": dict(ms=vitl_frame["k1"]["ms"],
                      plain_ms=vitl_frame["k1"]["plain_ms"]),
@@ -3507,7 +3864,8 @@ def main():
             "name": name, "route": "cuda",
             "source": "tpu3dssf_torch/csrc/" + source, "replaces": replaces,
             "launches": train_launches[k],
-            "max_abs_err": max([inside[k]["max_abs_err"]]
+            "max_abs_err": max([inside[k]["max_abs_err"],
+                                lidar_train["held"][k]["max_abs_err"]]
                                + [r["max_abs_err"] for r in train_rows[k]]
                                + [r["max_abs_err"] for r in
                                   flash_rows.get(k, [])]),
@@ -3527,6 +3885,8 @@ def main():
             # per graphed train step with PTv3's remat flags (phase 24)
             "remat_launches": {v: remat[v]["launches"].get(k, 0)
                                for v in ("remat", "remat_attention")},
+            # the LiDAR-only training run of phase 27
+            "lidar_train_launches": lidar_train["launches"][k],
         }
         if k in ("K4", "K5"):
             # the (W, K, H, D) route: launches per window-48 train step, and
@@ -3542,7 +3902,10 @@ def main():
         "name": name, "route": "cuda",
         "source": "tpu3dssf_torch/csrc/" + source, "replaces": replaces,
         "launches": parity["main_infer"][0]["K7"],
-        "max_abs_err": max([k7["max_abs_err"]]
+        "max_abs_err": max([k7["max_abs_err"],
+                            lidar_train["held"]["K7"]["max_abs_err"]]
+                           + [h["K7"]["max_abs_err"]
+                              for h in ab["held"].values() if "K7" in h]
                            + [r["max_abs_err"] for r in knn_rows]),
         # per parity batch (a knn5 and a nearest call), on that batch's own
         # inputs
@@ -3552,6 +3915,10 @@ def main():
         "library_ms": k7["library_ms"], "library": "cdist + topk",
         "cdist_topk_ms": k7["library_ms"], "per": "parity batch",
         "parity_launches": {n: (c["K7"], b) for n, (c, b) in parity.items()},
+        # phase 27's training run; phase 28's per batch of each variant
+        "lidar_train_launches": lidar_train["launches"]["K7"],
+        "parity_ab_launches": {n: c.get("K7", 0)
+                               for n, c in ab["per_batch"].items()},
     })
     for k, launches_k, row, library, per in (
             ("K6", k6_launches, k6, "scaled_dot_product_attention",
@@ -3592,6 +3959,8 @@ def main():
     print("remat " + json.dumps(dict(remat, card=card)))
     print("export " + json.dumps(export))
     print("parallel " + json.dumps(parallel))
+    print("lidar_train " + json.dumps(lidar_train))
+    print("parity_ab " + json.dumps(ab))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

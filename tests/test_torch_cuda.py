@@ -555,6 +555,63 @@ def test_knn_kernel_refuses_what_it_does_not_take(cuda):
         knn.knn(q, r, m.float(), 3)
 
 
+def test_graphed_lidar_train_step_with_knn5_and_nearest(cuda):
+    """A small bf16 LiDAR-only model in the parity modes (knn5 intensities,
+    nearest devoxelization), K7 inside the captured train step beside
+    K2–K5: exact launches per replay (a forward with LSE and a backward a
+    block: K2/K3 at C = 128, K4/K5 at C = 32; K7 twice), and 3 graphed
+    steps from one state against eager ones, restored in place, every
+    parameter held as chip_smoke.py holds them
+    (``chip_smoke.hold_train_runs``)."""
+    import chip_smoke
+
+    from tpu3dssf_torch.cli.common import (HostDataPipeline,
+                                           SyntheticNuScenes, batch_to_device)
+    from tpu3dssf_torch.losses import CELSLoss
+    from tpu3dssf_torch.models import fusion, lidar_only, ptv3
+    from tpu3dssf_torch.models.layers import init_weights
+    from tpu3dssf_torch.train import (TrainState, create_optimizer, graph,
+                                      make_train_step)
+
+    bf16 = torch.bfloat16
+    cfg = fusion.PipelineConfig(
+        fusion=fusion.FusionConfig(output_dim=16, dtype=bf16),
+        ptv3=ptv3.PTv3Config(
+            enc_depths=(1, 1), enc_channels=(32, 128), enc_heads=(2, 8),
+            enc_window=(128, 128), dec_depths=(1,), dec_channels=(32,),
+            dec_heads=(2,), dec_window=(128,), dtype=bf16),
+        voxel_size=0.4, voxel_capacity=1024, intensity_mode="knn5",
+        devoxelize_mode="nearest")
+    data = SyntheticNuScenes(num_samples=2, num_points=3000,
+                             image_hw=(90, 160), seed=3)
+    host = next(iter(HostDataPipeline(data, batch_size=2,
+                                      point_capacity=3072)))
+    host.pop("images")
+    batch = batch_to_device(host, cuda)
+    tokens = torch.zeros(2, 1, 1, 1, device=cuda)
+    model = init_weights(lidar_only.LidarSegmentationModel(cfg), 6).to(cuda)
+    state = TrainState(model, create_optimizer(
+        model.parameters(), "AdamW", 1e-3, weight_decay=1e-3,
+        lr_scheduler="CosineAnnealingLR", steps_per_epoch=12, num_epochs=30,
+        grad_clip=1.0))
+    step = make_train_step(CELSLoss(weight=[1.0] * 16))
+    g_step = graph.graph_train_step(step)
+    g_step(state, batch, tokens)                     # eager call + capture
+    want = {"K2": 1, "K3": 1, "K4": 2, "K5": 2, "K7": 2}
+    assert _launches(lambda: step(state, batch, tokens)) == want
+    assert _launches(lambda: g_step(state, batch, tokens)) == want
+    assert _launches(lambda: [g_step(state, batch, tokens)
+                              for _ in range(3)]) == \
+        {k: 3 * v for k, v in want.items()}
+    before = [p.detach().clone() for p in state.model.parameters()]
+    row = chip_smoke.hold_train_runs("lidar train step", state, g_step, step,
+                                     (batch, tokens))
+    assert row["counts"] == [(state.step,
+                              state.optimizer.scheduler.last_epoch)]
+    assert _max_diff(list(state.model.parameters()), before) > 0
+    assert all(torch.isfinite(p).all() for p in state.model.parameters())
+
+
 def test_parity_modes_launch_the_knn_kernel(cuda):
     from tpu3dssf_torch.voxel import devoxelize_nearest, voxelize
 

@@ -295,7 +295,8 @@ def test_port_imports_no_jax():
         " 'tpu3dssf_torch.models.vit_port', 'tpu3dssf_torch.kernels.ops',"
         " 'tpu3dssf_torch.export', 'tpu3dssf_torch.cli.export_model',"
         " 'tpu3dssf_torch.utils.constants', 'tpu3dssf_torch.parallel',"
-        " 'tpu3dssf_torch.parallel.mesh', 'tpu3dssf_torch.parallel.sp'}\n"
+        " 'tpu3dssf_torch.parallel.mesh', 'tpu3dssf_torch.parallel.sp',"
+        " 'tpu3dssf_torch.cli.parity_ab', 'tpu3dssf_torch.cli.convergence'}\n"
         "assert new <= set(sys.modules), new - set(sys.modules)\n"
         "import tpu3dssf_torch.kernels as k\n"
         "names = ('flash_attention', 'mha_reference', 'window_attention')\n"

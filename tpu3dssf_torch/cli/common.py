@@ -218,3 +218,36 @@ def batch_to_device(batch, device):
     side of the caller)."""
     return {k: torch.as_tensor(np.asarray(v)).to(device)
             for k, v in batch.items()}
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi --query-gpu=
+    name,power.limit --format=csv,noheader`` gives them (raises where
+    nvidia-smi does not run)."""
+    import subprocess
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def config_copy(src, work, name, train=None, tpu=None):
+    """A copy of config ``src`` as ``work/name`` whose checkpoint paths
+    point at ``work/ckpt`` (a stock config's point at committed TPU
+    records, which a run must not overwrite), ``train`` and ``tpu``
+    updating its train_params and tpu_params. Returns (path, ckpt dir)."""
+    import os
+
+    import yaml
+    with open(src) as f:
+        raw = yaml.safe_load(f)
+    ckpt = os.path.join(work, "ckpt")
+    raw["train_params"].update(checkpoint_path=ckpt, best_model_path=ckpt,
+                               **(train or {}))
+    raw["test_params"]["checkpoint_path"] = ckpt
+    raw["tpu_params"].update(tpu or {})
+    os.makedirs(work, exist_ok=True)
+    path = os.path.join(work, name)
+    with open(path, "w") as f:
+        yaml.safe_dump(raw, f)
+    return path, ckpt

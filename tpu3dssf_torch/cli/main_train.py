@@ -40,7 +40,10 @@ import torch  # noqa: E402
 DROPOUT_SEED = 42
 
 
-def main(argv=None):
+def main(argv=None, seed=1):
+    """The CLI on ``argv``; ``seed`` draws the model's initial weights
+    (``common.build_pipeline``'s, not a flag: the JAX CLI has none).
+    Returns (state, train history, val history)."""
     parser = argparse.ArgumentParser()
     parser.add_argument("--config", type=str,
                         default="configs/nuscenes_default.yaml",
@@ -80,7 +83,7 @@ def main(argv=None):
     datasets = common.build_datasets(cfg)
     loaders = common.build_dataloaders(cfg, datasets)
     encode_fn, vit_cfg = common.build_image_encoder(cfg, device)
-    model, _ = common.build_pipeline(cfg, vit_cfg, device)
+    model, _ = common.build_pipeline(cfg, vit_cfg, device, seed=seed)
     loss_fn = common.build_loss(cfg)
     steps_per_epoch = max(1, len(loaders["train"]))
     state = common.init_state(cfg, model, steps_per_epoch)
