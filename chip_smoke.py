@@ -234,10 +234,32 @@ order (any failure raises, exit code ≠ 0):
     graph, exact launches per batch of each variant (default K1 22;
     devox-parity K1 22, K7 1; full-parity K1 22, K7 2), finite
     agreements; one batch of each variant eager, its K1 and K7 calls
-    against their plain versions (K7 bit for bit).
+    against their plain versions (K7 bit for bit);
+29. every train configuration through one graph (:data:`SETTINGS`: the
+    plateau, the non-finite skip, SGD with Nesterov momentum and DropPath
+    0.3, which each kept the train step eager before they became device
+    state, alone and all four together): (a) ``main_train`` on a copy of
+    the fusion config with all four, one epoch (24 steps, 6 val batches):
+    every step a capture or a replay, no line saying the step stays
+    eager, exact launches (K2 14, K3 14, K4 8, K5 8 a step), finite
+    metrics, then every kernel call of one eager step against its plain
+    version; (b) each setting on the full-width fusion step, eager
+    against graphed as phase 23 (wall ms, device ms, peak memory, exact
+    launches per replay, graphed runs from one state under the rule of
+    22–23 with the chain's counts and plateau the same bits in every run
+    after every step, and the rate each update took equal to
+    ``table[count] × scale``); (c) on the all-four state, a batch whose
+    points hold a NaN, graphed and eager: both skip, and the parameters,
+    the momentum, the schedule count and the plateau stay the same bits;
+    then 101 such batches in a row, graphed: the first 100 skip, the
+    101st applies, as ``optax.apply_if_finite(max_consecutive_errors=
+    100)``; (d) the device plateau folded by a CUDA graph over a fixed
+    sequence of values with NaN and Inf ones across several decisions,
+    equal bit for bit after every value to the numpy reference
+    (tests/plateau_reference.py).
 
-``graphs``, ``remat``, ``export``, ``parallel``, ``lidar_train`` and
-``parity_ab`` print phases 22–28's
+``graphs``, ``remat``, ``export``, ``parallel``, ``lidar_train``,
+``parity_ab`` and ``settings`` print phases 22–29's
 records (times in ms or s as named, memory in bytes). The last two lines are a JSON record of the
 kernels and the device line.
 Every kernel record has ``launches`` (from its path's run), ``max_abs_err``
@@ -260,7 +282,8 @@ launches on rank 0 of step 26 in each of its paths (the DP inference run,
 the DP train step, the TP ViT-L encode, the SP block's forward and its
 gradient). ``lidar_train_launches`` (K1 in the val passes, K2–K5, K7) are
 the launches of step 27's run, ``parity_ab_launches`` (K1, K7) those per
-batch of each variant in step 28.
+batch of each variant in step 28, ``settings_train_launches`` (K2–K5)
+those of step 29's main_train run.
 Every ``ms`` is device time from the profiler.
 Needs the repository checkout around it; JAX is never imported.
 """
@@ -906,10 +929,10 @@ def run_training(tmp):
     adam_steps = {int(v["step"]) for v in
                   state.optimizer.inner.state_dict()["state"].values()}
     print(f"resumed: {len(tr_hist)} epoch run, update count {state.step}, "
-          f"schedule count {state.optimizer.scheduler.last_epoch}, Adam "
+          f"schedule count {int(state.optimizer.count)}, Adam "
           f"steps {sorted(adam_steps)}")
     if not (len(tr_hist) == 1 and state.step == 2 * steps
-            and state.optimizer.scheduler.last_epoch == 2 * steps
+            and int(state.optimizer.count) == 2 * steps
             and adam_steps == {2 * steps}
             and latest_checkpoint(os.path.join(ckpt, "last")) == 1):
         raise AssertionError("resume did not continue from epoch 1 with "
@@ -2511,16 +2534,19 @@ def split_key_bias(names, tensors):
 
 
 def hold_train_runs(what, state, g_step, step, args, each_step=None):
-    """Phases 23 and 27: from one saved state (restored in place before
+    """Phases 23, 27 and 29: from one saved state (restored in place before
     each run, so the graphs stay valid), GRAPH_RUNS + 1 runs of
     GRAPH_TRAIN_STEPS eager steps and GRAPH_RUNS of graphed ones, the
     eager first and then the two kinds in turn. Every parameter is held:
     all but the qkv key biases under :func:`eager_rule`, the key biases
     (:func:`split_key_bias`) within KEY_BIAS_LRS × the schedule's base
     learning rate × GRAPH_TRAIN_STEPS of the first eager run's; every run
-    ends at the same update and schedule counts. ``each_step(state)`` runs
-    after every step. Returns dict(params_diff, key_bias_diff,
-    key_bias_limit, counts)."""
+    ends at the same update count, the chain's counters (schedule and skip
+    counts, the plateau's counts and scale) are the same in every run
+    after every step, and the plateau's running average and best value
+    are held with the parameters (:func:`chain_after`).
+    ``each_step(state)`` runs after every step. Returns dict(params_diff,
+    key_bias_diff, key_bias_limit, counts)."""
     import torch
     names = [n for n, _ in state.model.named_parameters()]
     snap = snapshot(state)
@@ -2530,26 +2556,31 @@ def hold_train_runs(what, state, g_step, step, args, each_step=None):
                                                   ("eager", step))]
     for kind, fn in order:
         restore_in_place(state, snap)
+        trace = []
         for _ in range(GRAPH_TRAIN_STEPS):
             fn(state, *args)
+            trace.append(chain_after(state)[0])
             if each_step is not None:
                 each_step(state)
         r, k = split_key_bias(names, [p.detach().clone()
                                       for p in state.model.parameters()])
-        rest[kind].append(r)
+        rest[kind].append(r + chain_after(state)[1])
         keys.setdefault(kind, []).append(k)
-        counts.add((state.step, state.optimizer.scheduler.last_epoch))
+        counts.add((state.step, tuple(trace)))
     diff = eager_rule(rest["graphed"], rest["eager"])
     key_diff = [max(max_diff(k, keys["eager"][0]) for k in keys[kind][i:])
                 for kind, i in (("graphed", 0), ("eager", 1))]
-    limit = (KEY_BIAS_LRS * state.optimizer.scheduler.base_lrs[0]
+    limit = (KEY_BIAS_LRS * float(state.optimizer.table[0])
              * GRAPH_TRAIN_STEPS)
     row = dict(params_diff=diff, key_bias_diff=key_diff,
-               key_bias_limit=limit, counts=sorted(counts))
+               key_bias_limit=limit,
+               counts=[(n, [dict(c) for c in trace])
+                       for n, trace in sorted(counts)])
     print(f"{what}: {GRAPH_TRAIN_STEPS} steps from one state, largest "
           f"parameter difference [graphed vs eager, eager vs eager] {diff} "
           f"less the qkv key biases, theirs {key_diff} (limit {limit}); "
-          f"(update count, schedule count) {row['counts']}", flush=True)
+          f"(update count, chain state after each step) {row['counts']}",
+          flush=True)
     del rest, keys
     torch.cuda.empty_cache()
     if not within_eager(*diff) or key_diff[0] > limit or len(counts) != 1:
@@ -2558,22 +2589,40 @@ def hold_train_runs(what, state, g_step, step, args, each_step=None):
     return row
 
 
-def snapshot(state, device="cpu"):
-    """The train state's parameters, optimizer state, learning rates,
-    schedule and update count, copied to ``device`` (a rate that is a
-    float, as on the CPU, as it is)."""
-    import copy
+# the plateau's f32 state that follows the loss, and with it the runs'
+# rounding noise (the counts and the scale change only at a decision)
+PLATEAU_VALUES = ("plateau.avg_value", "plateau.best_value")
 
+
+def chain_after(state):
+    """The chain's device state after a step: (its counters as host
+    numbers: the schedule and skip counts, the last update's skip flag,
+    the plateau's counts and its scale as f32 bits; the plateau's running
+    average and best value as tensors, empty without a plateau)."""
     import torch
+    counters, values = {}, []
+    for k, x in state.optimizer.device_state().items():
+        if k in PLATEAU_VALUES:
+            values.append(x.detach().reshape(1).clone())
+        elif k != "lr":    # the rate: lr_error holds it
+            x = x.detach().cpu()
+            counters[k] = (x.view(torch.int32).item()
+                           if x.dtype == torch.float32 else x.item())
+    return tuple(sorted(counters.items())), values
+
+
+def snapshot(state, device="cpu"):
+    """The train state's parameters, optimizer state, the chain's device
+    state (rate, counts, plateau) and update count, copied to
+    ``device``."""
     opt = state.optimizer
     params = list(state.model.parameters())
     return dict(
         params=[p.detach().to(device, copy=True) for p in params],
         inner=[{k: v.to(device, copy=True)
                 for k, v in opt.inner.state[p].items()} for p in params],
-        lr=[g["lr"].to(device, copy=True) if torch.is_tensor(g["lr"])
-            else g["lr"] for g in opt.inner.param_groups],
-        scheduler=copy.deepcopy(opt.scheduler.state_dict()),
+        chain={k: x.to(device, copy=True)
+               for k, x in opt.device_state().items()},
         step=state.step)
 
 
@@ -2589,38 +2638,41 @@ def restore_in_place(state, snap):
             p.copy_(v)
             for k, x in st.items():
                 opt.inner.state[p][k].copy_(x)
-        for g, lr in zip(opt.inner.param_groups, snap["lr"]):
-            if torch.is_tensor(lr):
-                g["lr"].copy_(lr)
-            else:
-                g["lr"] = lr
-    opt.scheduler.load_state_dict(snap["scheduler"])
+        for k, x in opt.device_state().items():
+            x.copy_(snap["chain"][k])
     state.step = snap["step"]
 
 
 def fusion_state(cfg, vit_cfg, device):
     """A fusion train state of ``cfg`` on ``device`` at the seeded init
     (the model of ``common.build_pipeline``, phase 9's schedule length)
-    and its eager and graphed train steps: (state, step, graphed step)."""
+    and its eager and graphed train steps, DropPath's seed main_train's:
+    (state, step, graphed step)."""
     from tpu3dssf_torch.cli import common
-    from tpu3dssf_torch.train.graph import eager_reason, graph_train_step
+    from tpu3dssf_torch.cli.main_train import DROPOUT_SEED
+    from tpu3dssf_torch.train.graph import graph_train_step
     from tpu3dssf_torch.train.loop import make_train_step
 
     model, _ = common.build_pipeline(cfg, vit_cfg, device)
     state = common.init_state(cfg, model, steps_per_epoch=24)
-    step = make_train_step(common.build_loss(cfg))
-    return state, step, graph_train_step(step, eager_reason(cfg))
+    seed = DROPOUT_SEED if cfg.drop_path > 0 else None
+    step = make_train_step(common.build_loss(cfg), seed)
+    return state, step, graph_train_step(step)
 
 
 def lr_error(state):
-    """|the learning rate on the card − the schedule's, rounded to f32| at
-    the state's schedule count (0.0 where the graphed updates read the
-    rate the schedule filled)."""
+    """|the rate the last update took on the card − table[count] × scale|,
+    the count before that update and the plateau's scale after its fold
+    (1 without a plateau), read on the card after a step (0.0 where the
+    update read the rate its count and plateau give)."""
     import torch
     opt = state.optimizer
-    want = torch.tensor(opt.scheduler.base_lrs[0] * opt.scheduler.lr_lambdas[
-        0](opt.scheduler.last_epoch), dtype=torch.float32)
-    return abs(float(opt.inner.param_groups[0]["lr"]) - float(want))
+    before = opt.count - (1 - opt.skipped.to(torch.int32))
+    want = torch.take(opt.table, before.clamp(
+        0, opt.table.numel() - 1).long())
+    if opt.plateau is not None:
+        want = want * opt.plateau.scale
+    return abs(float(opt.lr) - float(want))
 
 
 def run_graph_train(card):
@@ -3469,7 +3521,7 @@ def run_lidar_training(card, tmp):
     from tpu3dssf_torch.cli import common, main_train
     from tpu3dssf_torch.kernels import knn
     from tpu3dssf_torch.train import loop
-    from tpu3dssf_torch.train.graph import eager_reason, graph_train_step
+    from tpu3dssf_torch.train.graph import graph_train_step
     from tpu3dssf_torch.train.loop import make_train_step
 
     path, ckpt = config_copy(PARITY_CONFIG, tmp, "lidar_train.yaml",
@@ -3559,7 +3611,7 @@ def run_lidar_training(card, tmp):
           f"{json.dumps(held)}", flush=True)
 
     # graphed against eager from one state (restored in place)
-    g_step = graph_train_step(step, eager_reason(cfg))
+    g_step = graph_train_step(step)
     g_step(state, batch, tokens)                  # eager call + capture
     replay = frame_counts(lambda: g_step(state, batch, tokens))
     if replay != per_step:
@@ -3658,6 +3710,276 @@ def run_parity_ab(card, path, ckpt, tmp):
         for name, counts in r["launches"].items()}, batches=r["batches"],
         rows=rows, acc_full=r["acc_full"], host_s=r["host_s"],
         device_s=r["device_s"], seconds=seconds, held=held, card=card)
+
+
+# ---- phase 29: every train configuration through one graph --------------
+# the settings that each kept the train step eager before they became
+# device state, alone and together (PTv3's published nuScenes recipe
+# trains with drop path 0.3)
+SETTINGS = {
+    "plateau": dict(lr_scheduler="ReduceLROnPlateau"),
+    "skip": dict(skip_nonfinite=True),
+    "sgd": dict(optimizer="SGD", momentum=0.9, nesterov=True),
+    "drop_path": dict(drop_path=0.3),
+}
+SETTINGS["all"] = {k: v for d in SETTINGS.values() for k, v in d.items()}
+# (d): epochs of 3 values, patience 2, so a short sequence crosses several
+# decisions; values at these indices are NaN, and one is Inf
+PLATEAU_NAN, PLATEAU_INF = (4, 13, 14, 30), 22
+
+
+def plateau_values():
+    """(d)'s fixed sequence: falling, then flat, then noisy, f32."""
+    import numpy as np
+    rng = np.random.default_rng(3)
+    values = np.concatenate([np.linspace(2.0, 1.0, 9), np.full(12, 1.0),
+                             1.0 + 0.01 * rng.normal(size=30)])
+    values = values.astype(np.float32)
+    values[list(PLATEAU_NAN)] = np.nan
+    values[PLATEAU_INF] = np.inf
+    return values
+
+
+def run_settings_training(card, tmp):
+    """Phase 29 (a): ``main_train`` with all four settings on a copy of
+    the fusion config, one epoch; then every kernel call of one eager
+    step of the trained state against its plain version. Returns the
+    record."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from tpu3dssf_torch.cli import common, main_train
+    from tpu3dssf_torch.train.loop import make_train_step
+
+    path, ckpt = config_copy(CONFIG, tmp, "settings.yaml",
+                             train=dict(SETTINGS["all"], max_num_epochs=1))
+    cfg = common.load_config(path)
+    loaders = common.build_dataloaders(cfg)
+    steps, val_batches = len(loaders["train"]), len(loaders["val"])
+    reset_counters()
+    said = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(said):
+            # an encode and a train step per train batch, an encode and an
+            # eval step per val batch
+            state, _, _ = check_graphed_cli(
+                "settings main_train",
+                lambda: main_train.main(["--config", path]),
+                2 * (steps + val_batches))
+    finally:
+        print(said.getvalue(), end="", flush=True)
+    seconds = time.perf_counter() - t0
+    launches = {k: v for k, v in counters().items() if v}
+    want = {k: n * steps for k, n in TRAIN_LAUNCHES.items()}
+    want["K1"] += LAUNCHES_PER_BATCH * val_batches
+    eager = "[graph] train step stays eager" in said.getvalue()
+    with open(os.path.join(ckpt, "training_history.json")) as f:
+        epoch = json.load(f)["epochs"][0]
+    bad = [k for k, v in epoch.items() if not np.isfinite(v).all()]
+    print(f"settings training ({cfg.optimizer} nesterov {cfg.nesterov}, "
+          f"{cfg.lr_scheduler}, skip_nonfinite {cfg.skip_nonfinite}, "
+          f"drop_path {cfg.drop_path}): {steps} steps + {val_batches} val "
+          f"batches in {seconds:.1f} s; launches {launches} (expected "
+          f"{want}); train loss {epoch['train_loss']:.4f}, val acc "
+          f"{epoch['overall_acc']:.4f}; plateau scale "
+          f"{float(state.optimizer.plateau.scale)}, schedule count "
+          f"{int(state.optimizer.count)} [{card}]", flush=True)
+    if launches != want or eager or bad:
+        raise AssertionError(f"settings training: launches {launches} "
+                             f"(expected {want}), eager line {eager}, "
+                             f"non-finite {bad}")
+
+    device = torch.device("cuda")
+    encode, _ = common.build_image_encoder(cfg, device, graph=False)
+    batch, images, _ = first_batch(cfg, "train", device)
+    step = make_train_step(common.build_loss(cfg), main_train.DROPOUT_SEED)
+    tokens = encode(images)
+    with Capture(record=True) as cap:
+        step(state, batch, tokens)
+        torch.cuda.synchronize()
+    calls = {k: len(v) for k, v in cap.calls.items() if v}
+    if calls != {k: n for k, n in TRAIN_LAUNCHES.items() if k != "K1"}:
+        raise AssertionError(f"settings train step: calls {calls}")
+    held = hold_calls("settings train step", cap.calls)
+    del cap, state, step, encode
+    torch.cuda.empty_cache()
+    print(f"settings train step, every kernel call on its own inputs: "
+          f"{json.dumps(held)}", flush=True)
+    return dict(launches=launches, steps=steps, val_batches=val_batches,
+                seconds=seconds, train_loss=epoch["train_loss"],
+                val_acc=epoch["overall_acc"], held=held, card=card)
+
+
+def check_nan_batches(state, step, g_step, batch, tokens):
+    """Phase 29 (c) on a state with ``skip_nonfinite`` (and the other
+    settings): a batch whose first scene's intensities are NaN, graphed
+    then eager, each
+    skipped with the parameters, optimizer state, schedule count and
+    plateau the same bits; then MAX_CONSECUTIVE_NONFINITE + 1 such
+    batches graphed after a finite one: the first ones skip, the last
+    applies. Returns the record."""
+    import torch
+    from tpu3dssf_torch.train.state import MAX_CONSECUTIVE_NONFINITE
+    opt = state.optimizer
+    bad = dict(batch, points=batch["points"].clone())
+    bad["points"][0, :, 3] = float("nan")      # the first scene's intensity
+    kept = ["count"] + [k for k in opt.device_state()
+                        if k.startswith("plateau.")]
+
+    def same(a, b):
+        """Parameters, optimizer state and the kept counters of two
+        snapshots, bit for bit."""
+        return (all(torch.equal(x, y) for x, y in zip(a["params"],
+                                                      b["params"]))
+                and all(torch.equal(x[k], y[k]) for x, y in
+                        zip(a["inner"], b["inner"]) for k in x)
+                and all(torch.equal(a["chain"][k], b["chain"][k])
+                        for k in kept))
+
+    row = {}
+    for kind, fn in (("graphed", g_step), ("eager", step)):
+        before = snapshot(state, "cuda")
+        m = fn(state, bad, tokens)
+        after = snapshot(state, "cuda")
+        row[kind] = dict(
+            loss=float(m["loss"]), unchanged=same(before, after),
+            skipped=float(opt.skipped),
+            notfinite=int(after["chain"]["notfinite_count"])
+            - int(before["chain"]["notfinite_count"]))
+        if (torch.isfinite(m["loss"]) or not row[kind]["unchanged"]
+                or row[kind] != dict(row[kind], skipped=1.0, notfinite=1)):
+            raise AssertionError(f"NaN batch, {kind} step: {row[kind]}")
+    g_step(state, batch, tokens)            # finite: the run restarts
+    start = snapshot(state, "cuda")
+    count = int(opt.count)
+    for _ in range(MAX_CONSECUTIVE_NONFINITE):
+        g_step(state, bad, tokens)
+    held = same(start, snapshot(state, "cuda"))
+    run = dict(skipped_unchanged=held, notfinite=int(opt.notfinite_count),
+               count=int(opt.count))
+    g_step(state, bad, tokens)
+    nan = sum(int(torch.isnan(p).sum()) for p in state.model.parameters())
+    run.update(last_applied=float(opt.skipped) == 0.0,
+               count_after=int(opt.count), nan_params_after=nan,
+               notfinite_after=int(opt.notfinite_count))
+    row["run"] = run
+    print(f"NaN batches: one graphed and one eager, each skipped with the "
+          f"state the same bits ({row['graphed']}, {row['eager']}); "
+          f"{MAX_CONSECUTIVE_NONFINITE + 1} in a row, graphed: {run}",
+          flush=True)
+    if run != dict(skipped_unchanged=True,
+                   notfinite=MAX_CONSECUTIVE_NONFINITE, count=count,
+                   last_applied=True, count_after=count + 1,
+                   nan_params_after=nan,
+                   notfinite_after=MAX_CONSECUTIVE_NONFINITE + 1) or not nan:
+        raise AssertionError(f"NaN run: {run}")
+    return row
+
+
+def check_device_plateau():
+    """Phase 29 (d): the device plateau folded by a CUDA graph over
+    :func:`plateau_values`, against the numpy reference after every value
+    (scale, best value and avg value as bits; the counts). Returns the
+    record."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+    from tpu3dssf_torch.train.graph import graphed
+    from tpu3dssf_torch.train.state import DevicePlateau
+
+    # by path: a machine may have a package named ``tests`` installed
+    spec = importlib.util.spec_from_file_location(
+        "plateau_reference", os.path.join(ROOT, "tests",
+                                          "plateau_reference.py"))
+    reference = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(reference)
+    Plateau = reference.Plateau
+    values = plateau_values()
+    dev = DevicePlateau(patience=2, accumulation_size=3, device="cuda")
+    ref = Plateau(patience=2, accumulation_size=3)
+    fold = graphed(dev.update, "plateau")
+    value = torch.zeros((), device="cuda")
+    off, scales = [], set()
+
+    def run():
+        for i, v in enumerate(values):
+            value.fill_(float(v))
+            fold(value)
+            ref.update(v)
+            state = dev.tensors()
+            for name, want in zip(DevicePlateau.NAMES, ref.values()):
+                got = state[name].cpu().numpy()
+                if got.tobytes() != np.asarray(want, got.dtype).tobytes():
+                    off.append((i, name))
+            scales.add(float(dev.scale))
+
+    _, captures, replays = graph_steps(run)
+    row = dict(values=len(values), captures=captures, replays=replays,
+               mismatches=off, scale=float(dev.scale),
+               best_value=float(dev.best_value))
+    print(f"device plateau, graphed: {row}", flush=True)
+    if off or captures != 1 or replays != len(values) - 1 or \
+            len(scales) < 3:   # the decisions fired at least twice
+        raise AssertionError(f"device plateau: {row}")
+    return row
+
+
+def run_graph_settings(card, tmp):
+    """Phase 29: (a) then, for each of :data:`SETTINGS`, (b) the
+    full-width fusion step eager against graphed; (c) and (d) (see the
+    module docstring). Returns the record."""
+    import dataclasses
+
+    import torch
+    from tpu3dssf_torch.cli import common
+    from tpu3dssf_torch.train.graph import graphed
+
+    record = {"train": run_settings_training(card, tmp)}
+    base = common.load_config(CONFIG)
+    device = torch.device("cuda")
+    encode, vit_cfg = common.build_image_encoder(base, device, graph=False)
+    g_encode = graphed(encode, "encode")
+    batch, images, points = first_batch(base, "train", device)
+    tokens = encode(images)
+    rows = {}
+    for name, change in SETTINGS.items():
+        cfg = dataclasses.replace(base, **change)
+        state, step, g_step = fusion_state(cfg, vit_cfg, device)
+
+        def eager():
+            return step(state, batch, encode(images))
+
+        def graphed_frame():
+            return g_step(state, batch, g_encode(images))
+
+        row = ab_time(f"train_step {name}", eager, graphed_frame, points,
+                      card)
+        row["launches"] = check_graphed_counts(
+            f"train_step {name}", eager, graphed_frame, TRAIN_LAUNCHES)
+        lr_err = []
+        row.update(hold_train_runs(
+            f"{name} train step", state, g_step, step, (batch, tokens),
+            lambda st: lr_err.append(lr_error(st))), lr_err=max(lr_err))
+        print(f"{name} train step: the rate of each update vs table[count]"
+              f" x scale, largest error {row['lr_err']}", flush=True)
+        if row["lr_err"] != 0.0:
+            raise AssertionError(f"{name} train step: lr error "
+                                 f"{row['lr_err']}")
+        if name == "all":
+            record["nan_batches"] = check_nan_batches(state, step, g_step,
+                                                      batch, tokens)
+        rows[name] = row
+        del state, step, g_step, eager, graphed_frame
+        torch.cuda.empty_cache()
+    record["steps"] = rows
+    record["plateau"] = check_device_plateau()
+    del encode, g_encode
+    torch.cuda.empty_cache()
+    return record
 
 
 def per_path(rows, key, count):
@@ -3800,6 +4122,13 @@ def main():
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    # phase 29: every train configuration through one graph
+    tmp = tempfile.mkdtemp(prefix="tpu3dssf_smoke_")
+    try:
+        settings = run_graph_settings(card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
     def parallel_launches(k):
         """Launches of kernel ``k`` on rank 0 in each path of phase 26."""
         r = parallel["ranks"][0]
@@ -3865,7 +4194,8 @@ def main():
             "source": "tpu3dssf_torch/csrc/" + source, "replaces": replaces,
             "launches": train_launches[k],
             "max_abs_err": max([inside[k]["max_abs_err"],
-                                lidar_train["held"][k]["max_abs_err"]]
+                                lidar_train["held"][k]["max_abs_err"],
+                                settings["train"]["held"][k]["max_abs_err"]]
                                + [r["max_abs_err"] for r in train_rows[k]]
                                + [r["max_abs_err"] for r in
                                   flash_rows.get(k, [])]),
@@ -3887,6 +4217,8 @@ def main():
                                for v in ("remat", "remat_attention")},
             # the LiDAR-only training run of phase 27
             "lidar_train_launches": lidar_train["launches"][k],
+            # phase 29's main_train run with all four settings
+            "settings_train_launches": settings["train"]["launches"][k],
         }
         if k in ("K4", "K5"):
             # the (W, K, H, D) route: launches per window-48 train step, and
@@ -3961,6 +4293,7 @@ def main():
     print("parallel " + json.dumps(parallel))
     print("lidar_train " + json.dumps(lidar_train))
     print("parity_ab " + json.dumps(ab))
+    print("settings " + json.dumps(settings))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

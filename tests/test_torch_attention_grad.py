@@ -37,6 +37,17 @@ jwa = importlib.import_module("tpu3dssf.kernels.window_attention")
 TOL = dict(atol=1e-5, rtol=1e-5)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread for this module: its tensors are small, and the
+    suite's workers share the machine's cores, where a pool of threads per
+    worker spends far longer waiting on its barriers than computing."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(rng, B, N, C, all_masked=1):
     qkv = rng.normal(size=(B, N, 3 * C)).astype(np.float32)
     mask = rng.random((B, N)) > 0.3

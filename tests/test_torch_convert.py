@@ -19,6 +19,17 @@ from tpu3dssf_torch import convert
 from tpu3dssf_torch.models.layers import Dense, LayerNorm, init_weights
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread for this module: its tensors are small, and the
+    suite's workers share the machine's cores, where a pool of threads per
+    worker spends far longer waiting on its barriers than computing."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def to_numpy_tree(tree):
     return jax.tree.map(np.asarray, jax.device_get(tree))
 

@@ -165,11 +165,12 @@ def test_training_rules_launch_their_kernels(cuda):
         fa.flash_attention_packed(z, bias, 2, 0.125).sum().backward()
 
 
-def _small_model(cuda, batch_size=2, seed=6, **opt):
+def _small_model(cuda, batch_size=2, seed=6, drop_path=0.0, name="AdamW",
+                 **opt):
     """A small bf16 fusion pipeline (PTv3 at C = 32 and 128, window 128:
-    K2–K5 in training) with seeded weights, its AdamW state (``opt`` to
-    ``create_optimizer``), loss and one batch with random tokens:
-    (state, loss_fn, batch, tokens)."""
+    K2–K5 in training; DropPath at ``drop_path``) with seeded weights, its
+    optimizer state (``name`` and ``opt`` to ``create_optimizer``), loss
+    and one batch with random tokens: (state, loss_fn, batch, tokens)."""
     from tpu3dssf_torch.cli.common import (HostDataPipeline,
                                            SyntheticNuScenes, batch_to_device)
     from tpu3dssf_torch.losses import CELSLoss
@@ -185,7 +186,8 @@ def _small_model(cuda, batch_size=2, seed=6, **opt):
         ptv3=ptv3.PTv3Config(
             enc_depths=(1, 1), enc_channels=(32, 128), enc_heads=(2, 8),
             enc_window=(128, 128), dec_depths=(1,), dec_channels=(32,),
-            dec_heads=(2,), dec_window=(128,), dtype=bf16),
+            dec_heads=(2,), dec_window=(128,), drop_path=drop_path,
+            dtype=bf16),
         voxel_size=0.4, voxel_capacity=1024)
     data = SyntheticNuScenes(num_samples=batch_size, num_points=3000,
                              image_hw=(90, 160), seed=3)
@@ -197,8 +199,7 @@ def _small_model(cuda, batch_size=2, seed=6, **opt):
     tokens = torch.randn(batch_size, 6, 60, 16, generator=gen).to(cuda, bf16)
     model = init_weights(fusion.SegmentationPipeline(cfg), seed).to(cuda)
     state = TrainState(model, create_optimizer(
-        model.parameters(), "AdamW", 1e-3, grad_clip=1.0,
-        **(opt or {})))
+        model.parameters(), name, 1e-3, grad_clip=1.0, **opt))
     return state, CELSLoss(weight=[1.0] * 16), batch, tokens
 
 
@@ -364,7 +365,7 @@ def test_the_tensor_lr_follows_the_schedule_across_replays(cuda):
     """A cosine schedule over 6 updates: after every graphed step the rate
     on the card is the schedule's, and 5 graphed steps give 5 eager steps'
     parameters (a rate baked in at capture would not)."""
-    from tpu3dssf_torch.train import graph, make_train_step
+    from tpu3dssf_torch.train import create_schedule, graph, make_train_step
 
     kw = dict(lr_scheduler="CosineAnnealingLR", steps_per_epoch=6,
               num_epochs=1)
@@ -374,16 +375,48 @@ def test_the_tensor_lr_follows_the_schedule_across_replays(cuda):
         step = make_train_step(loss_fn)
         if graphed:
             step = graph.graph_train_step(step)
-        sched = state.optimizer.scheduler
+        opt = state.optimizer
+        sched = create_schedule("CosineAnnealingLR", 6, 1)
         for i in range(5):
             step(state, batch, tokens)
-            want = torch.tensor(sched.base_lrs[0] * sched.lr_lambdas[0](
-                i + 1), dtype=torch.float32)
-            assert float(state.optimizer.inner.param_groups[0]["lr"]) == \
-                float(want)
+            # the rate update i took, and the one the next takes
+            for lr, c in ((opt.inner.param_groups[0]["lr"], i),
+                          (opt.rate(), i + 1)):
+                want = torch.tensor(1e-3 * sched(c), dtype=torch.float32)
+                assert float(lr) == float(want)
         runs.append([p.detach().clone() for p in state.model.parameters()])
     assert _within_eager(_max_diff(runs[0], runs[1]),
                          _max_diff(runs[2], runs[1]))
+
+
+@pytest.mark.parametrize("setting", ["plateau", "skip", "sgd",
+                                     "drop_path", "all"])
+def test_every_train_setting_replays_its_eager_step(cuda, setting):
+    """Under each setting that once kept the step eager (chip_smoke's
+    SETTINGS), the graphed step launches what the eager one does per
+    replay, and 3 graphed steps from one state give 3 eager steps'
+    parameters under chip_smoke's rule, with the same chain state. The
+    optimizer is SGD where the setting leaves it open: on this small model
+    Adam's first updates turn near-zero gradients, which differ between
+    runs in their rounding, into ±lr steps, which make the rule a coin
+    toss (chip_smoke phase 29 holds the AdamW settings at full width)."""
+    import chip_smoke
+    from tpu3dssf_torch.train import graph, make_train_step
+
+    kw = dict(chip_smoke.SETTINGS[setting])
+    kw["name"] = kw.pop("optimizer", "SGD")
+    state, loss_fn, batch, tokens = _small_model(cuda, steps_per_epoch=2,
+                                                 **kw)
+    step = make_train_step(loss_fn, 7 if kw.get("drop_path") else None)
+    g_step = graph.graph_train_step(step)
+    g_step(state, batch, tokens)                     # eager call + capture
+    eager = _launches(lambda: step(state, batch, tokens))
+    assert eager and _launches(lambda: g_step(state, batch, tokens)) == eager
+    row = chip_smoke.hold_train_runs(setting, state, g_step, step,
+                                     (batch, tokens))
+    [(updates, trace)] = row["counts"]
+    assert updates == state.step and trace[-1]["count"] == state.step
+    assert all(torch.isfinite(p).all() for p in state.model.parameters())
 
 
 def _bhnd_inputs(cuda, B, N, H, D, seed=0):
@@ -606,8 +639,9 @@ def test_graphed_lidar_train_step_with_knn5_and_nearest(cuda):
     before = [p.detach().clone() for p in state.model.parameters()]
     row = chip_smoke.hold_train_runs("lidar train step", state, g_step, step,
                                      (batch, tokens))
-    assert row["counts"] == [(state.step,
-                              state.optimizer.scheduler.last_epoch)]
+    [(updates, trace)] = row["counts"]
+    assert updates == state.step == int(state.optimizer.count)
+    assert trace[-1]["count"] == state.step
     assert _max_diff(list(state.model.parameters()), before) > 0
     assert all(torch.isfinite(p).all() for p in state.model.parameters())
 

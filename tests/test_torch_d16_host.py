@@ -14,6 +14,17 @@ from tpu3dssf_torch.kernels.modules import flash_attention as fa
 SOURCE = Path(fa.__file__).resolve().parents[1] / "csrc" / fa._BWD_SOURCE
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread for this module: its tensors are small, and the
+    suite's workers share the machine's cores, where a pool of threads per
+    worker spends far longer waiting on its barriers than computing."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _constant(name):
     """An ``int`` constexpr of the source's d16 namespace."""
     d16 = SOURCE.read_text().split("namespace d16 {", 1)[1]

@@ -42,6 +42,17 @@ MODEL_CODE = ("tpu3dssf_torch.models", "tpu3dssf_torch.voxel",
               "tpu3dssf_torch.serialization")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread for this module: its tensors are small, and the
+    suite's workers share the machine's cores, where a pool of threads per
+    worker spends far longer waiting on its barriers than computing."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(rng, B=1, P=128):
     """tests/test_export.py's inputs, as numpy."""
     pts = np.concatenate([rng.normal(size=(B, P, 3)) * 3,

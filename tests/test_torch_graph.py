@@ -7,10 +7,11 @@ is checked here on CPU tensors: no host read (``.item()``, ``float()``,
 ``bool()``), no operation whose output shape depends on the data, and no
 tensor made from host data inside the step (a graph cannot replay a
 host-to-device copy), in the encode, eval and train steps of the fusion
-and the LiDAR parity models. Then the config rule that keeps a train step
-eager, the metric sums, the launch-counter registry and the dropping of
-graphs on a restore. tests/test_torch_cuda.py holds the graphs themselves
-on the card.
+and the LiDAR parity models, the train step under each setting that used
+to keep it eager (ReduceLROnPlateau, skip_nonfinite, SGD with Nesterov
+momentum, DropPath) and all four together. Then the metric sums, the
+launch-counter registry and the dropping of graphs on a restore.
+tests/test_torch_cuda.py holds the graphs themselves on the card.
 """
 
 import dataclasses
@@ -56,42 +57,48 @@ def test_metric_accumulator_copies_what_it_is_given():
         fresh._cm_h, sum(m["confusion"].numpy() for m in ms))
 
 
-def _cfg(tmp_path, **train):
-    cfg = common.load_config(_tiny_config(tmp_path))
-    return dataclasses.replace(cfg, **train)
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread for this module: its tensors are small, and the
+    suite's workers share the machine's cores, where a pool of threads per
+    worker spends far longer waiting on its barriers than computing."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
-@pytest.mark.parametrize("change,words", [
-    (dict(lr_scheduler="ReduceLROnPlateau"), "ReduceLROnPlateau"),
-    (dict(skip_nonfinite=True), "skip_nonfinite"),
-    (dict(optimizer="SGD"), "SGD"),
-    (dict(drop_path=0.1), "drop_path"),
-])
-def test_config_rule_keeps_host_decisions_eager(tmp_path, capsys, change,
-                                                words):
-    reason = graph.eager_reason(_cfg(tmp_path, **change))
-    assert reason is not None and words in reason
-    step = loop.make_train_step(common.build_loss(_cfg(tmp_path)))
-    assert graph.graph_train_step(step, reason) is step
-    out = capsys.readouterr().out
-    assert out.count("[graph] train step stays eager") == 1
-    assert words in out
-
-
-def test_config_rule_names_every_reason(tmp_path):
-    reason = graph.eager_reason(_cfg(
-        tmp_path, lr_scheduler="ReduceLROnPlateau", skip_nonfinite=True,
-        optimizer="SGD", drop_path=0.2))
-    assert len(reason.split("; ")) == 4
+# the train settings that each made a host decision in the update before
+# they became device state, alone and together
+SETTINGS = {
+    "plateau": dict(lr_scheduler="ReduceLROnPlateau"),
+    "skip": dict(skip_nonfinite=True),
+    "sgd": dict(optimizer="SGD", momentum=0.9, nesterov=True),
+    "drop_path": dict(drop_path=0.3),
+}
+SETTINGS["all"] = {k: v for s in SETTINGS.values() for k, v in s.items()}
+DROPOUT_SEED = 42
 
 
 def test_every_shipped_config_is_graphed():
-    """AdamW or Adam with a schedule torch can fill, no skip, no DropPath:
-    every config in configs/ trains through a graph on the card."""
+    """Every config in configs/ trains through a graph on the card: its
+    optimizer, schedule, clip and guard update a small parameter set
+    without a host read or a host-made tensor."""
     paths = sorted(glob.glob(os.path.join(ROOT, "configs", "*.yaml")))
     assert paths
     for path in paths:
-        assert graph.eager_reason(common.load_config(path)) is None, path
+        cfg = common.load_config(path)
+        model = torch.nn.Linear(4, 3)
+        state = common.init_state(cfg, model, steps_per_epoch=3)
+        assert isinstance(graph.graph_train_step(
+            loop.make_train_step(common.build_loss(cfg))),
+            graph.GraphedStep)
+        x, value = torch.ones(2, 4), torch.tensor(1.0)
+        with _HostOps() as mode:
+            for _ in range(2):
+                model(x).sum().backward()
+                state.apply_gradients(value=value)
+        assert mode.found == [], path
 
 
 def test_graphed_train_step_without_reason_splits_device_and_host(
@@ -99,14 +106,22 @@ def test_graphed_train_step_without_reason_splits_device_and_host(
     step = loop.make_train_step(common.build_loss(_cfg(tmp_path)))
     g = graph.graph_train_step(step)
     assert isinstance(g, graph.GraphedStep)
-    assert g.step is step.update and g.after is step.advance
+    assert g.step is step.update
+    assert g.before is step.draw and g.after is step.advance
     assert "[graph]" not in capsys.readouterr().out
 
 
-def _tiny_run(path):
+def _cfg(tmp_path, **train):
+    cfg = common.load_config(_tiny_config(tmp_path))
+    return dataclasses.replace(cfg, **train)
+
+
+def _tiny_run(path, encode_tokens=True, **train):
     """The model, state, loss, eval step, encode fn and first train batch
-    of the config at ``path``, on the CPU."""
-    cfg = common.load_config(path)
+    of the config at ``path`` (its train settings replaced by ``train``),
+    on the CPU; the batch's patch tokens encoded, or zeros where not
+    ``encode_tokens``."""
+    cfg = dataclasses.replace(common.load_config(path), **train)
     cpu = torch.device("cpu")
     encode, vit_cfg = common.build_image_encoder(cfg, cpu)
     model, _ = common.build_pipeline(cfg, vit_cfg, cpu)
@@ -115,7 +130,7 @@ def _tiny_run(path):
     host = next(iter(common.build_dataloaders(cfg)["train"]))
     images = host.pop("images", None)
     batch = common.batch_to_device(host, cpu)
-    if encode is not None:
+    if encode is not None and encode_tokens:
         tokens = encode(torch.as_tensor(images))
     else:
         tokens = common.zero_tokens(cfg, vit_cfg, batch["points"].shape[0])
@@ -138,8 +153,8 @@ def test_graphed_steps_on_the_cpu_are_the_eager_steps(tmp_path):
             torch.testing.assert_close(mb[k], ma[k], rtol=0, atol=0)
     assert graphed.graphs == {}
     assert a["state"].step == b["state"].step == 3
-    assert (a["state"].optimizer.scheduler.last_epoch
-            == b["state"].optimizer.scheduler.last_epoch == 3)
+    assert (int(a["state"].optimizer.count)
+            == int(b["state"].optimizer.count) == 3)
     for pa, pb in zip(a["model"].parameters(), b["model"].parameters()):
         torch.testing.assert_close(pb, pa, rtol=0, atol=0)
 
@@ -191,25 +206,70 @@ class _HostOps(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-@pytest.mark.parametrize("config", ["fusion", "lidar_parity"])
-def test_steps_make_no_host_sync_and_no_host_copy(tmp_path, config):
+def _train_step(run):
+    seed = DROPOUT_SEED if run["cfg"].drop_path > 0 else None
+    return loop.make_train_step(run["loss_fn"], seed)
+
+
+CASES = [(c, s) for s in ["none"] + list(SETTINGS)
+         for c in ("fusion", "lidar_parity")]
+
+
+@pytest.mark.parametrize("config,setting", CASES, ids=[
+    c if s == "none" else f"{c}-{s}" for c, s in CASES])
+def test_steps_make_no_host_sync_and_no_host_copy(tmp_path, config,
+                                                  setting):
+    """The encode, eval and train steps; under each setting, the train
+    step's device half (``update``), its masks drawn by its host half."""
     path = (_tiny_config(tmp_path) if config == "fusion"
             else _tiny_lidar_config(tmp_path))
-    run = _tiny_run(path)
+    base = setting == "none"
+    run = _tiny_run(path, encode_tokens=base, **SETTINGS.get(setting, {}))
     eval_step = loop.make_eval_step(run["loss_fn"], run["cfg"].mlp_class)
-    train_step = loop.make_train_step(run["loss_fn"])
+    train_step = _train_step(run)
     images = (None if run["encode"] is None
               else torch.as_tensor(run["images"]))
     # the first call of a step fills its device constants; the graph
     # captures the calls after it
     train_step(run["state"], run["batch"], run["tokens"])
-    eval_step(run["model"], run["batch"], run["tokens"])
-    with _HostOps() as mode:
-        if images is not None:
-            run["encode"](images)
+    if base:
         eval_step(run["model"], run["batch"], run["tokens"])
-        train_step.update(run["state"], run["batch"], run["tokens"])
+    args = train_step.draw(run["state"], run["batch"], run["tokens"])
+    assert (args[-1] is None) == (run["cfg"].drop_path == 0)
+    with _HostOps() as mode:
+        if base and images is not None:
+            run["encode"](images)
+        if base:
+            eval_step(run["model"], run["batch"], run["tokens"])
+        train_step.update(*args)
     assert mode.found == []
+
+
+@pytest.mark.parametrize("setting", list(SETTINGS))
+def test_graphed_train_step_on_the_cpu_is_the_eager_step(tmp_path, setting):
+    """Under each setting, two graphed train steps on the CPU (the eager
+    step between the host halves) give the eager steps' bits: metrics,
+    parameters, optimizer state and the chain's device state."""
+    path = _tiny_lidar_config(tmp_path)
+    a, b = (_tiny_run(path, **SETTINGS[setting]) for _ in range(2))
+    eager = _train_step(a)
+    graphed = graph.graph_train_step(_train_step(b))
+    for _ in range(2):
+        ma = eager(a["state"], a["batch"], a["tokens"])
+        mb = graphed(b["state"], b["batch"], b["tokens"])
+        for k in ma:
+            torch.testing.assert_close(mb[k], ma[k], rtol=0, atol=0)
+    assert graphed.graphs == {} and a["state"].step == b["state"].step == 2
+    oa, ob = a["state"].optimizer, b["state"].optimizer
+    assert int(oa.count) == 2
+    for k, x in oa.device_state().items():
+        torch.testing.assert_close(ob.device_state()[k], x, rtol=0, atol=0,
+                                   msg=k)
+    for pa, pb in zip(a["model"].parameters(), b["model"].parameters()):
+        torch.testing.assert_close(pb, pa, rtol=0, atol=0)
+        for k, x in oa.inner.state[pa].items():
+            torch.testing.assert_close(ob.inner.state[pb][k], x, rtol=0,
+                                       atol=0, msg=k)
 
 
 def test_host_op_recorder_sees_what_it_looks_for():

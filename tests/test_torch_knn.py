@@ -29,6 +29,17 @@ from tpu3dssf_torch.voxel.voxelize import (KNN_BAD_DIST, _topk_neighbors,
 TOL = dict(rtol=1e-5, atol=1e-4)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread for this module: its tensors are small, and the
+    suite's workers share the machine's cores, where a pool of threads per
+    worker spends far longer waiting on its barriers than computing."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jax_topk(q, r, m, k, tile=64):
     Q = q.shape[1]
     fn = jax.vmap(lambda a, b, c: _tiled_topk_neighbors(

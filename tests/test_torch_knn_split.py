@@ -33,6 +33,17 @@ SPLITS = [(2, 1, 64), (3, 16, 16), (7, 1, 25), (5, 64, 7), (40, 8, 32),
           (1000, 4, 13)]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread for this module: its tensors are small, and the
+    suite's workers share the machine's cores, where a pool of threads per
+    worker spends far longer waiting on its barriers than computing."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _lattice(rng, B, Q, R, masked=0.2, side=6):
     """Integer points in [0, side)³: exact f32 arithmetic and many exact
     ties, so every tie crosses slice boundaries somewhere."""

@@ -29,6 +29,17 @@ B, N, H, D = 2, 37, 3, 16        # ragged N
 C = H * D
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread for this module: its tensors are small, and the
+    suite's workers share the machine's cores, where a pool of threads per
+    worker spends far longer waiting on its barriers than computing."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _gen(seed=0):
     return torch.Generator().manual_seed(seed)
 

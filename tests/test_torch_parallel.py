@@ -62,6 +62,17 @@ OPT_KW = dict(name="AdamW", learning_rate=1e-3, weight_decay=1e-3,
               num_epochs=20, grad_clip=1.0)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread for this module: its tensors are small, and the
+    suite's workers share the machine's cores, where a pool of threads per
+    worker spends far longer waiting on its barriers than computing."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _lidar_pipeline_config():
     """tests/test_train.py's tiny LiDAR-only model."""
     return jfusion.PipelineConfig(
@@ -384,11 +395,27 @@ def test_data_parallel_train_step_matches_jax_mesh_step(ranks, ga):
             np.testing.assert_allclose(g, w, atol=1e-5, err_msg=k)
 
 
-def test_data_parallel_train_step_refuses_drop_path():
-    from tpu3dssf_torch.train import make_train_step
-    with pytest.raises(ValueError, match="DropPath"):
-        make_train_step(CELSLoss(), dropout_seed=1,
-                        mesh=Mesh(("data",), (2,), (0,)))
+@pytest.mark.parametrize("ga", [1, 2])
+def test_data_parallel_train_step_with_drop_path_is_the_one_process_step(
+        ranks, ga):
+    """DropPath at 0.5: every rank draws the whole microbatch's masks from
+    the one seeded generator and keeps its rows, so the 2-rank step equals
+    the one-process step on the whole batch (loss 1e-5 relative, every
+    parameter within 1e-5, the key third of the qkv biases left out as in
+    the JAX comparison above); and DropPath dropped something (the loss
+    differs from the step without it)."""
+    _, _, results = ranks
+    for r in results:
+        got, want = (r[f"train_drop_path{ga}"][k] for k in ("mesh", "one"))
+        np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-5)
+        assert got["loss"] != r[f"train{ga}"]["loss"]
+        assert set(got["params"]) == set(want["params"])
+        for k, w in want["params"].items():
+            g = got["params"][k]
+            if k.endswith("attn.qkv.bias"):
+                C = g.shape[0] // 3
+                g, w = (np.delete(x, np.s_[C:2 * C]) for x in (g, w))
+            np.testing.assert_allclose(g, w, atol=1e-5, err_msg=k)
 
 
 def test_tensor_parallel_vit_matches_jax(ranks):

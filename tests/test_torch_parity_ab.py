@@ -412,6 +412,26 @@ def test_lidar_training_trajectory_matches_jax(rng, monkeypatch):
     """3 AdamW + cosine + clip steps of a small LiDAR-only model in the
     parity modes (knn5, nearest) at f32 from one converted init: each
     step's loss, and every parameter after the third."""
+    _lidar_trajectory(rng, monkeypatch, OPT_KW)
+
+
+# SGD with Nesterov momentum under the plateau and the non-finite guard:
+# the settings that kept the port's train step eager before they became
+# device state (one step an epoch, so the plateau decides every step)
+SGD_PLATEAU_KW = dict(name="SGD", learning_rate=0.05, momentum=0.9,
+                      nesterov=True, lr_scheduler="ReduceLROnPlateau",
+                      steps_per_epoch=1, num_epochs=20, grad_clip=1.0,
+                      skip_nonfinite=True)
+
+
+def test_lidar_training_trajectory_with_sgd_plateau_skip_matches_jax(
+        rng, monkeypatch):
+    """The same 3-step trajectory under SGD (Nesterov), ReduceLROnPlateau
+    and skip_nonfinite, at the same tolerances."""
+    _lidar_trajectory(rng, monkeypatch, SGD_PLATEAU_KW)
+
+
+def _lidar_trajectory(rng, monkeypatch, opt_kw):
     monkeypatch.setattr(jlosses, "lovasz_softmax", functools.partial(
         jlosses.lovasz_softmax, exact_sort=True))
     pcfg = jfusion.PipelineConfig(
@@ -429,7 +449,7 @@ def test_lidar_training_trajectory_matches_jax(rng, monkeypatch):
     jmodel = jlidar.LidarSegmentationModel(pcfg)
     params = to_numpy_tree(jax.jit(jmodel.init)(
         jax.random.PRNGKey(5), jb["points"], jb["point_valid"]))
-    kw = dict(OPT_KW)
+    kw = dict(opt_kw)
     jst = jstate.create_train_state(jmodel, params, jstate.create_optimizer(
         kw.pop("name"), **kw))
     jstep = jloop.make_train_step(jlosses.CELSLoss(
@@ -437,7 +457,7 @@ def test_lidar_training_trajectory_matches_jax(rng, monkeypatch):
 
     model = lidar_only.LidarSegmentationModel(port_pipeline_config(pcfg))
     model.load_state_dict(convert.pipeline_state_dict_from_flax(params))
-    kw = dict(OPT_KW)
+    kw = dict(opt_kw)
     state = TrainState(model, create_optimizer(model.parameters(),
                                                kw.pop("name"), **kw))
     step = make_train_step(losses.CELSLoss(weight=np.ones(16)))
@@ -634,8 +654,10 @@ def test_chip_smoke_graph_rule_holds_every_parameter(rng):
     assert row["key_bias_diff"] == [0.0, 0.0]
     assert row["key_bias_limit"] == pytest.approx(
         cs.KEY_BIAS_LRS * OPT_KW["learning_rate"] * cs.GRAPH_TRAIN_STEPS)
-    assert row["counts"] == [(1 + cs.GRAPH_TRAIN_STEPS,
-                              1 + cs.GRAPH_TRAIN_STEPS)]
+    [(updates, trace)] = row["counts"]
+    assert updates == 1 + cs.GRAPH_TRAIN_STEPS
+    assert [c["count"] for c in trace] == list(
+        range(2, 2 + cs.GRAPH_TRAIN_STEPS))
 
     params = dict(state.model.named_parameters())
     qkv = "attn.qkv.bias"

@@ -39,6 +39,17 @@ MODEL_TOL = dict(atol=1e-4, rtol=1e-4)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread for this module: its tensors are small, and the
+    suite's workers share the machine's cores, where a pool of threads per
+    worker spends far longer waiting on its barriers than computing."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _fusion_cfg():
     return jfusion.FusionConfig(point_feat_dim=16, patch_tok_dim=32,
                                 hidden_dims=(32, 16), output_dim=16,

@@ -22,6 +22,17 @@ from tpu3dssf_torch.models import ptv3
 MODEL_TOL = dict(atol=1e-4, rtol=1e-4)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread for this module: its tensors are small, and the
+    suite's workers share the machine's cores, where a pool of threads per
+    worker spends far longer waiting on its barriers than computing."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jax_config(**kw):
     base = dict(enc_depths=(2, 1, 2), enc_channels=(16, 32, 64),
                 enc_heads=(1, 2, 4), enc_window=(32, 16, 16),

@@ -29,6 +29,17 @@ from tpu3dssf_torch.models import ptv3
 FLAGS = ("remat", "remat_attention")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread for this module: its tensors are small, and the
+    suite's workers share the machine's cores, where a pool of threads per
+    worker spends far longer waiting on its barriers than computing."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("flag", FLAGS)
 def test_remat_matches_jax_forward_and_gradients(rng, flag):
     jcfg = _jax_config(**{flag: True})
@@ -81,9 +92,8 @@ def _attention_calls(model):
     (dict(remat=True, remat_attention=True), 3)],
     ids=lambda f: "+".join(f) if isinstance(f, dict) else str(f))
 def test_remat_changes_no_bit_with_drop_path(rng, flags, runs_per_block):
-    """The same seeded DropPath masks with and without remat: the block
-    draws them before the checkpointed region, so the recompute sees them
-    too. Each flag recomputes the attention branch once in the backward;
+    """The same seeded DropPath masks with and without remat: they are an
+    input of the forward, so the recompute sees them too. Each flag recomputes the attention branch once in the backward;
     both nest, as in JAX, and the block's recompute runs the branch's
     checkpoint again."""
     from tpu3dssf_torch.models.layers import init_weights
@@ -97,8 +107,9 @@ def test_remat_changes_no_bit_with_drop_path(rng, flags, runs_per_block):
     for cfg in (base, dataclasses.replace(base, **flags)):
         model = init_weights(ptv3.PointTransformerV3(cfg), 3)
         calls = _attention_calls(model)
-        out, _ = model(feat, grid, mask,
-                       generator=torch.Generator().manual_seed(11))
+        keep = model.draw_keep(feat.shape[0],
+                               torch.Generator().manual_seed(11))
+        out, _ = model(feat, grid, mask, keep=keep)
         (out * proj).sum().backward()
         runs.append((out.detach(), {k: p.grad for k, p in
                                     model.named_parameters()}, calls[0]))

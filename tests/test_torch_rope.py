@@ -40,6 +40,17 @@ jfa = importlib.import_module("tpu3dssf.kernels.flash_attention")
 TOL = dict(atol=1e-5, rtol=1e-5)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread for this module: its tensors are small, and the
+    suite's workers share the machine's cores, where a pool of threads per
+    worker spends far longer waiting on its barriers than computing."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(rng, B, N, H, D, n_pre=3, n_masked=6):
     """qkv (B, N, 3C), a bias masking the last ``n_masked`` keys, an
     upstream gradient, and (N, D/2) tables with identity rows for the

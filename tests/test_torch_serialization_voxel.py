@@ -20,6 +20,17 @@ from tpu3dssf_torch import geometry, serialization, voxel
 TOL = dict(atol=1e-5, rtol=1e-5)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread for this module: its tensors are small, and the
+    suite's workers share the machine's cores, where a pool of threads per
+    worker spends far longer waiting on its barriers than computing."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _eq(a, b):
     np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 

@@ -13,7 +13,11 @@ schedules in f32, and Adam's bias corrections 1 − βᵗ in f32, which are off
 by up to 7e-6 relative over the first steps; torch uses float64); learning
 rates 1e-6 of the base rate; the train step's loss, every gradient and
 every updated parameter 1e-4 (f32 sums over many layers in another order);
-the microbatch mean 1e-6.
+the microbatch mean 1e-6; Adam's second moment 2e-5 (its 1 − β2 from the
+f32 β2 is 1.3e-5 off optax's). The chain's device state (the schedule table,
+the plateau, the skip, the counts) is held bit for bit: against the rate
+torch's ``LambdaLR`` filled, the numpy plateau of tests/plateau_reference.py,
+and its own state before a skipped update.
 """
 
 import functools
@@ -26,6 +30,7 @@ import optax
 import pytest
 import torch
 
+from tests.plateau_reference import Plateau
 from tests.test_torch_convert import port_pipeline_config, t, to_numpy_tree
 from tests.test_torch_pipeline import _slice_inputs, _tiny_config
 from tpu3dssf import losses as jlosses
@@ -40,7 +45,27 @@ from tpu3dssf_torch.train import (TrainState, create_optimizer,
                                   create_schedule, latest_checkpoint,
                                   make_train_step, restore_checkpoint,
                                   save_checkpoint)
+from tpu3dssf_torch.train.loop import _fold_seed
+from tpu3dssf_torch.train.state import (MAX_CONSECUTIVE_NONFINITE,
+                                        DevicePlateau, schedule_table)
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread(request):
+    """One torch thread for each test here: their tensors are small, and
+    the suite's workers share the machine's cores, where a pool of threads
+    per worker spends far longer waiting on its barriers than computing.
+    But test_train_step_matches_jax keeps torch's pool, as it always ran:
+    on one thread (another sum order) its parameter comparison lands at
+    1.05e-4 of its 1e-4 tolerance, on Adam's first update of parameters
+    whose gradients are near Adam's eps."""
+    if request.node.originalname == "test_train_step_matches_jax":
+        yield
+        return
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _assert_rel(got, want, tol=1e-4, what=""):
@@ -163,6 +188,171 @@ def test_plateau_with_nonfinite_values_matches_optax(rng):
     assert last < 0.2 * first                 # the plateau fired
 
 
+@pytest.mark.filterwarnings("ignore:Detected call of")
+@pytest.mark.parametrize("sched", SCHEDULERS)
+def test_schedule_table_is_the_rate_lambdalr_filled(sched):
+    """Every count of a run (2 steps an epoch, 15 epochs: StepLR decays at
+    20, the warm restarts restart at 20): the table's f32 rate equals, bit
+    for bit, what a ``LambdaLR`` over the same closed form filled into a
+    tensor rate from a float base."""
+    spe, epochs, base = 2, 15, 0.01
+    table = schedule_table(sched, base, spe, epochs)
+    opt = torch.optim.SGD([torch.nn.Parameter(torch.zeros(1))],
+                          lr=torch.tensor(base))
+    opt.param_groups[0]["initial_lr"] = base
+    lam = torch.optim.lr_scheduler.LambdaLR(
+        opt, create_schedule(sched, spe, epochs))
+    for c in range(spe * epochs):
+        assert table[c].item() == opt.param_groups[0]["lr"].item(), c
+        lam.step()
+    assert table.numel() > spe * epochs
+
+
+def _optax_leaves(state, name):
+    """Every field ``name`` in an optax state tree."""
+    return [x for _, x in
+            optax.tree_utils.tree_get_all_with_path(state, name)]
+
+
+def _pair(rng, grads, **kw):
+    """The port's optimizer and optax's chain of ``create_optimizer(**kw)``
+    from the same small params; ``step(i)`` applies ``grads[i]`` to both
+    and returns (port params, port inner state, optax params, optax
+    state)."""
+    p0 = {"w": (rng.normal(size=(3, 4)) * 0.01).astype(np.float32),
+          "b": (rng.normal(size=(5,)) * 0.01).astype(np.float32)}
+    tx = jstate.create_optimizer(**kw)
+    update = jax.jit(lambda g, s, p: tx.update(g, s, p,
+                                               value=jnp.float32(1.0)))
+    jax_side = {"params": jax.tree.map(jnp.asarray, p0)}
+    jax_side["state"] = tx.init(jax_side["params"])
+    tp = {k: torch.nn.Parameter(t(v)) for k, v in p0.items()}
+    opt = create_optimizer([tp["w"], tp["b"]], **kw)
+
+    def step(i):
+        upd, jax_side["state"] = update(
+            jax.tree.map(jnp.asarray, grads[i]), jax_side["state"],
+            jax_side["params"])
+        jax_side["params"] = optax.apply_updates(jax_side["params"], upd)
+        for k in tp:
+            tp[k].grad = t(grads[i][k])
+        opt.step(value=torch.tensor(1.0))
+        return ({k: x.detach().clone() for k, x in tp.items()},
+                {k: {n: x.clone() for n, x in opt.inner.state[p].items()}
+                 for k, p in tp.items()},
+                {k: np.asarray(x) for k, x in jax_side["params"].items()},
+                jax_side["state"])
+    return p0, opt, step
+
+
+@pytest.mark.parametrize("opt", OPTIMIZERS[:3],
+                         ids=lambda o: f"{o['name']}-{o.get('momentum', '')}")
+def test_skipped_update_keeps_the_inner_state_as_optax(rng, opt):
+    """A finite update, a NaN one, a finite one: the skipped update leaves
+    the parameters, the moments (Adam's m, v; SGD's trace), Adam's step
+    and the schedule count bit-unchanged, as ``optax.apply_if_finite``
+    keeps its inner state, and both sides' counts agree."""
+    grads = [{"w": rng.normal(size=(3, 4)).astype(np.float32),
+              "b": rng.normal(size=(5,)).astype(np.float32)}
+             for _ in range(3)]
+    grads[1]["w"][1, 2] = np.nan
+    p0, port, step = _pair(rng, grads, learning_rate=0.05,
+                           lr_scheduler="CosineAnnealingLR",
+                           steps_per_epoch=2, num_epochs=3,
+                           skip_nonfinite=True, **opt)
+    before = step(0)
+    count, notfinite = int(port.count), int(port.notfinite_count)
+    after = step(1)
+    assert (count, notfinite) == (1, 0)
+    assert (int(port.count), int(port.notfinite_count),
+            float(port.skipped)) == (1, 1, 1.0)
+    for k in p0:
+        torch.testing.assert_close(after[0][k], before[0][k], rtol=0, atol=0)
+        for n, x in before[1][k].items():
+            torch.testing.assert_close(after[1][k][n], x, rtol=0, atol=0,
+                                       msg=f"{k}.{n}")
+            if n == "step":
+                assert float(x) == 1.0
+        np.testing.assert_array_equal(after[2][k], before[2][k])
+    jstate_ = after[3]
+    assert int(jstate_.notfinite_count) == 1
+    assert {int(c) for c in _optax_leaves(jstate_, "count")} == {1}
+    moments = ({"exp_avg": "mu", "exp_avg_sq": "nu"}
+               if opt["name"] != "SGD" else {"momentum_buffer": "trace"})
+    for n, jname in moments.items():
+        (jm,) = _optax_leaves(jstate_, jname)
+        for k in p0:
+            _assert_rel(after[1][k][n].numpy(), np.asarray(jm[k]), 2e-5,
+                        what=f"{k}.{n}")
+    last = step(2)
+    assert (int(port.count), int(port.notfinite_count)) == (2, 0)
+    _assert_trajectories(p0, [last[2]], [{k: v.numpy() for k, v in
+                                           last[0].items()}], 1e-5)
+
+
+def test_skips_past_the_consecutive_limit_match_optax(rng):
+    """One finite update, then MAX_CONSECUTIVE_NONFINITE + 1 with a NaN:
+    the first 100 are skipped, the 101st applies (its NaN reaches the
+    parameter), as ``apply_if_finite(max_consecutive_errors=100)``."""
+    n = MAX_CONSECUTIVE_NONFINITE
+    grads = [{"w": rng.normal(size=(3, 4)).astype(np.float32),
+              "b": rng.normal(size=(5,)).astype(np.float32)}
+             for _ in range(n + 2)]
+    for g in grads[1:]:
+        g["w"][0, 1] = np.nan
+    p0, port, step = _pair(rng, grads, name="AdamW", learning_rate=0.01,
+                           weight_decay=1e-3, skip_nonfinite=True)
+    first = step(0)
+    for i in range(1, n + 1):
+        out = step(i)
+    assert (int(port.count), int(port.notfinite_count)) == (1, n)
+    for k in p0:
+        torch.testing.assert_close(out[0][k], first[0][k], rtol=0, atol=0)
+    assert int(out[3].notfinite_count) == n
+    last = step(n + 1)
+    assert (int(port.count), int(port.notfinite_count),
+            float(port.skipped)) == (2, n + 1, 0.0)
+    assert int(last[3].notfinite_count) == n + 1
+    assert {int(c) for c in _optax_leaves(last[3], "count")} == {2}
+    for k in p0:
+        got, want = last[0][k].numpy(), last[2][k]
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+        assert np.isnan(got).sum() == (1 if k == "w" else 0)
+        ok = ~np.isnan(want)
+        _assert_rel(got[ok] - p0[k][ok], want[ok] - p0[k][ok], 1e-5,
+                    what=k)
+
+
+def test_device_plateau_is_the_numpy_plateau_bit_for_bit():
+    """Epochs of 3 values, patience 2: a falling, then flat, then noisy
+    sequence with NaN and Inf batches crosses several decisions; after
+    every value the device state equals the numpy reference's, bit for
+    bit."""
+    rng = np.random.default_rng(3)
+    values = np.concatenate([np.linspace(2.0, 1.0, 9), np.full(12, 1.0),
+                             1.0 + 0.01 * rng.normal(size=30)])
+    values = values.astype(np.float32)
+    for i in (4, 13, 14, 30):
+        values[i] = np.nan
+    values[22] = np.inf
+    ref = Plateau(patience=2, accumulation_size=3)
+    dev = DevicePlateau(patience=2, accumulation_size=3)
+    scales = set()
+    for v in values:
+        want = ref.update(v)
+        got = dev.update(torch.tensor(v))
+        assert got.item() == want
+        state = dev.tensors()
+        for name, w in zip(DevicePlateau.NAMES, ref.values()):
+            x = state[name]
+            assert x.dtype == (torch.int32 if isinstance(w, int)
+                               else torch.float32)
+            assert x.numpy().tobytes() == np.asarray(
+                w, x.numpy().dtype).tobytes(), name
+        scales.add(want)
+    assert len(scales) >= 3           # the decisions fired
+
+
 def _jax_pipeline_config():
     return jfusion.PipelineConfig(
         fusion=jfusion.FusionConfig(point_feat_dim=16, patch_tok_dim=32,
@@ -253,14 +443,14 @@ def test_train_step_matches_jax(rng, monkeypatch):
     assert state.step == 1
 
 
-def _port_small_state(seed=0, drop_path=0.0):
+def _port_small_state(seed=0, drop_path=0.0, opt_kw=OPT_KW):
     pcfg = port_pipeline_config(_jax_pipeline_config())
     import dataclasses
     pcfg = dataclasses.replace(pcfg, ptv3=dataclasses.replace(
         pcfg.ptv3, drop_path=drop_path))
     from tpu3dssf_torch.models.layers import init_weights
     model = init_weights(fusion.SegmentationPipeline(pcfg), seed)
-    kw = dict(OPT_KW)
+    kw = dict(opt_kw)
     return TrainState(model, create_optimizer(
         model.parameters(), kw.pop("name"), **kw))
 
@@ -333,6 +523,37 @@ def test_train_step_with_drop_path_is_seeded(rng):
     assert len(set(runs[0])) > 1                      # masks move per step
 
 
+def test_drop_path_masks_as_input_are_the_generator_draws(rng,
+                                                          monkeypatch):
+    """Over a 3-step run at drop_path 0.5, every DropPath applies the mask
+    the code drew inside the forward before the masks became an input:
+    update ``s`` seeds a CPU generator from (seed, s), and each DropPath,
+    in forward order, draws ``torch.rand((rows,)) < keep`` from it."""
+    loss_fn = losses.CELSLoss(weight=np.ones(16))
+    batch, tokens = _port_batch(rng)
+    state = _port_small_state(drop_path=0.5)
+    applied = []
+    apply = DropPath.apply
+
+    def record(self, x, keep_mask):
+        applied.append(keep_mask.clone())
+        return apply(self, x, keep_mask)
+
+    monkeypatch.setattr(DropPath, "apply", record)
+    step = make_train_step(loss_fn, dropout_seed=7)
+    for _ in range(3):
+        step(state, batch, tokens)
+    n = 2 * len(state.model.ptv3.blocks())
+    want = []
+    for s in range(3):
+        gen = torch.Generator().manual_seed(_fold_seed(7, s))
+        want += [torch.rand((2,), generator=gen) < 0.5 for _ in range(n)]
+    assert len(applied) == len(want) == 3 * n
+    for i, (got, w) in enumerate(zip(applied, want)):
+        torch.testing.assert_close(got, w, rtol=0, atol=0, msg=str(i))
+    assert any(not bool(m.all()) for m in applied)
+
+
 def test_train_step_on_the_frozen_encoders_own_tokens(rng):
     """The tokens come from ``make_image_encode_fn`` under inference mode:
     a train step must still run backward through the fusion head."""
@@ -383,6 +604,31 @@ def test_checkpoint_round_trip_and_resume(tmp_path, rng):
     ma, mb = step(a, batch, tokens), step(b, batch, tokens)
     assert float(ma["loss"]) == float(mb["loss"])
     for pa, pb in zip(a.model.parameters(), b.model.parameters()):
+        torch.testing.assert_close(pa, pb, rtol=0, atol=0)
+
+    # a restore mid-plateau (one of an epoch's 3 values folded) and after
+    # a skipped update resumes bit for bit: the schedule count, the
+    # plateau tensors and the skip count travel with the state
+    kw = dict(OPT_KW, lr_scheduler="ReduceLROnPlateau", steps_per_epoch=3,
+              skip_nonfinite=True)
+    p = _port_small_state(opt_kw=kw)
+    step(p, batch, tokens)
+    bad = step(p, batch, torch.full_like(tokens, float("nan")))
+    assert not np.isfinite(float(bad["loss"]))
+    opt = p.optimizer
+    assert (int(opt.count), int(opt.notfinite_count),
+            int(opt.plateau.count)) == (1, 1, 1)
+    save_checkpoint(str(tmp_path / "plateau"), 0, p)
+    q = _port_small_state(seed=9, opt_kw=kw)
+    restore_checkpoint(str(tmp_path / "plateau"), None, q)
+    for _ in range(3):   # the third completes the epoch: a decision
+        mp, mq = step(p, batch, tokens), step(q, batch, tokens)
+        assert float(mp["loss"]) == float(mq["loss"])
+    assert int(p.optimizer.plateau.count) == 1
+    for k, x in p.optimizer.device_state().items():
+        torch.testing.assert_close(q.optimizer.device_state()[k], x, rtol=0,
+                                   atol=0, msg=k)
+    for pa, pb in zip(p.model.parameters(), q.model.parameters()):
         torch.testing.assert_close(pa, pb, rtol=0, atol=0)
 
     with pytest.raises(FileNotFoundError):
@@ -445,7 +691,7 @@ def test_main_train_runs_and_resumes_on_cpu(tmp_path, capsys):
                            "--resume"])
     assert "Resumed full train state at epoch 1" in capsys.readouterr().out
     assert len(tr) == 1 and state.step == 4          # 2 restored + 2 new
-    assert state.optimizer.scheduler.last_epoch == 4
+    assert int(state.optimizer.count) == 4
     assert latest_checkpoint(str(ckpt / "last")) == 1
 
 

@@ -23,6 +23,17 @@ from tpu3dssf_torch.models import vit
 MODEL_TOL = dict(atol=1e-4, rtol=1e-4)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread for this module: its tensors are small, and the
+    suite's workers share the machine's cores, where a pool of threads per
+    worker spends far longer waiting on its barriers than computing."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _dinov3_like(**kw):
     # RoPE + 4 registers, D = 16, 15 patches + 5 prefix tokens (ragged N)
     return jvit.ViTConfig(patch_size=8, image_size=(24, 40), hidden_size=64,

@@ -36,6 +36,17 @@ from tpu3dssf_torch.models import vit, vit_port
 MODEL_TOL = dict(atol=1e-4, rtol=1e-4)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread for this module: its tensors are small, and the
+    suite's workers share the machine's cores, where a pool of threads per
+    worker spends far longer waiting on its barriers than computing."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _randomize(model, seed=0):
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():

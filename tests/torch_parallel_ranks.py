@@ -96,6 +96,34 @@ def run_train(inp, out, mesh):
             "valid": int(m["valid"]), "step": state.step,
             "params": {k: _np(v) for k, v in model.state_dict().items()}}
 
+    # DropPath at 0.5: the mesh step, each rank on its rows of the masks
+    # drawn for the whole microbatch, and the one-process step on the whole
+    # batch from the same state and seed
+    import dataclasses
+    from tpu3dssf_torch.models.lidar_only import LidarSegmentationModel
+    cfg = inp["lidar_cfg"]
+    cfg = dataclasses.replace(cfg, ptv3=dataclasses.replace(
+        cfg.ptv3, drop_path=0.5))
+    for ga in (1, 2):
+        runs = {}
+        for kind, run_mesh, batch in (
+                ("mesh", mesh, shard_batch(inp["train_batch"], mesh,
+                                           microbatches=ga)),
+                ("one", None, inp["train_batch"])):
+            model = LidarSegmentationModel(cfg)
+            model.load_state_dict(inp["lidar_state"])
+            kw = dict(inp["opt_kw"])
+            state = TrainState(model, create_optimizer(
+                model.parameters(), kw.pop("name"), **kw))
+            step = make_train_step(loss_fn, dropout_seed=7, grad_accum=ga,
+                                   mesh=run_mesh)
+            b = _batch(batch)
+            m = step(state, b, torch.zeros(b["points"].shape[0], 1, 1, 1))
+            runs[kind] = {
+                "loss": float(m["loss"]),
+                "params": {k: _np(v) for k, v in model.state_dict().items()}}
+        out[f"train_drop_path{ga}"] = runs
+
 
 def run_tp(inp, out, mesh):
     from tpu3dssf_torch.models.vit import (VisionTransformer,

@@ -208,7 +208,7 @@ def profile_train_step(name, work, device):
     replay."""
     from tpu3dssf_torch.cli import common
     from tpu3dssf_torch.kernels.modules import launch_counts
-    from tpu3dssf_torch.train.graph import eager_reason, graph_train_step
+    from tpu3dssf_torch.train.graph import graph_train_step
     from tpu3dssf_torch.train.loop import make_train_step
     from tpu3dssf_torch.utils import cuda_ms, profile_kernels
 
@@ -220,7 +220,7 @@ def profile_train_step(name, work, device):
     loaders = common.build_dataloaders(cfg)
     state = common.init_state(cfg, model, len(loaders["train"]))
     step = make_train_step(common.build_loss(cfg))
-    g_step = graph_train_step(step, eager_reason(cfg))
+    g_step = graph_train_step(step)
     batches = iter(loaders["train"])
     host = next(batches)
     batches.close()

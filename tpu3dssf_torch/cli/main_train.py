@@ -19,9 +19,10 @@ CLI ignores it: training runs on one device, and says so where the mesh is
 larger than one. The model starts from seeded random weights; the
 frozen image encoder from a local DINO checkpoint where one exists
 (``common.build_vit``). On the card the encode, train and eval steps each
-replay one CUDA graph per batch shape (:mod:`tpu3dssf_torch.train.graph`),
-except a train step whose config makes a host decision inside the update
-(``graph.eager_reason``), which stays eager and says why.
+replay one CUDA graph per batch shape (:mod:`tpu3dssf_torch.train.graph`)
+under every configuration: the plateau, the non-finite skip, the schedule
+and SGD's momentum are device state, and the DropPath masks an input of
+the graph.
 """
 
 from __future__ import annotations
@@ -61,7 +62,6 @@ def main(argv=None, seed=1):
 
     from tpu3dssf_torch.cli import common
     from tpu3dssf_torch.train.checkpoint import restore_checkpoint
-    from tpu3dssf_torch.train.graph import eager_reason
     from tpu3dssf_torch.train.loop import train_model
 
     cfg = common.load_config(args.config)
@@ -130,7 +130,6 @@ def main(argv=None, seed=1):
         best_acc=best_acc,
         dropout_seed=DROPOUT_SEED if cfg.drop_path > 0 else None,
         grad_accum=cfg.tpu.grad_accum,
-        eager_reason=eager_reason(cfg),
     )
     logger.finish()
     try:

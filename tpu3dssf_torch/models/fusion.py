@@ -118,10 +118,11 @@ class SegmentationPipeline(nn.Module):
     """LiDAR points + camera patch tokens → per-point class logits:
     voxelize → PTv3 → fusion head → devoxelize.
 
-    ``generator`` drives PTv3's DropPath; None (the default) is JAX's
-    ``deterministic=True``. The patch tokens come from the frozen encoder
-    (under ``torch.inference_mode``): no learnable op may touch them before
-    they are gathered, since autograd cannot save inference tensors.
+    ``keep`` holds PTv3's DropPath masks (``PointTransformerV3.
+    draw_keep``); None (the default) is JAX's ``deterministic=True``. The
+    patch tokens come from the frozen encoder (under
+    ``torch.inference_mode``): no learnable op may touch them before they
+    are gathered, since autograd cannot save inference tensors.
     """
 
     def __init__(self, config: PipelineConfig):
@@ -131,12 +132,12 @@ class SegmentationPipeline(nn.Module):
         self.fusion = FeatureFusionModel(config.fusion)
 
     def forward(self, points, point_mask, patch_tokens, cam_intrinsics,
-                lidar2cam, generator=None):
+                lidar2cam, keep=None):
         cfg = self.config
         vox = voxelize(points, point_mask, cfg.voxel_size,
                        cfg.voxel_capacity, intensity_mode=cfg.intensity_mode)
         voxel_feats, voxel_mask = self.ptv3(vox.voxel_raw, vox.voxel_coords,
-                                            vox.voxel_mask, generator)
+                                            vox.voxel_mask, keep)
         voxel_scores = self.fusion(patch_tokens, voxel_feats, vox.voxel_raw,
                                    voxel_mask, cam_intrinsics, lidar2cam)
         if cfg.devoxelize_mode == "own":

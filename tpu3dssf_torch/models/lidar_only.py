@@ -21,8 +21,9 @@ class LidarSegmentationModel(nn.Module):
     Same call signature as
     :class:`~tpu3dssf_torch.models.fusion.SegmentationPipeline`: the patch
     tokens and camera calibration are accepted and ignored, so the loops
-    and CLIs take either model. ``generator`` drives PTv3's DropPath; None
-    is JAX's ``deterministic=True``.
+    and CLIs take either model. ``keep`` holds PTv3's DropPath masks
+    (``PointTransformerV3.draw_keep``); None is JAX's
+    ``deterministic=True``.
     """
 
     def __init__(self, config: PipelineConfig):
@@ -33,12 +34,12 @@ class LidarSegmentationModel(nn.Module):
                           config.fusion.dtype)
 
     def forward(self, points, point_mask, patch_tokens=None,
-                cam_intrinsics=None, lidar2cam=None, generator=None):
+                cam_intrinsics=None, lidar2cam=None, keep=None):
         cfg = self.config
         vox = voxelize(points, point_mask, cfg.voxel_size,
                        cfg.voxel_capacity, intensity_mode=cfg.intensity_mode)
         voxel_feats, voxel_mask = self.ptv3(vox.voxel_raw, vox.voxel_coords,
-                                            vox.voxel_mask, generator)
+                                            vox.voxel_mask, keep)
         voxel_scores = self.head(voxel_feats) * voxel_mask[..., None]
         if cfg.devoxelize_mode == "own":
             point_scores, _ = devoxelize_own_voxel(

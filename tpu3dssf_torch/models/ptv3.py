@@ -17,18 +17,21 @@ training) and the other stages with at most 8 heads
 other stage takes :func:`tpu3dssf_torch.kernels.window_attention` on
 (W, K, H, D) views of the projection (K6; K4/K5). ``PTv3Config.use_pallas``
 is kept for config compatibility and selects nothing: a CPU tensor takes
-the plain versions and a CUDA tensor the kernels. DropPath draws from an
-explicit ``torch.Generator`` passed to the forward (None, like JAX's
-``deterministic=True``, disables it).
+the plain versions and a CUDA tensor the kernels. DropPath's keep masks
+are an input of the forward (``keep``, one row per DropPath in forward
+order, drawn on the host by :meth:`PointTransformerV3.draw_keep` from an
+explicit ``torch.Generator``, so that a CUDA graph of the train step
+takes them as an argument); None, like JAX's ``deterministic=True``,
+disables it.
 
 ``remat`` and ``remat_attention`` are JAX's ``nn.remat(PTv3Block)`` and
 ``nn.remat(SerializedAttention)``: ``torch.utils.checkpoint`` (non-
 reentrant) around each block, or around each block's attention branch, so
 the backward recomputes their activations instead of keeping them. A block
-draws its DropPath masks before the checkpointed region and passes them
-in, since a recompute cannot replay an explicit generator: remat changes
-no bit of the forward or the gradients. The recompute runs with a gradient
-pending, so it launches the training forward kernel (K2 or K4) once more
+takes its DropPath masks from the forward's input, outside the
+checkpointed region, and passes them in: remat changes no bit of the
+forward or the gradients. The recompute runs with a gradient pending, so
+it launches the training forward kernel (K2 or K4) once more
 per block it recomputes. Under no gradient (eval) nothing is
 checkpointed. A block made with ``sp_axis`` runs on one rank's span of
 the sequence (:func:`tpu3dssf_torch.parallel.sp_block_apply`, JAX's
@@ -361,7 +364,8 @@ class PTv3Block(nn.Module):
 
     The residual stream is in the CPE curve's sorted space; ``perm``/``inv``
     are the attention order's RELATIVE permutations, None when the block
-    attends along the CPE order itself. ``generator`` drives DropPath.
+    attends along the CPE order itself. ``keep1``/``keep2`` are the (B,)
+    keep masks of the two DropPaths (None: the identity).
     ``remat`` checkpoints the whole block, ``remat_attention`` its
     attention branch (see the module docstring). ``sp_axis``: the block
     runs on one rank's span of the sequence over that mesh axis
@@ -385,15 +389,13 @@ class PTv3Block(nn.Module):
         self.mlp_out = Dense(hidden, channels, dtype)
         self.dp2 = DropPath(drop_path)
 
-    def forward(self, x, perm, inv, mask, generator=None):
+    def forward(self, x, perm, inv, mask, keep1=None, keep2=None):
         if self.sp_axis is not None and perm is not None:
             raise ValueError("sequence-parallel blocks must attend "
                              "along the CPE order (perm=None); see "
                              "tpu3dssf_torch.parallel.sp")
-        # both masks drawn here, in the order the branches use them
-        keep = [dp.draw(x.shape[0], x.device, generator)
-                for dp in (self.dp1, self.dp2)]
-        return _remat(self.remat, self._body, x, perm, inv, mask, *keep)
+        return _remat(self.remat, self._body, x, perm, inv, mask, keep1,
+                      keep2)
 
     def _body(self, x, perm, inv, mask, keep1, keep2):
         x = self.cpe(x, None, None, mask)
@@ -504,15 +506,42 @@ class PointTransformerV3(nn.Module):
                     cfg.dec_window[d], cfg.mlp_ratio, cfg.drop_path, dt,
                     **remat))
 
-    def _run_blocks(self, x, perms, msk, depth, name, generator):
+    def blocks(self):
+        """The blocks in the order the forward runs them."""
+        cfg = self.config
+        names = [f"enc{s}_blk{b}" for s in range(cfg.num_stages)
+                 for b in range(cfg.enc_depths[s])]
+        names += [f"dec{d}_blk{b}"
+                  for d in reversed(range(cfg.num_stages - 1))
+                  for b in range(cfg.dec_depths[d])]
+        return [getattr(self, n) for n in names]
+
+    def draw_keep(self, rows, generator):
+        """The keep masks of every DropPath for a batch of ``rows``:
+        (2 · blocks, rows) bool on the generator's device, one
+        ``torch.rand((rows,))`` draw per DropPath in forward order (each
+        block's attention branch, then its MLP); None where no DropPath
+        drops (rate 0)."""
+        keep = [dp.draw(rows, generator.device, generator)
+                for blk in self.blocks() for dp in (blk.dp1, blk.dp2)]
+        if any(k is None for k in keep):
+            return None
+        return torch.stack(keep)
+
+    def _run_blocks(self, x, perms, msk, depth, name, keep):
         orders = self.config.orders
         for b in range(depth):
             perm, inv = perms[orders[b % len(orders)]]
-            x = getattr(self, f"{name}_blk{b}")(x, perm, inv, msk, generator)
+            pair = ((None, None) if keep is None
+                    else (next(keep), next(keep)))
+            x = getattr(self, f"{name}_blk{b}")(x, perm, inv, msk, *pair)
         return x
 
-    def forward(self, feat, grid_coord, mask, generator=None):
+    def forward(self, feat, grid_coord, mask, keep=None):
+        """``keep``: the DropPath masks of :meth:`draw_keep` on the
+        features' device, or None (no DropPath)."""
         cfg = self.config
+        keep = None if keep is None else iter(keep)
         caps = cfg.capacities(feat.shape[1])
         orders = cfg.orders
         cpe_order = orders[0]
@@ -557,7 +586,7 @@ class PointTransformerV3(nn.Module):
                 msk = torch.gather(msk, 1, perm_c)
                 cpe_sorts.append((perm_c, inv_c))
             x = self._run_blocks(x, perms, msk, cfg.enc_depths[s], f"enc{s}",
-                                 generator)
+                                 keep)
             skips.append((x, grid, msk, perms))
 
         # ---- decoder ----
@@ -575,7 +604,7 @@ class PointTransformerV3(nn.Module):
             if missing:
                 perms.update(_serialize_perms(grid, msk, missing))
             x = self._run_blocks(x, perms, msk, cfg.dec_depths[d], f"dec{d}",
-                                 generator)
+                                 keep)
 
         perm0, inv0 = cpe_sorts[0]
         return permutation_gather(x, inv0, perm0), mask

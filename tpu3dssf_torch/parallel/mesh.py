@@ -195,17 +195,16 @@ def shard_batch(batch, mesh: Mesh, axis: str = "data",
 def _state_tensors(obj):
     """The tensors :func:`replicate` broadcasts: a module's parameters and
     buffers, and for a train state (``.model``, ``.optimizer``) also its
-    optimizer's state and tensor learning rates."""
+    optimizer's state and the chain's device state (its rate, counts and
+    plateau)."""
     model = getattr(obj, "model", obj)
     out = [p.data for p in model.parameters()] + list(model.buffers())
     opt = getattr(obj, "optimizer", None)
-    inner = getattr(opt, "inner", opt)
-    if inner is not None:
+    if opt is not None:
         for p in model.parameters():
-            out += [v for v in inner.state.get(p, {}).values()
+            out += [v for v in opt.inner.state.get(p, {}).values()
                     if isinstance(v, torch.Tensor)]
-        out += [g["lr"] for g in inner.param_groups
-                if isinstance(g["lr"], torch.Tensor)]
+        out += list(opt.device_state().values())   # the rate among them
     return out
 
 

@@ -26,9 +26,11 @@ per shape and static argument:
    the graph and returns clones of its outputs: callers keep outputs across
    calls, and a replay overwrites the static ones.
 
-``after(*args)``, where given, runs on the host after every call:
-the host half of a step, which a graph cannot replay (a train step's
-schedule count and update count).
+``before(*args)``, where given, runs on the host before every call and
+returns the arguments the step takes (a train step draws its DropPath
+masks there, which the graph then copies in as an input); ``after(*args)``
+runs on the host after every call, on those arguments: the host halves
+of a step, which a graph cannot replay (a train step's update count).
 
 The kernels' launch counters (:data:`tpu3dssf_torch.kernels.modules.
 COUNTERS`) are Python integers, which a capture raises though nothing runs
@@ -116,13 +118,16 @@ class GraphedStep:
     docstring); ``graphs`` maps each key to its capture."""
 
     def __init__(self, step: Callable, name: Optional[str] = None,
+                 before: Optional[Callable] = None,
                  after: Optional[Callable] = None):
-        self.step, self.after = step, after
+        self.step, self.before, self.after = step, before, after
         self.name = name or getattr(step, "__name__", "step")
         self.graphs: dict = {}
         _LIVE.add(self)
 
     def __call__(self, *args):
+        if self.before is not None:
+            args = self.before(*args)
         leaves, spec = pytree.tree_flatten(args)
         device = next((x.device for x in leaves
                        if isinstance(x, torch.Tensor)), None)
@@ -182,10 +187,11 @@ class GraphedStep:
 
 
 def graphed(step: Callable, name: Optional[str] = None,
+            before: Optional[Callable] = None,
             after: Optional[Callable] = None) -> GraphedStep:
     """``step(*args)`` as a :class:`GraphedStep` (the module docstring says
     how it runs)."""
-    return GraphedStep(step, name, after)
+    return GraphedStep(step, name, before, after)
 
 
 def drop_graphs(obj):
@@ -195,33 +201,12 @@ def drop_graphs(obj):
         step.drop(obj)
 
 
-def eager_reason(cfg) -> Optional[str]:
-    """Why the train step of ``cfg`` (a :class:`tpu3dssf_torch.config.
-    Config`) stays eager on the card, or None where it is graphed: each of
-    these makes a host decision inside the update, or copies from the host,
-    which a graph cannot replay."""
-    reasons = []
-    if cfg.lr_scheduler == "ReduceLROnPlateau":
-        reasons.append("lr_scheduler ReduceLROnPlateau scales each update "
-                       "by a plateau state folded on the host")
-    if cfg.skip_nonfinite:
-        reasons.append("skip_nonfinite decides on the host whether an "
-                       "update applies")
-    if cfg.optimizer == "SGD":
-        reasons.append("optimizer SGD has no capturable update in torch")
-    if cfg.drop_path > 0:
-        reasons.append("drop_path > 0 draws DropPath masks from a CPU "
-                       "generator and copies them to the card")
-    return "; ".join(reasons) or None
-
-
-def graph_train_step(train_step, reason: Optional[str] = None):
-    """The train step a loop runs: ``train_step`` itself where ``reason``
-    (from :func:`eager_reason`) says why it stays eager, printed once;
-    else its device half (``train_step.update``) graphed, with its host
-    half (``train_step.advance``) after every call."""
-    if reason is not None:
-        print(f"[graph] train step stays eager: {reason}")
-        return train_step
-    return graphed(train_step.update, "train_step",
+def graph_train_step(train_step) -> GraphedStep:
+    """The train step a loop runs: its device half (``train_step.update``)
+    graphed, its host halves around every call: ``train_step.draw`` before
+    (the DropPath masks of the update, an input of the graph) and
+    ``train_step.advance`` after (the update count). Every configuration
+    trains so: each update decision is device state
+    (:mod:`tpu3dssf_torch.train.state`)."""
+    return graphed(train_step.update, "train_step", before=train_step.draw,
                    after=train_step.advance)

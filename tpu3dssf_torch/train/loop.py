@@ -58,23 +58,52 @@ def _fold_seed(seed: int, i: int) -> int:
     return (seed * 0x9E3779B97F4A7C15 + i) % (2 ** 63)
 
 
+def drop_path_masks(model, dropout_seed: Optional[int], step: int,
+                    grad_accum: int, rows: int, device, mesh=None):
+    """The DropPath keep masks of update ``step``: (grad_accum, 2 · blocks,
+    rows) bool on ``device``, or None (no seed, or no DropPath drops).
+
+    Microbatch ``i`` draws from a CPU generator seeded from (seed,
+    step·grad_accum + i), as JAX folds its key, one ``torch.rand((rows,))``
+    per DropPath in forward order (``PointTransformerV3.draw_keep``).
+    Under a ``mesh`` (:mod:`tpu3dssf_torch.parallel`) ``rows`` is this
+    rank's share of a microbatch: every rank draws the whole microbatch's
+    masks from the one generator and keeps its own rows, as JAX's sharded
+    mask would be.
+    """
+    if dropout_seed is None:
+        return None
+    ranks = 1 if mesh is None else mesh.shape["data"]
+    lo = 0 if mesh is None else mesh.coords["data"] * rows
+    masks = []
+    for i in range(grad_accum):
+        gen = torch.Generator().manual_seed(
+            _fold_seed(dropout_seed, step * grad_accum + i))
+        keep = model.ptv3.draw_keep(rows * ranks, gen)
+        if keep is None:
+            return None
+        masks.append(keep[:, lo:lo + rows])
+    return torch.stack(masks).to(device)
+
+
 def make_train_step(loss_fn: CELSLoss, dropout_seed: Optional[int] = None,
                     grad_accum: int = 1, mesh=None):
     """``train_step(state, batch, patch_tokens)`` → metrics dict; updates
     ``state`` (a :class:`~tpu3dssf_torch.train.state.TrainState`) in place.
 
-    ``dropout_seed`` enables DropPath: microbatch ``i`` of update ``step``
-    draws from a CPU generator seeded from (seed, step·grad_accum + i), as
-    JAX folds its key; None is deterministic. ``grad_accum > 1`` splits the
-    batch's leading dim into that many sequential microbatches and applies
-    the mean of their gradients in one update; the metrics are the mean
-    loss and the summed counts, as in the JAX step. Metrics stay on the
-    device.
+    ``dropout_seed`` enables DropPath (:func:`drop_path_masks`); None is
+    deterministic. ``grad_accum > 1`` splits the batch's leading dim into
+    that many sequential microbatches and applies the mean of their
+    gradients in one update; the metrics are the mean loss and the summed
+    counts, as in the JAX step. Metrics stay on the device.
 
-    The step is its device half ``train_step.update(state, batch,
-    patch_tokens)`` (forward, backward and the optimizer's update: what a
-    CUDA graph captures) and its host half ``train_step.advance(state,
-    ...)`` (the schedule's count and ``state.step``).
+    The step is three parts: ``train_step.draw(state, batch,
+    patch_tokens)`` on the host (the update's DropPath masks, from
+    ``state.step``; returns the arguments of the next half),
+    ``train_step.update(state, batch, patch_tokens, keep)`` on the device
+    (forward, backward and the optimizer's update, every decision in it a
+    device operation: what a CUDA graph captures) and
+    ``train_step.advance(state, ...)`` on the host (``state.step``).
 
     With a ``mesh`` (:mod:`tpu3dssf_torch.parallel`) it is the data-parallel
     step with JAX's mesh semantics, the whole batch's loss: each rank runs
@@ -90,12 +119,7 @@ def make_train_step(loss_fn: CELSLoss, dropout_seed: Optional[int] = None,
     gloo collectives cannot be captured in a CUDA graph, so a mesh step
     runs eagerly: it is never passed to :func:`~tpu3dssf_torch.train.graph.
     graph_train_step` (``main_train`` ignores the mesh, as JAX's does).
-    DropPath is refused under a mesh: its masks are drawn per rank.
     """
-    if mesh is not None and dropout_seed is not None:
-        raise ValueError("make_train_step: DropPath (dropout_seed) under a "
-                         "data-parallel mesh is not supported: each rank "
-                         "would draw its own masks")
 
     def split(x):
         if x.shape[0] % grad_accum:
@@ -103,7 +127,14 @@ def make_train_step(loss_fn: CELSLoss, dropout_seed: Optional[int] = None,
                              f"grad_accum={grad_accum}")
         return x.chunk(grad_accum, dim=0)
 
-    def update(state, batch, patch_tokens):
+    def draw(state, batch, patch_tokens):
+        points = batch["points"]
+        keep = drop_path_masks(state.model, dropout_seed, state.step,
+                               grad_accum, points.shape[0] // grad_accum,
+                               points.device, mesh)
+        return state, batch, patch_tokens, keep
+
+    def update(state, batch, patch_tokens, keep=None):
         model = state.model
         micro = {k: split(v) for k, v in batch.items()}
         tokens = (split(patch_tokens) if patch_tokens is not None
@@ -112,13 +143,9 @@ def make_train_step(loss_fn: CELSLoss, dropout_seed: Optional[int] = None,
         sums = None
         for i in range(grad_accum):
             b = {k: v[i] for k, v in micro.items()}
-            gen = None
-            if dropout_seed is not None:
-                gen = torch.Generator().manual_seed(
-                    _fold_seed(dropout_seed, state.step * grad_accum + i))
             logits = model(b["points"], b["point_valid"], tokens[i],
                            b["cam_intrinsics"], b["lidar2cam"],
-                           generator=gen)
+                           keep=None if keep is None else keep[i])
             labels, mask = b["labels"], b["mask"]
             if mesh is not None:
                 logits, labels, mask = (gather_batch(x, mesh)
@@ -138,18 +165,19 @@ def make_train_step(loss_fn: CELSLoss, dropout_seed: Optional[int] = None,
                     p.grad.mul_(inv)
             for k in ("loss", "ce", "lovasz"):
                 sums[k] = sums[k] * inv
-        state.optimizer.update(value=sums["loss"])
+        state.optimizer.step(value=sums["loss"])
         return sums
 
     def advance(state, *_):
         state.advance()
 
     def train_step(state, batch, patch_tokens):
-        sums = update(state, batch, patch_tokens)
+        sums = update(*draw(state, batch, patch_tokens))
         advance(state)
         return sums
 
-    train_step.update, train_step.advance = update, advance
+    train_step.draw, train_step.update = draw, update
+    train_step.advance = advance
     return train_step
 
 
@@ -341,8 +369,7 @@ def train_model(state, dataloaders: Dict, loss_fn: CELSLoss, encode_fn,
                 start_epoch: int = 0,
                 best_acc: float = -1.0,
                 dropout_seed: Optional[int] = None,
-                grad_accum: int = 1,
-                eager_reason: Optional[str] = None):
+                grad_accum: int = 1):
     """Epoch loop with best-val-acc checkpointing (port of JAX's).
 
     Returns (train_acc_history, val_acc_history) and leaves ``state``
@@ -350,14 +377,13 @@ def train_model(state, dataloaders: Dict, loss_fn: CELSLoss, encode_fn,
     read at ``log_every`` boundaries. ``profile_dir`` captures a
     ``torch.profiler`` trace of the steps in ``profile_steps`` (from, to)
     into ``<profile_dir>/train_trace.json``. The train and eval steps are
-    graphed (:mod:`tpu3dssf_torch.train.graph`), the train step unless
-    ``eager_reason`` (``graph.eager_reason`` of the config) says why it
-    stays eager.
+    graphed (:mod:`tpu3dssf_torch.train.graph`), under every
+    configuration.
     """
     logger = logger or NullLogger()
     device = next(state.model.parameters()).device
     train_step = graph_train_step(
-        make_train_step(loss_fn, dropout_seed, grad_accum), eager_reason)
+        make_train_step(loss_fn, dropout_seed, grad_accum))
     eval_step = graphed(make_eval_step(loss_fn, num_classes), "eval_step")
 
     tr_hist, val_hist, history = [], [], []
