@@ -256,12 +256,33 @@ order (any failure raises, exit code ≠ 0):
     100)``; (d) the device plateau folded by a CUDA graph over a fixed
     sequence of values with NaN and Inf ones across several decisions,
     equal bit for bit after every value to the numpy reference
-    (tests/plateau_reference.py).
+    (tests/plateau_reference.py);
+30. the frame of ``python -m tpu3dssf_torch.cli.bench`` (the port of the
+    root ``bench.py``) at the reference's shape: DINOv3 ViT-S/16 over 6
+    images at 640 x 1138, 34,816 points, capacity 25,600, window 1024,
+    batch 1, encode and pipeline one CUDA graph, timed by the CLI's own
+    ``run`` (its JSON line printed on a line of its own, never the last);
+    exactly 34 K1 per eager frame and per replay, every K1 call of an
+    eager frame against its plain version (:func:`hold_calls`), the
+    graphed logits against the eager ones under :func:`eager_rule`, finite
+    logits of shape (1, 34,816, 16); then the same with the W8A8 ViT-S of
+    the same weights (``--int8``: ``quantize_vit``), every ``_int_mm`` of
+    an eager W8A8 frame (48: 4 layers x 12 blocks) equal to the exact
+    product of its operands (f64 on the card), and the W8A8 encode against
+    the float encode on the frame's images: nonzero error below 0.05 x
+    max(max |float|, 1);
+31. ``python -m tpu3dssf_torch.cli.bench_train``'s rows at B = 2
+    (``main_rows``: lidar-only, lidar-only+remat, fusion on given tokens,
+    and the lidar-only row's forward and forward + backward graphs), the
+    counts set to 0 before: exact launches per replay of each graph (K2
+    14, K3 14, K4 8, K5 8; with remat K2 28, K4 16; the forward K1 22),
+    and in all the sum of each graph's calls times its launches.
+Phases 30 and 31 print their seconds.
 
 ``graphs``, ``remat``, ``export``, ``parallel``, ``lidar_train``,
-``parity_ab`` and ``settings`` print phases 22–29's
-records (times in ms or s as named, memory in bytes). The last two lines are a JSON record of the
-kernels and the device line.
+``parity_ab``, ``settings``, ``bench_frames`` and ``bench_train`` print
+phases 22–31's records (times in ms or s as named, memory in bytes). The
+last two lines are a JSON record of the kernels and the device line.
 Every kernel record has ``launches`` (from its path's run), ``max_abs_err``
 (the largest error of its checks), ``ms`` (device time inside the path),
 ``plain_ms``, ``bound_ms`` and ``bound_by`` (the least time the card could
@@ -283,7 +304,9 @@ the DP train step, the TP ViT-L encode, the SP block's forward and its
 gradient). ``lidar_train_launches`` (K1 in the val passes, K2–K5, K7) are
 the launches of step 27's run, ``parity_ab_launches`` (K1, K7) those per
 batch of each variant in step 28, ``settings_train_launches`` (K2–K5)
-those of step 29's main_train run.
+those of step 29's main_train run, ``bench_frame_launches`` (K1) those
+per replay of step 30's frames and ``bench_train_launches`` (K1, K2–K5)
+those per replay of each graph of step 31.
 Every ``ms`` is device time from the profiler.
 Needs the repository checkout around it; JAX is never imported.
 """
@@ -3982,6 +4005,184 @@ def run_graph_settings(card, tmp):
     return record
 
 
+# phase 30: the bench frame (tpu3dssf_torch/cli/bench.py at batch 1):
+# K1 per frame (12 ViT-S layers + 22 PTv3 blocks), float and W8A8 alike;
+# the W8A8 ViT-S encode against the float one on the same images, max abs
+# error over max(max |float|, 1) (tests/test_vit.py's limit for JAX's)
+BENCH_FRAME_LAUNCHES = {"K1": LAUNCHES_PER_BATCH}
+W8A8_TOL = 0.05
+# phase 31: launches per replay of each graph of cli/bench_train.py's rows
+# (tokens given: no ViT) and of the lidar-only row's split
+BENCH_TRAIN_LAUNCHES = {
+    "lidar-only": {k: n for k, n in TRAIN_LAUNCHES.items() if k != "K1"},
+    "lidar-only+remat": dict(REMAT_LAUNCHES),
+    "fusion": {k: n for k, n in TRAIN_LAUNCHES.items() if k != "K1"},
+    "fwd": {"K1": LAUNCHES_PER_BATCH - 12},
+    "fwd_bwd": {k: n for k, n in TRAIN_LAUNCHES.items() if k != "K1"}}
+
+
+def checked_int_mm(frame):
+    """Run ``frame()`` with every W8A8 product (``QuantDense.product``,
+    ``torch._int_mm`` on the card) held against the exact product of the
+    same operands (in f64 on the card: every partial sum of int8 products
+    over these widths is an integer below 2**53, so the f64 product is
+    exact in any order). Returns {calls, mismatches, max_abs}."""
+    import torch
+    from tpu3dssf_torch.models import vit as vit_mod
+
+    product = vit_mod.QuantDense.product
+    row = dict(calls=0, mismatches=0, max_abs=0)
+
+    def checked(self, x_q):
+        acc = product(self, x_q)
+        exact = (x_q.reshape(-1, x_q.shape[-1]).double()
+                 @ self.kernel_q.double().t()).reshape(acc.shape)
+        if acc.dtype != torch.int32:
+            raise AssertionError(f"_int_mm gave {acc.dtype}")
+        diff = (acc.double() - exact).abs()
+        row.update(calls=row["calls"] + 1,
+                   mismatches=row["mismatches"] + int((diff != 0).sum()),
+                   max_abs=max(row["max_abs"], int(exact.abs().max())))
+        return acc
+
+    vit_mod.QuantDense.product = checked
+    try:
+        frame()
+        torch.cuda.synchronize()
+    finally:
+        vit_mod.QuantDense.product = product
+    return row
+
+
+def bench_frame(tag, vit, model, inputs, card):
+    """Phase 30 for one ViT: the bench frame timed by ``cli.bench.run``
+    (its JSON line printed here), exact K1 launches per eager frame and per
+    replay, every K1 call of an eager frame against its plain version,
+    graphed logits against eager under :func:`eager_rule`."""
+    import torch
+    from tpu3dssf_torch.cli import bench
+    from tpu3dssf_torch.kernels.modules import flash_attention as fa
+    from tpu3dssf_torch.train.graph import graphed
+
+    args = tuple(inputs[k] for k in ("images", "points", "point_valid",
+                                     "cam_intrinsics", "lidar2cam"))
+    torch.cuda.reset_peak_memory_stats()
+    result, info = bench.run(vit, model, inputs)
+    logits = info.pop("logits")
+    print(f"bench_frame {tag} " + json.dumps(dict(result, card=card)),
+          flush=True)
+    print(f"bench_frame {tag}: {info['ms']:.3f} ms per frame (median of "
+          f"{bench.REPS} replays), device {info['device_ms']:.3f} ms in "
+          f"{info['kernels']:g} kernels, wall/device "
+          f"{info['wall_over_device']:.4f}, first call (eager + capture) "
+          f"{info['first_call_s']:.1f} s [{card}]", flush=True)
+    if tuple(logits.shape) != (1, bench.POINT_CAP, 16) or not bool(
+            torch.isfinite(logits.float()).all()):
+        raise AssertionError(f"bench {tag}: logits {tuple(logits.shape)}, "
+                             "finite or not")
+    eager = bench.make_fused_infer(vit, model)
+    g = graphed(eager, f"bench_{tag}")
+    g(*args)
+    launches = check_graphed_counts(f"bench {tag}", lambda: eager(*args),
+                                    lambda: g(*args), BENCH_FRAME_LAUNCHES)
+    held = hold_calls(f"bench {tag}", {"K1": capture_calls(
+        fa, "_launch", lambda: eager(*args))})
+    diffs = eager_rule([[g(*args)] for _ in range(GRAPH_RUNS)],
+                       [[eager(*args)] for _ in range(GRAPH_RUNS + 1)])
+    print(f"bench {tag}: K1 calls against the plain version "
+          f"{json.dumps(held)}; logits [graphed vs eager, eager vs eager] "
+          f"{diffs}", flush=True)
+    if not within_eager(*diffs):
+        raise AssertionError(f"bench {tag}: graphed logits off the eager "
+                             f"ones: {diffs}")
+    return dict(result=result, **info, launches=launches, held=held,
+                graph_vs_eager=diffs)
+
+
+def run_bench_frames(card):
+    """Phase 30: the frame of ``python -m tpu3dssf_torch.cli.bench`` at
+    the reference's shape (ViT-S/16, 6 images, 34,816 points, capacity
+    25,600, batch 1, one graph), then the same frame with the W8A8 ViT-S of
+    the same weights (``--int8``), every ``_int_mm`` of an eager W8A8 frame
+    against the exact product, and the W8A8 encode against the float one
+    on the frame's images. Returns the record."""
+    import copy
+
+    import torch
+    from tpu3dssf_torch.cli import bench
+    from tpu3dssf_torch.models.vit import quantize_vit
+    from tpu3dssf_torch.train.loop import make_image_encode_fn
+
+    t0 = time.perf_counter()
+    device = torch.device("cuda")
+    vit_cfg, pipe_cfg = bench.frame_configs()
+    vit, model = bench.build_models(vit_cfg, pipe_cfg, device)
+    qvit = quantize_vit(copy.deepcopy(vit))
+    inputs = bench.frame_inputs(1, device=device)
+    record = {tag: bench_frame(tag, v, model, inputs, card)
+              for tag, v in (("vits", vit), ("int8", qvit))}
+    eager = bench.make_fused_infer(qvit, model)
+    args = tuple(inputs[k] for k in ("images", "points", "point_valid",
+                                     "cam_intrinsics", "lidar2cam"))
+    record["int_mm"] = checked_int_mm(lambda: eager(*args))
+    print(f"bench int8: _int_mm on the card against the exact product "
+          f"{json.dumps(record['int_mm'])}", flush=True)
+    if record["int_mm"]["mismatches"] or record["int_mm"]["calls"] != 4 * 12:
+        raise AssertionError(f"_int_mm: {record['int_mm']}")
+    ref, out = (make_image_encode_fn(v, vit_cfg.image_size, vit_cfg.dtype)(
+        inputs["images"]).float() for v in (vit, qvit))
+    err = (out - ref).abs().max().item()
+    limit = W8A8_TOL * max(ref.abs().max().item(), 1.0)
+    record["w8a8_encode"] = dict(max_abs_err=err, limit=limit)
+    print(f"bench int8: W8A8 ViT-S encode against the float encode, max abs "
+          f"error {err} (limit {limit}, nonzero)", flush=True)
+    if not 0.0 < err < limit:
+        raise AssertionError(f"W8A8 encode error {err}, limit {limit}")
+    record["seconds"] = time.perf_counter() - t0
+    print(f"phase 30: {record['seconds']:.1f} s", flush=True)
+    del vit, qvit, model, eager
+    torch.cuda.empty_cache()
+    return record
+
+
+def run_bench_train(card):
+    """Phase 31: ``python -m tpu3dssf_torch.cli.bench_train``'s rows at B =
+    2 (lidar-only, lidar-only+remat, fusion; the lidar-only row's forward
+    and forward + backward graphs), with the counts set to 0 before and
+    read after: exact launches per replay of each graph, and in all the
+    sum over the graphs of their calls × those launches. Returns the
+    rows."""
+    import torch
+    from tpu3dssf_torch.cli import bench_train
+
+    t0 = time.perf_counter()
+    reset_counters()
+    rows = bench_train.main_rows(torch.device("cuda"), torch.bfloat16,
+                                 reps=GRAPH_REPS)
+    total = {k: v for k, v in counters().items() if v}
+    graphs = dict(rows)
+    for part in ("fwd", "fwd_bwd"):
+        graphs[part] = rows["lidar-only"][part]
+    want = {}
+    for name, g in graphs.items():
+        if g["launches"] != BENCH_TRAIN_LAUNCHES[name] or not (
+                g["ms"] > 0 and g["ms"] < float("inf")):
+            raise AssertionError(f"bench_train {name}: {g['ms']} ms, "
+                                 f"launches {g['launches']}, expected "
+                                 f"{BENCH_TRAIN_LAUNCHES[name]}")
+        for k, n in g["launches"].items():
+            want[k] = want.get(k, 0) + n * g["calls"]
+    print(f"bench_train: launches in all {total} (expected {want}) "
+          f"[{card}]", flush=True)
+    if total != want:
+        raise AssertionError(f"bench_train launched {total}, expected "
+                             f"{want}")
+    seconds = time.perf_counter() - t0
+    print(f"phase 31: {seconds:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    return dict(rows=rows, launches=total, seconds=seconds, card=card)
+
+
 def per_path(rows, key, count):
     """Σ over a kernel's shapes of (calls per batch or step × per call)."""
     return sum(r[count] * r[key] for r in rows)
@@ -4129,6 +4330,11 @@ def main():
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    # phases 30 and 31: the bench entry points (cli/bench.py's frame,
+    # float and W8A8; cli/bench_train.py's rows)
+    bench_frames = run_bench_frames(card)
+    bench_rows = run_bench_train(card)
+
     def parallel_launches(k):
         """Launches of kernel ``k`` on rank 0 in each path of phase 26."""
         r = parallel["ranks"][0]
@@ -4164,6 +4370,12 @@ def main():
         "lidar_train_launches": lidar_train["launches"]["K1"],
         "parity_ab_launches": {n: c.get("K1", 0)
                                for n, c in ab["per_batch"].items()},
+        # phase 30: per replay of the bench frame, float and W8A8; phase
+        # 31: per replay of the lidar-only row's forward graph
+        "bench_frame_launches": {t: bench_frames[t]["launches"]["K1"]
+                                 for t in ("vits", "int8")},
+        "bench_train_launches": {"fwd": bench_rows["rows"]["lidar-only"][
+            "fwd"]["launches"]["K1"]},
         # per ViT-L fusion batch (phase 17), on that batch's own inputs
         "vitl": dict(ms=vitl_frame["k1"]["ms"],
                      plain_ms=vitl_frame["k1"]["plain_ms"]),
@@ -4219,6 +4431,13 @@ def main():
             "lidar_train_launches": lidar_train["launches"][k],
             # phase 29's main_train run with all four settings
             "settings_train_launches": settings["train"]["launches"][k],
+            # phase 31: per replay of each bench_train row, and of the
+            # lidar-only row's forward + backward graph
+            "bench_train_launches": dict(
+                {n: r["launches"].get(k, 0)
+                 for n, r in bench_rows["rows"].items()},
+                fwd_bwd=bench_rows["rows"]["lidar-only"]["fwd_bwd"][
+                    "launches"].get(k, 0)),
         }
         if k in ("K4", "K5"):
             # the (W, K, H, D) route: launches per window-48 train step, and
@@ -4294,6 +4513,8 @@ def main():
     print("lidar_train " + json.dumps(lidar_train))
     print("parity_ab " + json.dumps(ab))
     print("settings " + json.dumps(settings))
+    print("bench_frames " + json.dumps(bench_frames))
+    print("bench_train " + json.dumps(bench_rows))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

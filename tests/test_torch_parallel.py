@@ -454,6 +454,20 @@ def test_tensor_parallel_shards_are_slices_of_jax_prepare_tp_params(ranks):
             np.testing.assert_array_equal(r["tp_state"][k], w, err_msg=k)
 
 
+def test_tensor_parallel_w8a8_vit_is_the_one_process_one(ranks):
+    """W8A8 at TP = 2: the row-parallel layers quantize by the whole row's
+    max and sum their int32 partial products, so each rank's patch
+    features equal the one-process W8A8 ViT's (within 1e-5 of its largest
+    value), which differ from the float ViT's."""
+    _, _, results = ranks
+    want = results[0]["tp_w8a8_unsharded"]
+    for r in results:
+        np.testing.assert_array_equal(r["tp_w8a8_unsharded"], want)
+        assert r["tp_w8a8"].shape == want.shape
+        assert np.abs(r["tp_w8a8"] - want).max() <= 1e-5 * np.abs(want).max()
+    assert np.abs(want - results[0]["tp_unsharded"]).max() > 0
+
+
 def test_tensor_parallel_routes_by_the_local_heads(ranks):
     """16 heads of D = 16 with ``packed_head_groups=False``: unsharded the
     (B, N, H, D) route (K8's), at TP = 2 each rank's 8 heads on the packed

@@ -307,7 +307,9 @@ def test_port_imports_no_jax():
         " 'tpu3dssf_torch.export', 'tpu3dssf_torch.cli.export_model',"
         " 'tpu3dssf_torch.utils.constants', 'tpu3dssf_torch.parallel',"
         " 'tpu3dssf_torch.parallel.mesh', 'tpu3dssf_torch.parallel.sp',"
-        " 'tpu3dssf_torch.cli.parity_ab', 'tpu3dssf_torch.cli.convergence'}\n"
+        " 'tpu3dssf_torch.cli.parity_ab', 'tpu3dssf_torch.cli.convergence',"
+        " 'tpu3dssf_torch.cli.bench', 'tpu3dssf_torch.cli.bench_train',"
+        " 'tpu3dssf_torch.cli.bench_vitl', 'tpu3dssf_torch.cli.sweep'}\n"
         "assert new <= set(sys.modules), new - set(sys.modules)\n"
         "import tpu3dssf_torch.kernels as k\n"
         "names = ('flash_attention', 'mha_reference', 'window_attention')\n"

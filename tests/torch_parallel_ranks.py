@@ -145,6 +145,25 @@ def run_tp(inp, out, mesh):
     out["tp_unsharded"] = _np(full)
     out["tp_grad"], out["tp_grad_unsharded"] = _np(g_tp), _np(g_full)
     out["tp_route"] = tp_routes(inp, tp)
+    out["tp_w8a8"], out["tp_w8a8_unsharded"] = tp_w8a8(inp, tp)
+
+
+def tp_w8a8(inp, tp):
+    """The W8A8 ViT (``quantize_vit``) at TP = 2 and in one process, on
+    the same weights and images: (sharded, unsharded) patch features."""
+    from tpu3dssf_torch.models.vit import (VisionTransformer,
+                                           prepare_tp_params, quantize_vit)
+    from tpu3dssf_torch.parallel import vit_tp_shardings
+    model = VisionTransformer(inp["vit_cfg"])
+    model.load_state_dict(inp["vit_state"])
+    quantize_vit(model)
+    images = torch.from_numpy(inp["vit_images"])
+    with torch.no_grad():
+        want = model(images)["patch_features"]
+        prepare_tp_params(model, model.config, tp)
+        vit_tp_shardings(model, tp)
+        got = model(images)["patch_features"]
+    return _np(got), _np(want)
 
 
 def tp_routes(inp, tp):

@@ -10,6 +10,9 @@ port's modules, whose submodule names follow the flax names. Layout rules:
   runs it as three shifted multiply-adds);
 * the ViT patch-embed kernel (P, P, 3, C) flattens row-major as
   (kh, kw, cin) into ``patch_embed.weight`` (C, P·P·3);
+* a W8A8 ``QuantDense`` (``quantize_vit``): ``kernel_q`` (in, out) int8 →
+  ``kernel_q`` (out, in) int8, contiguous; its ``scale`` and ``bias`` stay
+  f32 under their own names;
 * everything else (``bias``, ``gamma``, tokens, ``pos_embed``) as it is.
 
 This module needs neither JAX nor flax.
@@ -44,10 +47,22 @@ def _leaf(path, value) -> Dict[str, np.ndarray]:
     return {".".join(mods + [name]): value}
 
 
+def _quant_dense(path, tree) -> Dict[str, np.ndarray]:
+    """A ``QuantDense``'s leaves: int8 ``kernel_q`` transposed to (out, in),
+    f32 ``scale`` and ``bias``."""
+    name = ".".join(path)
+    return {f"{name}.kernel_q": np.ascontiguousarray(
+                np.asarray(tree["kernel_q"], np.int8).T),
+            f"{name}.scale": np.asarray(tree["scale"], np.float32),
+            f"{name}.bias": np.asarray(tree["bias"], np.float32)}
+
+
 def _flatten(tree: Mapping, prefix=()) -> Dict[str, np.ndarray]:
     out = {}
     for key, value in tree.items():
-        if isinstance(value, Mapping):
+        if isinstance(value, Mapping) and "kernel_q" in value:
+            out.update(_quant_dense(prefix + (key,), value))
+        elif isinstance(value, Mapping):
             out.update(_flatten(value, prefix + (key,)))
         else:
             out.update(_leaf(prefix + (key,), value))
@@ -88,8 +103,9 @@ def vit_state_dict_from_flax(params, vit_cfg) -> Dict[str, torch.Tensor]:
 
     Accepts the stacked ``blocks`` tree (``scan_layers=True``, every leaf
     with a leading layer axis) and the unrolled ``block{i}`` tree, with or
-    without LayerScale (before or after ``fold_layerscale``); the port's
-    ViT must be built with the matching ``layerscale_init``.
+    without LayerScale (before or after ``fold_layerscale``), float or W8A8
+    (after ``quantize_vit``); the port's ViT must be built with the
+    matching ``layerscale_init`` and ``quant_int8``.
     """
     p = dict(_unwrap(params))
     L = vit_cfg.num_layers

@@ -43,6 +43,12 @@ def per_class_accuracy(cm):
     return acc, acc.mean()
 
 
+def overall_accuracy(cm):
+    """Correct over all counted entries (total clamped to ≥ 1)."""
+    cm = _f32(cm)
+    return torch.diagonal(cm).sum() / cm.sum().clamp_min(1.0)
+
+
 def precision_recall_f1(cm):
     """Macro P/R/F1 with the reference's clamps (per-class denominators
     ≥ 1 before the mean, F1's ≥ 1e-6)."""

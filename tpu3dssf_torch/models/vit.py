@@ -38,9 +38,19 @@ Hl and Cl as JAX's ``run_flash`` routes them (ViT-L at S = 2: Hl = 8, Cl =
 512, the packed K1 with its RoPE branch), and sums the partial outputs of
 ``proj`` and ``mlp_out`` over the axis, adding their bias once after the
 sum. Norms, embeddings, LayerScale and the RoPE tables stay whole; any other
-mesh axis is a batch axis. Not ported: W8A8 (``QuantDense``,
-``quantize_vit``) and ``make_looped_encode`` (a TPU compiler workaround;
-the CLI config's ``vit_looped`` is accepted and has no effect).
+mesh axis is a batch axis.
+
+W8A8 inference (JAX's ``quant_int8``): :func:`quantize_vit` folds
+LayerScale and replaces each block's ``qkv``, ``proj``, ``mlp_in`` and
+``mlp_out`` with a :class:`QuantDense` (int8 weights with per-output-channel
+scales, int8 activations with per-token scales, an int32 product by
+``torch._int_mm``, a float dequantize); attention and the patch embedding
+stay in the compute dtype. Under tensor parallelism a row-parallel
+``QuantDense`` quantizes its shard of a row by the whole row's max (an
+all-reduce of the max) and sums the int32 partial products over the axis
+before the dequantize, so the sharded block computes exactly the
+one-process block. Not ported: ``make_looped_encode`` (a TPU compiler
+workaround; the CLI config's ``vit_looped`` is accepted and has no effect).
 """
 
 from __future__ import annotations
@@ -59,7 +69,8 @@ from tpu3dssf_torch.kernels.flash_attention import (flash_attention,
                                                     pick_head_group,
                                                     rope_rotate)
 from tpu3dssf_torch.models.layers import Dense, LayerNorm
-from tpu3dssf_torch.parallel.mesh import all_reduce_sum, copy_to_axis
+from tpu3dssf_torch.parallel.mesh import (all_reduce_max, all_reduce_sum,
+                                          copy_to_axis)
 from tpu3dssf_torch.utils.constants import device_constants
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -88,6 +99,11 @@ class ViTConfig:
     # tpu3dssf_torch.parallel.Mesh), set by prepare_tp_params
     tp_axis: Optional[str] = None
     tp_mesh: Optional[object] = None
+    # W8A8 inference: the block Dense layers are QuantDense (int8 x int8 ->
+    # int32 products); weights from quantize_vit, per output channel,
+    # activations per token, both symmetric. Attention and the patch
+    # embedding stay in ``dtype``.
+    quant_int8: bool = False
 
     @property
     def grid_size(self) -> Tuple[int, int]:
@@ -149,6 +165,56 @@ def rope_tables(cfg: ViTConfig, device=None):
             torch.cat([prefix, torch.sin(angles)]))
 
 
+class QuantDense(nn.Module):
+    """W8A8 Dense (JAX's ``QuantDense``): int8 weights with per-output-
+    channel symmetric scales times int8 activations with per-token dynamic
+    symmetric scales, an int32 product, a f32 dequantize, the result in
+    ``dtype``. Buffers, as :func:`quantize_vit` fills them: ``kernel_q``
+    int8 (out, in), contiguous, so that its transpose is the column-major
+    operand ``torch._int_mm`` takes; ``scale`` and ``bias`` f32 (out,)."""
+
+    def __init__(self, in_features, out_features, dtype=torch.float32):
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
+        self.dtype = dtype
+        self.register_buffer("kernel_q", torch.zeros(
+            (out_features, in_features), dtype=torch.int8))
+        self.register_buffer("scale", torch.ones(out_features))
+        self.register_buffer("bias", torch.zeros(out_features))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator=None):
+        """flax's placeholders: zero weights, unit scales, zero bias."""
+        self.kernel_q.zero_()
+        self.scale.fill_(1.0)
+        self.bias.zero_()
+
+    @staticmethod
+    def quantize(x, amax=None):
+        """(x_q, a): ``x`` in f32 rounded (half to even) to int8 on the grid
+        ``a = max(amax / 127, 1e-8)``, ``amax`` the max |x| of each row
+        (given where the row is sharded)."""
+        xf = x.float()
+        if amax is None:
+            amax = xf.abs().amax(-1, keepdim=True)
+        a = (amax / 127.0).clamp_min(1e-8)
+        return torch.round(xf / a).to(torch.int8), a
+
+    def product(self, x_q):
+        """The int32 product ``x_q @ kernel_q.T``."""
+        lead = x_q.shape[:-1]
+        acc = torch._int_mm(x_q.reshape(-1, x_q.shape[-1]),
+                            self.kernel_q.t())
+        return acc.reshape(lead + (self.out_features,))
+
+    def dequantize(self, acc, a):
+        return (acc.float() * (a * self.scale) + self.bias).to(self.dtype)
+
+    def forward(self, x):
+        x_q, a = self.quantize(x)
+        return self.dequantize(self.product(x_q), a)
+
+
 class LayerScale(nn.Module):
     def __init__(self, dim, init):
         super().__init__()
@@ -168,12 +234,13 @@ class ViTBlock(nn.Module):
         super().__init__()
         C, dt = cfg.hidden_size, cfg.dtype
         self.cfg = cfg
+        dense = QuantDense if cfg.quant_int8 else Dense
         self.norm1 = LayerNorm(C, cfg.ln_eps, dt)
-        self.qkv = Dense(C, 3 * C, dt)
-        self.proj = Dense(C, C, dt)
+        self.qkv = dense(C, 3 * C, dt)
+        self.proj = dense(C, C, dt)
         self.norm2 = LayerNorm(C, cfg.ln_eps, dt)
-        self.mlp_in = Dense(C, int(C * cfg.mlp_ratio), dt)
-        self.mlp_out = Dense(int(C * cfg.mlp_ratio), C, dt)
+        self.mlp_in = dense(C, int(C * cfg.mlp_ratio), dt)
+        self.mlp_out = dense(int(C * cfg.mlp_ratio), C, dt)
         if cfg.layerscale_init is not None:
             self.ls1 = LayerScale(C, cfg.layerscale_init)
             self.ls2 = LayerScale(C, cfg.layerscale_init)
@@ -227,13 +294,22 @@ class ViTBlock(nn.Module):
 
     def _row_parallel(self, dense, h):
         """``dense(h)``; under tensor parallelism the sum over the axis of
-        the shards' partial products, then the whole bias, once."""
+        the shards' partial products, then the whole bias, once. A
+        :class:`QuantDense` shard quantizes by the whole row's max and sums
+        its int32 partial products before the dequantize."""
         cfg = self.cfg
         if cfg.tp_mesh is None:
             return dense(h)
+        mesh, axis = cfg.tp_mesh, cfg.tp_axis
+        if isinstance(dense, QuantDense):
+            amax = all_reduce_max(h.float().abs().amax(-1, keepdim=True),
+                                  mesh, axis)
+            x_q, a = dense.quantize(h, amax)
+            acc = all_reduce_sum(dense.product(x_q), mesh, axis)
+            return dense.dequantize(acc, a)
         dt = dense.dtype
         y = F.linear(h.to(dt), dense.weight.to(dt))
-        y = all_reduce_sum(y, cfg.tp_mesh, cfg.tp_axis)
+        y = all_reduce_sum(y, mesh, axis)
         return y + dense.bias.to(dt)
 
 
@@ -318,6 +394,36 @@ def fold_layerscale(model: VisionTransformer) -> VisionTransformer:
     return model
 
 
+QUANT_LAYERS = ("qkv", "proj", "mlp_in", "mlp_out")
+
+
+@torch.no_grad()
+def quantize_vit(model: VisionTransformer) -> VisionTransformer:
+    """The W8A8 inference layout, in place (JAX's ``quantize_vit``): fold
+    LayerScale (:func:`fold_layerscale`), then replace each block's
+    ``qkv``, ``proj``, ``mlp_in`` and ``mlp_out`` by a :class:`QuantDense`
+    with per-output-channel symmetric scales, ``scale = max(max |W[o]| /
+    127, 1e-12)`` and ``kernel_q = round(W / scale)``. Returns the model,
+    its config with ``quant_int8=True``."""
+    fold_layerscale(model)
+    cfg = dataclasses.replace(model.config, quant_int8=True)
+    for blk in model.blocks:
+        for name in QUANT_LAYERS:
+            d = getattr(blk, name)
+            w = d.weight.float()
+            scale = (w.abs().amax(1) / 127.0).clamp_min(1e-12)
+            q = QuantDense(d.in_features, d.out_features, cfg.dtype).to(
+                w.device)
+            q.kernel_q.copy_(torch.round(w / scale[:, None]).to(torch.int8))
+            q.scale.copy_(scale)
+            q.bias.copy_(d.bias.float())
+            setattr(blk, name, q)
+    model.config = cfg
+    for blk in model.blocks:
+        blk.cfg = cfg
+    return model
+
+
 def qkv_tp_permutation(hidden_size: int, num_heads: int,
                        num_shards: int) -> np.ndarray:
     """Permutation of the qkv projection's 3C outputs from [q|k|v] (each
@@ -339,18 +445,22 @@ def qkv_tp_permutation(hidden_size: int, num_heads: int,
 @torch.no_grad()
 def prepare_tp_params(model: VisionTransformer, config: ViTConfig, mesh,
                       axis: str = "model"):
-    """Permute every block's qkv output rows (a torch weight is (out, in))
-    and bias into the tensor-parallel layout of :func:`qkv_tp_permutation`
-    and stamp ``(tp_axis, tp_mesh)`` into the config, in place; then cut
-    the blocks to this rank's shard with
+    """Permute every block's qkv output rows (a torch weight is (out, in);
+    a W8A8 one's ``kernel_q`` and ``scale`` alike) and bias into the
+    tensor-parallel layout of :func:`qkv_tp_permutation` and stamp
+    ``(tp_axis, tp_mesh)`` into the config, in place; then cut the blocks
+    to this rank's shard with
     :func:`tpu3dssf_torch.parallel.vit_tp_shardings`. The permutation is
     the identity when the axis has size 1. Returns (model, config)."""
     perm = torch.from_numpy(qkv_tp_permutation(
         config.hidden_size, config.num_heads, mesh.shape[axis]))
     for blk in model.blocks:
         qkv = blk.qkv
-        qkv.weight.copy_(qkv.weight[perm.to(qkv.weight.device)])
-        qkv.bias.copy_(qkv.bias[perm.to(qkv.bias.device)])
+        names = (("kernel_q", "scale", "bias") if isinstance(qkv, QuantDense)
+                 else ("weight", "bias"))
+        for name in names:
+            x = getattr(qkv, name)
+            x.copy_(x[perm.to(x.device)])
     cfg = dataclasses.replace(config, tp_axis=axis, tp_mesh=mesh)
     model.config = cfg
     for blk in model.blocks:

@@ -304,6 +304,15 @@ def all_reduce_sum(x, mesh: Mesh, axis: str):
     return _AllReduceSum.apply(x, mesh.group(axis))
 
 
+@torch.no_grad()
+def all_reduce_max(x, mesh: Mesh, axis: str):
+    """The elementwise max over the ranks of ``axis`` (no gradient: a W8A8
+    row-parallel layer's activation scale)."""
+    y = x.contiguous().clone()
+    dist.all_reduce(y, op=dist.ReduceOp.MAX, group=mesh.group(axis))
+    return y
+
+
 def copy_to_axis(x, mesh: Mesh, axis: str):
     if not (torch.is_grad_enabled() and x.requires_grad):
         return x
@@ -337,8 +346,11 @@ def vit_tp_shardings(model, mesh: Mesh, axis: str = "model"):
     rank's Megatron shard over ``axis``, in place: qkv and ``mlp_in``
     column-parallel (their weight rows and bias split), ``proj`` and
     ``mlp_out`` row-parallel (their weight columns split; the bias stays
-    whole and is added once, after the sum). Norms, embeddings, LayerScale
-    and the RoPE tables stay whole. The blocks must have been through
+    whole and is added once, after the sum). A W8A8 layer's ``kernel_q`` is
+    split as a weight; its ``scale`` is split with the bias of a
+    column-parallel layer and stays whole in a row-parallel one. Norms,
+    embeddings, LayerScale and the RoPE tables stay whole. The blocks must
+    have been through
     :func:`tpu3dssf_torch.models.vit.prepare_tp_params`, whose qkv layout
     makes each rank's contiguous rows its packed [q_s|k_s|v_s]. Returns
     ``model``.
@@ -364,15 +376,24 @@ def vit_tp_shardings(model, mesh: Mesh, axis: str = "model"):
 @torch.no_grad()
 def _keep(dense, dim, shards, index, bias):
     """Keep shard ``index`` of ``dense``'s weight along ``dim`` (0: output
-    rows, 1: input columns), and of its bias where ``bias``."""
-    w = dense.weight
-    n = w.shape[dim] // shards
-    dense.weight = torch.nn.Parameter(
-        w.narrow(dim, index * n, n).clone(), requires_grad=w.requires_grad)
+    rows, 1: input columns), and of its bias where ``bias``: a Dense's
+    parameters ``weight`` and ``bias``, a W8A8 ``QuantDense``'s buffers
+    ``kernel_q``, and ``scale`` and ``bias``."""
+    quant = hasattr(dense, "kernel_q")
+    n = (dense.out_features if dim == 0 else dense.in_features) // shards
+    names = [("kernel_q" if quant else "weight", dim)]
     if bias:
-        b = dense.bias
-        dense.bias = torch.nn.Parameter(b[index * n:(index + 1) * n].clone(),
-                                        requires_grad=b.requires_grad)
+        names += [(name, 0) for name in (("scale", "bias") if quant
+                                         else ("bias",))]
+    for name, d in names:
+        x = getattr(dense, name)
+        x = x.narrow(d, index * n, n).clone(
+            memory_format=torch.contiguous_format)
+        if quant:
+            setattr(dense, name, x)   # a registered buffer is replaced
+        else:
+            setattr(dense, name, torch.nn.Parameter(
+                x, requires_grad=getattr(dense, name).requires_grad))
     if dim == 0:
         dense.out_features = n
     else:

@@ -30,6 +30,7 @@ from tpu3dssf_torch.parallel.mesh import all_reduce_grads, gather_batch
 from tpu3dssf_torch.train.checkpoint import save_checkpoint
 from tpu3dssf_torch.train.graph import graph_train_step, graphed
 from tpu3dssf_torch.utils.logging import MetricLogger, NullLogger
+from tpu3dssf_torch.utils.timing import peak_hbm_mb
 
 
 def make_image_encode_fn(vit_model, encoder_hw, compute_dtype=torch.float32):
@@ -448,8 +449,7 @@ def train_model(state, dataloaders: Dict, loss_fn: CELSLoss, encode_fn,
         val_acc = float(metrics["overall_acc"])
         val_hist.append(val_acc)
         # peak allocated device memory since the last reset (0.0 off CUDA)
-        mem_mb = (torch.cuda.max_memory_allocated(device) / 2 ** 20
-                  if device.type == "cuda" else 0.0)
+        mem_mb = peak_hbm_mb(device)
         if mem_mb:
             print(f"  peak device memory: {mem_mb:,.0f} MiB")
         history.append({

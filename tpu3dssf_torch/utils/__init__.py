@@ -1,3 +1,6 @@
-from tpu3dssf_torch.utils.timing import cuda_ms, profile_kernels
+from tpu3dssf_torch.utils.timing import (StepTimer, cuda_ms,
+                                         measure_efficiency, peak_hbm_mb,
+                                         profile_kernels)
 
-__all__ = ["cuda_ms", "profile_kernels"]
+__all__ = ["StepTimer", "cuda_ms", "measure_efficiency", "peak_hbm_mb",
+           "profile_kernels"]

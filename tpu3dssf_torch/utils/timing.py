@@ -1,13 +1,23 @@
-"""Device timing on a CUDA card.
+"""Device timing on a CUDA card, and the host-side timers.
 
-The port's counterpart of ``tpu3dssf.utils.timing``, reduced to what the
-port measures today: the median of a callable between CUDA events, and
-the device time of each CUDA kernel a callable launches.
+The port's counterpart of ``tpu3dssf.utils.timing``: the median of a
+callable between CUDA events (:func:`cuda_ms`, the port's ``time_device``),
+the device time of each CUDA kernel a callable launches
+(:func:`profile_kernels`), the peak allocated device memory
+(:func:`peak_hbm_mb`), a wall-time and memory snapshot around one call
+(:func:`measure_efficiency`) and a rolling per-step wall timer
+(:class:`StepTimer`). The JAX module's ``chained_slope``,
+``program_peak_mb`` and ``hbm_squeeze`` work around a TPU runtime without
+memory statistics and have no counterpart.
 """
 
 from __future__ import annotations
 
+import time
+
 import torch
+
+_MIB = 1024 ** 2
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -79,3 +89,50 @@ def profile_kernels(fn, reps: int = 3):
     per_call = [{k: (us / reps, n / reps) for k, (us, n) in d.items()}
                 for d in (kernels, annotations)]
     return (prof, *per_call)
+
+
+def peak_hbm_mb(device=None) -> float:
+    """Peak allocated device memory in MiB since the last
+    ``torch.cuda.reset_peak_memory_stats`` (``max_memory_allocated``); 0.0
+    on the CPU, as JAX's CPU backend gives no memory statistics."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type != "cuda":
+        return 0.0
+    return torch.cuda.max_memory_allocated(device) / _MIB
+
+
+def measure_efficiency(func, *args, **kwargs):
+    """``func(*args, **kwargs)`` with its wall time, closed by a
+    ``torch.cuda.synchronize`` where a card is present, and the allocated
+    device memory after it: ``(result, {"runtime_sec", "mem_alloc_MB"})``
+    (memory 0.0 without a card)."""
+    cuda = torch.cuda.is_available()
+    t0 = time.perf_counter()
+    result = func(*args, **kwargs)
+    if cuda:
+        torch.cuda.synchronize()
+    runtime = time.perf_counter() - t0
+    mem_mb = torch.cuda.memory_allocated() / _MIB if cuda else 0.0
+    return result, {"runtime_sec": runtime, "mem_alloc_MB": mem_mb}
+
+
+class StepTimer:
+    """Rolling per-step wall-time tracker for train loops."""
+
+    def __init__(self, window: int = 50):
+        self.window = window
+        self._times = []
+        self._last = None
+
+    def tick(self):
+        now = time.perf_counter()
+        if self._last is not None:
+            self._times.append(now - self._last)
+            if len(self._times) > self.window:
+                self._times.pop(0)
+        self._last = now
+
+    @property
+    def mean_ms(self) -> float:
+        return 1e3 * (sum(self._times) / len(self._times)) \
+            if self._times else 0.0
