@@ -30,6 +30,47 @@ pytestmark = pytest.mark.cuda
 TOL = 0.05
 
 
+def _lse(qkv, bias, H, q_scale, cos=None, sin=None):
+    """The packed forward with its LSE through its op: K2 (C ≥ 128), K4,
+    or with tables K1's RoPE branch."""
+    C = qkv.shape[-1] // 3
+    kernel = "K1" if cos is not None else "K2" if C % 128 == 0 else "K4"
+    return torch.ops.tpu3dssf.packed_attention_lse(qkv, bias, H, q_scale,
+                                                   cos, sin, kernel)
+
+
+def _bwd(qkv, bias, dout, lse, delta, H, q_scale):
+    """The packed backward through its op: K3 (C ≥ 128) or K5."""
+    kernel = "K3" if (qkv.shape[-1] // 3) % 128 == 0 else "K5"
+    return torch.ops.tpu3dssf.packed_attention_bwd(qkv, bias, dout, lse,
+                                                   delta, H, q_scale, kernel)
+
+
+def _flash_lse(q, k, v, bias, q_scale):
+    """The (B, N, H, D) forward with its LSE through its op (K8)."""
+    return torch.ops.tpu3dssf.attention_lse(q, k, v, bias, q_scale, "K8")
+
+
+def _flash(q, k, v, bias, q_scale):
+    """The (B, N, H, D) forward without LSE: through its op (K8) at the
+    softmax scale 1/√D that the op takes, else through the packed op (K1),
+    which takes any scale, on q, k, v packed into one (B, N, 3C)
+    projection (head h at channel D h of each third)."""
+    B, N, H, D = q.shape
+    if q_scale == D ** -0.5:
+        return torch.ops.tpu3dssf.attention(q, k, v, bias, None, "K8")
+    qkv = torch.cat([x.reshape(B, N, H * D) for x in (q, k, v)], -1)
+    out = torch.ops.tpu3dssf.packed_attention(qkv, bias, H, q_scale, None,
+                                              None)
+    return out.unflatten(-1, (H, D))
+
+
+def _flash_bwd(q, k, v, bias, dout, lse, delta, q_scale):
+    """The (B, N, H, D) backward through its op (K9)."""
+    return torch.ops.tpu3dssf.attention_bwd(q, k, v, bias, dout, lse, delta,
+                                            q_scale, "K9")
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -79,15 +120,18 @@ def test_all_masked_window_is_a_finite_uniform_average(cuda):
 
 
 def test_unsupported_inputs_raise(cuda):
+    """The C++ kernel's checks raise RuntimeError, and nothing counts."""
     qkv, bias = _inputs(cuda, 1, 64, 96, False)
-    with pytest.raises(ValueError, match="head dim"):
+    before = fa.LAUNCHES
+    with pytest.raises(RuntimeError, match="head dim"):
         fa.flash_attention_packed(qkv, bias, 3)            # D = 32
-    with pytest.raises(TypeError, match="bfloat16"):
+    with pytest.raises(RuntimeError, match="bfloat16"):
         fa.flash_attention_packed(qkv.float(), bias, 6)
-    with pytest.raises(ValueError, match="contiguous"):
+    with pytest.raises(RuntimeError, match="contiguous"):
         fa.flash_attention_packed(qkv[:, ::2], bias, 6)
-    with pytest.raises(ValueError, match="key_bias"):
+    with pytest.raises(RuntimeError, match="key_bias"):
         fa.flash_attention_packed(qkv, bias.double(), 6)
+    assert fa.LAUNCHES == before
 
 
 def test_profile_kernels_counts_the_kernel_launches(cuda):
@@ -114,7 +158,7 @@ GRAD_SHAPES = [(3, 1, 32, 2), (2, 77, 64, 4), (3, 130, 128, 8),
 @pytest.mark.parametrize("B,N,C,H", GRAD_SHAPES)
 def test_lse_kernel_matches_plain_version(cuda, B, N, C, H):
     qkv, bias = _inputs(cuda, B, N, C, masked=N > 1)
-    out, lse = fa._launch_lse(qkv, bias, H, (C // H) ** -0.5)
+    out, lse = _lse(qkv, bias, H, (C // H) ** -0.5)
     torch.cuda.synchronize()
     ref, ref_lse = fa.flash_attention_packed_lse_reference(
         qkv, bias, H, (C // H) ** -0.5)
@@ -134,7 +178,7 @@ def test_backward_kernel_matches_plain_version(cuda, B, N, C, H):
     dout = (dout * keep[..., None]).to(torch.bfloat16)  # masked queries: 0
     out, lse = fa.flash_attention_packed_lse_reference(qkv, bias, H, q_scale)
     delta = fa.row_delta(dout, out * keep[..., None], H)
-    got = fa._launch_bwd(qkv, bias, dout, lse, delta, H, q_scale)
+    got = _bwd(qkv, bias, dout, lse, delta, H, q_scale)
     torch.cuda.synchronize()
     ref = fa.flash_attention_packed_bwd_reference(qkv, bias, dout, lse,
                                                   delta, H, q_scale)
@@ -160,7 +204,7 @@ def test_training_rules_launch_their_kernels(cuda):
     assert [a - b for a, b in zip(after, counts)] == [0, 1, 1, 1, 1]
     assert torch.isfinite(x.grad.float()).all()
     assert y.grad[~mask].abs().max().item() == 0.0   # masked slots
-    with pytest.raises(ValueError, match="head dim"):   # D = 32: none
+    with pytest.raises(RuntimeError, match="head dim"):   # D = 32: none
         z = qkv[..., :192].contiguous().requires_grad_()
         fa.flash_attention_packed(z, bias, 2, 0.125).sum().backward()
 
@@ -458,12 +502,12 @@ def test_flash_kernels_match_their_plain_versions(cuda, B, N, H, D):
     ref = fa.mha_reference(q, k, v, bias)
     assert (out.float() - ref.float()).abs().max().item() < TOL
     scale = D ** -0.5
-    out, lse = fa._launch_flash(q, k, v, bias, scale, with_lse=True)
+    out, lse = _flash_lse(q, k, v, bias, scale)
     ref, ref_lse = fa.flash_attention_lse_reference(q, k, v, bias, scale)
     assert (out.float() - ref.float()).abs().max().item() < TOL
     assert (lse - ref_lse).abs().max().item() < 1e-3
     delta = fa.row_delta(dout, out)
-    got = fa._launch_flash_bwd(q, k, v, bias, dout, lse, delta, scale)
+    got = _flash_bwd(q, k, v, bias, dout, lse, delta, scale)
     torch.cuda.synchronize()
     _grads_close(got, fa.flash_attention_bwd_reference(
         q, k, v, bias, dout, lse, delta, scale))
@@ -512,23 +556,26 @@ def test_flash_attention_rule_launches_k8_and_k9(cuda):
 
 
 def test_flash_kernels_refuse_what_they_do_not_take(cuda):
+    """The C++ kernels' checks raise RuntimeError, and nothing counts."""
+    before = (fa.FLASH_LAUNCHES, fa.FLASH_BWD_LAUNCHES)
     q, k, v, bias, dout = _bhnd_inputs(cuda, 1, 64, 2, 32)     # D = 32
-    with pytest.raises(ValueError, match="head dim"):
-        fa._launch_flash(q, k, v, bias, 0.2)
+    with pytest.raises(RuntimeError, match="head dim"):
+        _flash_lse(q, k, v, bias, 0.2)
     q, k, v, bias, dout = _bhnd_inputs(cuda, 1, 64, 2, 16)
-    with pytest.raises(ValueError, match="no kernel"):
-        fa._launch_flash(q.cpu(), k.cpu(), v.cpu(), bias.cpu(), 0.25)
-    with pytest.raises(TypeError, match="bfloat16"):
-        fa._launch_flash(q.float(), k.float(), v.float(), bias, 0.25)
+    with pytest.raises(RuntimeError, match="bias"):
+        _flash_lse(q, k, v, bias.cpu(), 0.25)
+    with pytest.raises(RuntimeError, match="bfloat16"):
+        _flash_lse(q.float(), k.float(), v.float(), bias, 0.25)
     strided = torch.zeros(1, 64, 2, 32, device=cuda,
                           dtype=torch.bfloat16)[..., ::2]   # D stride 2
-    with pytest.raises(ValueError, match="contiguous"):
-        fa._launch_flash(strided, k, v, bias, 0.25)
+    with pytest.raises(RuntimeError, match="contiguous"):
+        _flash_lse(strided, k, v, bias, 0.25)
     lse = torch.zeros(1, 2, 64, device=cuda)
-    with pytest.raises(TypeError, match="bfloat16"):
-        fa._launch_flash_bwd(q, k, v, bias, dout.float(), lse, lse, 0.25)
-    with pytest.raises(ValueError, match="lse"):
-        fa._launch_flash_bwd(q, k, v, bias, dout, lse[:, :1], lse, 0.25)
+    with pytest.raises(RuntimeError, match="bfloat16"):
+        _flash_bwd(q, k, v, bias, dout.float(), lse, lse, 0.25)
+    with pytest.raises(RuntimeError, match="lse"):
+        _flash_bwd(q, k, v, bias, dout, lse[:, :1], lse, 0.25)
+    assert (fa.FLASH_LAUNCHES, fa.FLASH_BWD_LAUNCHES) == before
 
 
 def _knn_inputs(cuda, B, Q, R, masked=0.2, seed=0):
@@ -806,17 +853,18 @@ def _close(got, want, what):
 def test_d64_forward_and_backward_match_their_plain_versions(cuda, N, packed,
                                                              q_scale):
     q, k, v, bias, dout = _d64_inputs(cuda, N, packed)
-    out, lse = fa._launch_flash(q, k, v, bias, q_scale, with_lse=True)
-    plain = fa._launch_flash(q, k, v, bias, q_scale)
+    out, lse = _flash_lse(q, k, v, bias, q_scale)
+    plain = _flash(q, k, v, bias, q_scale)
     torch.cuda.synchronize()
     ref, ref_lse = fa.flash_attention_lse_reference(q, k, v, bias, q_scale)
     _close(out[0], ref[0], "out")
-    _close(plain[0], ref[0], "out without LSE")
     assert (lse[0] - ref_lse[0]).abs().max().item() < 1e-3
-    assert out[1].abs().max().item() == 0.0 == plain[1].abs().max().item()
+    assert out[1].abs().max().item() == 0.0
+    _close(plain[0], ref[0], "out without LSE")
+    assert plain[1].abs().max().item() == 0.0
     assert bool((lse[1] == float("inf")).all())
     delta = fa.row_delta(dout, out)
-    got = fa._launch_flash_bwd(q, k, v, bias, dout, lse, delta, q_scale)
+    got = _flash_bwd(q, k, v, bias, dout, lse, delta, q_scale)
     torch.cuda.synchronize()
     want = fa.flash_attention_bwd_reference(q, k, v, bias, dout, lse, delta,
                                             q_scale)
@@ -874,9 +922,9 @@ def test_rope_forward_matches_its_plain_version(cuda, N, q_scale):
     qkv, bias, cos, sin, _ = _rope_inputs(cuda, N)
     before = fa.LAUNCHES
     out = fa.flash_attention_packed(qkv, bias, 6, q_scale, cos, sin)
-    lse_out, lse = fa._launch_lse(qkv, bias, 6, q_scale, cos, sin)
+    lse_out, lse = _lse(qkv, bias, 6, q_scale, cos, sin)
     torch.cuda.synchronize()
-    assert fa.LAUNCHES == before + 1
+    assert fa.LAUNCHES == before + 2   # the RoPE branch's LSE counts as K1
     ref, ref_lse = fa.flash_attention_packed_lse_reference(
         qkv, bias, 6, q_scale, cos, sin)
     _close(out[0], ref[0], "out")
@@ -931,15 +979,17 @@ def test_rope_forward_at_the_tensor_parallel_head_counts(cuda, H, N):
 
 def test_rope_refuses_what_it_does_not_take(cuda):
     qkv, bias, cos, sin, _ = _rope_inputs(cuda, 64)
-    with pytest.raises(ValueError, match="head dim 64 only"):   # D = 16
+    before = fa.LAUNCHES
+    with pytest.raises(RuntimeError, match="head dim 64 only"):   # D = 16
         fa.flash_attention_packed(qkv, bias, 24, 0.25, cos[:, :8].contiguous(),
                                   sin[:, :8].contiguous())
-    with pytest.raises(ValueError, match="rope_cos/rope_sin"):
+    with pytest.raises(RuntimeError, match="rope_cos/rope_sin"):
         fa.flash_attention_packed(qkv, bias, 6, 0.125, cos.double(), sin)
-    with pytest.raises(ValueError, match="rope_cos/rope_sin"):
+    with pytest.raises(RuntimeError, match="rope_cos/rope_sin"):
         fa.flash_attention_packed(qkv, bias, 6, 0.125, cos[:-1], sin[:-1])
-    with pytest.raises(ValueError, match="both"):
+    with pytest.raises(RuntimeError, match="both"):
         fa.flash_attention_packed(qkv, bias, 6, 0.125, cos, None)
+    assert fa.LAUNCHES == before
 
 
 # The D = 16 kernels (PTv3): the forward (one warp per (row, head) up to
@@ -984,8 +1034,8 @@ def _d16_inputs(cuda, N, layout, seed=0):
 @pytest.mark.parametrize("q_scale", [1.0, 0.25])
 def test_d16_forward_matches_its_plain_version(cuda, N, layout, q_scale):
     q, k, v, bias, _, _ = _d16_inputs(cuda, N, layout)
-    out = fa._launch_flash(q, k, v, bias, q_scale)
-    lse_out, lse = fa._launch_flash(q, k, v, bias, q_scale, with_lse=True)
+    out = _flash(q, k, v, bias, q_scale)
+    lse_out, lse = _flash_lse(q, k, v, bias, q_scale)
     torch.cuda.synchronize()
     ref, ref_lse = fa.flash_attention_lse_reference(q, k, v, bias, q_scale)
     for got in (out, lse_out):
@@ -1001,10 +1051,10 @@ def test_d16_forward_matches_its_plain_version(cuda, N, layout, q_scale):
 def test_d16_backward_matches_its_plain_version_bit_for_bit_twice(
         cuda, N, layout, q_scale):
     q, k, v, bias, keep, dout = _d16_inputs(cuda, N, layout)
-    out, lse = fa._launch_flash(q, k, v, bias, q_scale, with_lse=True)
+    out, lse = _flash_lse(q, k, v, bias, q_scale)
     delta = fa.row_delta(dout, out)
-    got = fa._launch_flash_bwd(q, k, v, bias, dout, lse, delta, q_scale)
-    again = fa._launch_flash_bwd(q, k, v, bias, dout, lse, delta, q_scale)
+    got = _flash_bwd(q, k, v, bias, dout, lse, delta, q_scale)
+    again = _flash_bwd(q, k, v, bias, dout, lse, delta, q_scale)
     torch.cuda.synchronize()
     want = fa.flash_attention_bwd_reference(q, k, v, bias, dout, lse, delta,
                                             q_scale)
@@ -1043,9 +1093,9 @@ def test_d16_launches_count_once_each(cuda):
 
 
 def test_d16_backward_block_size_matches_the_kernel(cuda):
-    """The wrapper sizes the dq partials by the kernel's key block."""
-    lib = fa._build.load_library(fa._BWD_SOURCE)
-    assert lib.fa_backward_d16_block_keys() == fa.D16_BWD_KEYS
+    """The key blocks that the wrappers count by are the built kernel's."""
+    assert torch.ops.tpu3dssf_cuda.constant(
+        "fa_backward_d16_block_keys") == fa.D16_BWD_KEYS
 
 
 # the kernels as torch.library ops (tpu3dssf_torch/kernels/ops.py): each op
@@ -1123,11 +1173,9 @@ def test_ops_on_the_card_match_their_cpu_kernels(cuda, D):
                 assert (got[1].cpu() - want[1]).abs().max().item() < 1e-3
 
 
-def test_export_round_trip_on_the_card_counts_its_launches(cuda, tmp_path):
-    """A tiny LiDAR-only model in the parity modes, exported on the card:
-    the loaded program's first call (eager) and its replay each launch
-    K1 3 and K7 2, as the eager model does, and give its output."""
-    from tpu3dssf_torch.export import export_infer_bytes, load_exported
+def _tiny_parity_model(cuda):
+    """A tiny LiDAR-only model in the parity modes on the card (K1 3 and K7
+    2 a call) and its inputs."""
     from tpu3dssf_torch.models import fusion, lidar_only, ptv3
     from tpu3dssf_torch.models.layers import init_weights
 
@@ -1146,6 +1194,16 @@ def test_export_round_trip_on_the_card_counts_its_launches(cuda, tmp_path):
     pts = torch.cat([torch.rand(2, 3000, 3, generator=gen) * 40 - 20,
                      torch.rand(2, 3000, 1, generator=gen)], -1).to(cuda)
     mask = (torch.rand(2, 3000, generator=gen) > 0.1).to(cuda)
+    return model, pts, mask
+
+
+def test_export_round_trip_on_the_card_counts_its_launches(cuda, tmp_path):
+    """A tiny LiDAR-only model in the parity modes, exported on the card:
+    the loaded program's first call (eager) and its replay each launch
+    K1 3 and K7 2, as the eager model does, and give its output."""
+    from tpu3dssf_torch.export import export_infer_bytes, load_exported
+
+    model, pts, mask = _tiny_parity_model(cuda)
     path = tmp_path / "model.pt2"
     path.write_bytes(export_infer_bytes(model, (pts, mask)))
     with torch.no_grad():
@@ -1160,3 +1218,39 @@ def test_export_round_trip_on_the_card_counts_its_launches(cuda, tmp_path):
     spread = _max_diff([eager[0]], [eager[1]])
     assert all(_within_eager(_max_diff([o], [eager[0]]), spread)
                for o in outs)
+
+
+def test_aoti_package_on_the_card_counts_its_launches(cuda, tmp_path):
+    """The same model as an AOTInductor package: loaded in Python, each
+    call launches K1 3 and K7 2 through the C++ ops and gives the eager
+    output within 2% of its largest value; ``aoti_runner``, a process
+    without Python, launches the same and writes the same bits."""
+    import json
+    import subprocess
+    from tpu3dssf_torch.export import (compile_infer_package, load_package,
+                                       read_outputs, write_inputs)
+    from tpu3dssf_torch.kernels import _build
+
+    model, pts, mask = _tiny_parity_model(cuda)
+    with torch.no_grad():
+        eager = model(pts, mask)
+    path = compile_infer_package(model, (pts, mask), tmp_path / "m.pt2")
+    f = load_package(path)
+    outs = []
+    for _ in range(2):
+        assert _launches(lambda: outs.append(f(pts, mask))) == {"K1": 3,
+                                                               "K7": 2}
+    got = outs[0][0] if isinstance(outs[0], (list, tuple)) else outs[0]
+    top = eager.float().abs().max().item()
+    assert (got.float() - eager.float()).abs().max().item() <= 0.02 * top
+    write_inputs(tmp_path / "in", (pts, mask))
+    (tmp_path / "out").mkdir()
+    res = subprocess.run(
+        [str(_build.build_runner()), str(path), "cuda", str(tmp_path / "in"),
+         str(tmp_path / "out"), "3",
+         *map(str, _build.loaded_libraries())],
+        capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    line = json.loads(res.stdout.strip().splitlines()[-1])
+    assert line["launches_per_call"] == {"K1": 3, "K7": 2}
+    assert torch.equal(read_outputs(tmp_path / "out")[0], got.cpu())

@@ -10,6 +10,14 @@ same seeded inputs within 1e-4 at f32 (the whole-slice tolerance of
 tests/test_torch_pipeline.py: f32 sums over many layers in another order).
 A tiny LiDAR-only model in the parity modes exports with its k-NN op; a
 fresh process loads an artifact with no model code; the CLI writes one.
+
+The same tiny pipeline as an AOTInductor package (compiled once for the
+module, about a minute and a half here on one thread): it keeps the three
+``tpu3dssf::attention`` ops as calls through the dispatcher, a fresh
+process loads it with no model code and gets the eager forward within 1e-5
+(Inductor's fused f32 CPU kernels sum in another order: 1.2e-6 at one of
+2,048 logits of |x| up to 0.36, where the archive is bit-identical), and
+it agrees with JAX's exported artifact within the same 1e-4.
 """
 
 import os
@@ -29,7 +37,8 @@ from tests.test_torch_lidar import _lattice_points
 from tests.test_torch_pipeline import _tiny_config
 from tpu3dssf import export as jexport
 from tpu3dssf_torch import convert
-from tpu3dssf_torch.export import export_infer_bytes, load_exported
+from tpu3dssf_torch.export import (compile_infer_package, export_infer_bytes,
+                                   load_exported, load_package, package_ops)
 from tpu3dssf_torch.kernels import modules
 from tpu3dssf_torch.models import fusion, lidar_only
 from tpu3dssf_torch.models.layers import init_weights
@@ -86,6 +95,23 @@ def tiny():
                 blob=export_infer_bytes(model, targs))
 
 
+@pytest.fixture(scope="module")
+def package(tiny, tmp_path_factory):
+    """The tiny pipeline's AOTInductor package."""
+    path = tmp_path_factory.mktemp("aoti") / "tiny.pt2"
+    return compile_infer_package(tiny["model"], tiny["args"], path)
+
+
+def _jax_output(tiny):
+    jmodel, params = tiny["jmodel"], tiny["params"]
+
+    def infer(p, v, tok, k, rt):
+        return jmodel.apply(params, p, v, tok, k, rt)
+
+    jblob = jexport.export_infer_bytes(infer, tiny["jargs"])
+    return np.asarray(jexport.load_exported(jblob)(*tiny["jargs"]))
+
+
 def _op_nodes(blob):
     import io
     program = torch.export.load(io.BytesIO(blob))
@@ -107,13 +133,7 @@ def test_export_roundtrip_equals_eager(tiny, tmp_path):
 
 
 def test_export_agrees_with_jax_export(tiny):
-    jmodel, params = tiny["jmodel"], tiny["params"]
-
-    def infer(p, v, tok, k, rt):
-        return jmodel.apply(params, p, v, tok, k, rt)
-
-    jblob = jexport.export_infer_bytes(infer, tiny["jargs"])
-    want = np.asarray(jexport.load_exported(jblob)(*tiny["jargs"]))
+    want = _jax_output(tiny)
     got = load_exported(tiny["blob"])(*tiny["args"])
     assert np.abs(want).max() > 0.1
     np.testing.assert_allclose(got.numpy(), want, **MODEL_TOL)
@@ -199,6 +219,47 @@ def test_cli_writes_the_artifact_on_cpu(tmp_path):
     assert f"wrote {out} ({size / 1e6:.1f} MB, platform=cpu)" in res.stdout
 
 
+def test_cli_writes_a_package_that_loads(tmp_path, monkeypatch, capsys):
+    """``--package --device cpu``: the CLI's own path (its config, example
+    batch and seeded weights) writes an AOTInductor package that loads and
+    equals the model within 1e-5. PTv3 is cut to two stages here: Inductor's
+    CPU code generator takes about 6 minutes over the full-width one."""
+    import dataclasses
+    from tpu3dssf_torch.cli import common, export_model
+
+    build = common.build_pipeline
+
+    def two_stages(cfg, vit_cfg=None, device="cpu", seed=1):
+        model, pipe = build(cfg, vit_cfg, device, seed)
+        p = pipe.ptv3
+        pipe = dataclasses.replace(pipe, ptv3=dataclasses.replace(
+            p, enc_depths=(1, 1), enc_channels=p.enc_channels[:2],
+            enc_heads=p.enc_heads[:2], enc_window=p.enc_window[:2],
+            dec_depths=(1,), dec_channels=p.dec_channels[:1],
+            dec_heads=p.dec_heads[:1], dec_window=p.dec_window[:1]))
+        return init_weights(type(model)(pipe), seed).to(device).eval(), pipe
+
+    monkeypatch.setattr(common, "build_pipeline", two_stages)
+    path = _lidar_only_config(tmp_path)
+    out = tmp_path / "model.pt2"
+    export_model.main(["--config", path, "--out", str(out), "--device", "cpu",
+                       "--package"])
+    size = out.stat().st_size
+    assert (f"wrote {out} ({size / 1e6:.1f} MB AOTInductor package, "
+            f"platform=cpu)") in capsys.readouterr().out
+    cfg = common.load_config(path)
+    batch = common.example_batch(cfg, common.build_datasets(cfg))
+    batch.pop("images", None)
+    cpu = torch.device("cpu")
+    model, args = export_model.pipeline_args(
+        cfg, common.batch_to_device(batch, cpu), cpu)
+    assert package_ops(out) == ["tpu3dssf::packed_attention"] * 3
+    with torch.no_grad():
+        want = model(*args)
+    torch.testing.assert_close(load_package(out)(*args), want, rtol=0,
+                               atol=1e-5)
+
+
 def test_cli_refuses_to_fall_back_to_cpu(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the CLI would use it")
@@ -207,3 +268,57 @@ def test_cli_refuses_to_fall_back_to_cpu(tmp_path):
     assert res.returncode != 0
     assert "no CUDA device" in res.stderr
     assert not (tmp_path / "model.pt2").exists()
+
+
+def test_package_keeps_the_ops_and_loads_without_model_code(tiny, package,
+                                                            tmp_path):
+    assert package_ops(package) == ["tpu3dssf::attention"] * 3
+    torch.save({"args": tiny["args"]}, tmp_path / "io.pt")
+    code = (
+        "import sys, torch\n"
+        "torch.set_num_threads(1)\n"
+        "import tpu3dssf_torch.kernels\n"
+        "from tpu3dssf_torch.export import load_package\n"
+        f"d = torch.load({str(tmp_path / 'io.pt')!r})\n"
+        f"torch.save(load_package({str(package)!r})(*d['args']), "
+        f"{str(tmp_path / 'out.pt')!r})\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax',"
+        " 'jaxlib', 'flax', 'optax', 'tpu3dssf') or m.startswith("
+        f"{MODEL_CODE!r}))\n"
+        "assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT, timeout=300,
+                         env={**os.environ, "PYTHONPATH": ROOT})
+    assert res.returncode == 0, res.stdout + res.stderr
+    got = torch.load(tmp_path / "out.pt")
+    torch.testing.assert_close(got, tiny["eager"], rtol=0, atol=1e-5)
+
+
+def test_package_agrees_with_jax_export(tiny, package):
+    want = _jax_output(tiny)
+    got = load_package(package)(*tiny["args"])
+    assert np.abs(want).max() > 0.1
+    np.testing.assert_allclose(got.numpy(), want, **MODEL_TOL)
+
+
+@pytest.mark.parametrize("version,patched", [("2.11.0+cu128", True),
+                                             ("2.13.0", False)])
+def test_inductor_fix_lives_only_inside_the_compile(monkeypatch, version,
+                                                    patched):
+    """torch 2.13's ``get_block_shape`` replaces the installed one only
+    below torch 2.13, only while the compile runs, and the original is
+    back afterwards, also after a failure."""
+    tr = pytest.importorskip("torch._inductor.codegen.triton")
+    import inspect
+    from tpu3dssf_torch import export
+
+    original = inspect.getattr_static(tr.TritonSymbols, "get_block_shape")
+    monkeypatch.setattr(torch, "__version__", version)
+    with pytest.raises(RuntimeError, match="inside"):
+        with export._triton_block_shape_fixed():
+            inside = inspect.getattr_static(tr.TritonSymbols,
+                                            "get_block_shape")
+            raise RuntimeError("inside")
+    assert (inside is not original) == patched
+    assert inspect.getattr_static(tr.TritonSymbols,
+                                  "get_block_shape") is original

@@ -286,7 +286,7 @@ def test_counter_registry_names_every_launch_counter():
     names = {(m, n) for m, n in modules.COUNTERS.values()}
     for m in ("flash_attention", "window_attention", "knn"):
         module = getattr(modules, m)
-        counters = {n for n in vars(module) if n.endswith("LAUNCHES")}
+        counters = {n for n in dir(module) if n.endswith("LAUNCHES")}
         assert counters == {n for mm, n in names if mm == m}, m
     before = modules.launch_counts()
     try:

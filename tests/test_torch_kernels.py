@@ -127,11 +127,14 @@ def test_cpu_tensor_takes_plain_version_without_launching(rng):
 
 
 def test_cuda_wrapper_checks_fail_loudly():
-    # the checks the CUDA path applies before any build or launch
-    meta = torch.empty(1, 8, 96, device="meta")
-    bias = torch.empty(1, 1, 8, device="meta")
-    with pytest.raises(ValueError, match="no kernel for device"):
-        fa._launch(meta, bias, 2, None)
-    q, k, v = meta.unflatten(-1, (3, 2, 16)).unbind(2)
-    with pytest.raises(ValueError, match="no kernel for device"):
-        fa._launch_flash(q, k, v, bias, 0.25)
+    # the checks a CUDA tensor meets before any launch: the wrappers' on
+    # their CUDA kernels' terms (a fake tensor needs no card)
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        qkv = torch.empty(1, 8, 96, device="cuda")
+        bias = torch.empty(1, 1, 8, device="cuda")
+        with pytest.raises(TypeError, match="bfloat16"):
+            fa.flash_attention_packed(qkv, bias, 2, None)
+        q = torch.empty(1, 8, 4, 8, device="cuda", dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="head dim 8 must be one of"):
+            fa.flash_attention(q, q, q, bias)

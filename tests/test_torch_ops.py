@@ -1,13 +1,15 @@
 """The kernels as ``torch.library`` custom ops (``tpu3dssf::*``), on the CPU.
 
-``import tpu3dssf_torch.kernels`` registers seven ops for the nine TPU
-kernels, each with a CUDA kernel (the launcher and its count), a CPU
-kernel (the plain version) and a fake kernel (shapes only). Here:
+``import tpu3dssf_torch.kernels`` loads the C++ library that defines seven
+ops for the nine TPU kernels (csrc/ops_schema.cpp, built here with the host
+compiler) and registers their CPU kernels (the plain versions) and fake
+kernels (shapes only); their CUDA kernels are C++ (csrc/ops_cuda.cpp), in
+the library that only a machine with a card builds. Here:
 ``torch.library.opcheck`` on every op at small f32 shapes (a few heads, a
 ragged N, the RoPE tables once); every wrapper and training rule goes
 through its op, and its CPU result equals the plain version's bit for bit
 (tolerance 0: the op's CPU kernel is the plain version); the fake kernels
-raise the launchers' errors on CUDA fakes (no card needed: a fake has no
+raise the CUDA kernels' errors on CUDA fakes (no card needed: a fake has no
 data) and take what the plain versions take on CPU fakes. The CUDA
 kernels run on the card (tests/test_torch_cuda.py, chip_smoke.py).
 """
@@ -107,17 +109,27 @@ def test_opcheck(case):
 
 
 def test_the_package_registers_seven_ops_with_three_kernels_each():
+    """CPU and fake kernels here, on every op; the CUDA kernels in the C++
+    library's ``TORCH_LIBRARY_IMPL(tpu3dssf, CUDA, ...)``, which a machine
+    without a card never loads: no other CUDA kernel stands in for them."""
     assert set(ops.KERNELS) == set(OPS)
     assert sorted(k for ks in ops.KERNELS.values() for k in ks) == sorted(
         ["K1", "K1", "K2", "K3", "K4", "K4", "K5", "K5", "K6", "K7", "K8",
          "K8", "K9"])
     from torch._library.simple_registry import singleton
+    from tpu3dssf_torch.kernels import _build
+    source = (_build.CSRC_DIR / _build.CUDA_OPS_SOURCE).read_text()
+    cuda_impl = source.split("TORCH_LIBRARY_IMPL(tpu3dssf, CUDA, m) {")[1]
+    cuda_impl = cuda_impl.split("}")[0]
     for name in OPS:
         qual = f"tpu3dssf::{name}"
         assert hasattr(torch.ops.tpu3dssf, name)
-        for key in ("CPU", "CUDA"):
-            assert torch._C._dispatch_has_kernel_for_dispatch_key(qual, key)
+        assert torch._C._dispatch_has_kernel_for_dispatch_key(qual, "CPU")
         assert singleton.find(qual).fake_impl.kernel is not None
+        assert f'm.impl("{name}", &{name});' in cuda_impl
+        assert torch._C._dispatch_has_kernel_for_dispatch_key(
+            qual, "CUDA") == _build.cuda_library_loaded()
+    assert cuda_impl.count("m.impl(") == len(OPS)
 
 
 class _Ops(TorchDispatchMode):
@@ -328,13 +340,21 @@ def test_fake_kernels_take_what_the_plain_versions_take_on_cpu_fakes():
 
 
 def test_cpu_tensor_never_reaches_a_launcher():
-    """A CPU tensor takes the plain version and counts nothing; a
-    launcher called on one raises, as it always did."""
+    """A CPU tensor takes the plain version and counts nothing, in the
+    kernel's dtype too; the k-NN wrapper, which has no plain route, raises
+    on one, as it always did; and no kernel module keeps a launcher of its
+    own (each launch is the C++ kernel of an op)."""
     queries, refs, mask = _cloud()
     with pytest.raises(ValueError, match="no kernel for device cpu"):
         knn.knn(queries, refs, mask, 3)
-    with pytest.raises(ValueError, match="no kernel for device cpu"):
-        knn._launch(queries, refs, mask, 3)
+    before = tpu3dssf_torch.kernels.modules.launch_counts()
+    _same(torch.ops.tpu3dssf.knn(queries, refs, mask, 3),
+          knn.topk_neighbors_reference(queries, refs, mask, 3))
     qkv, bias, *_ = _packed()
-    with pytest.raises(ValueError, match="no kernel for device"):
-        fa._launch_lse(qkv.bfloat16(), bias, H, 0.25)
+    qkv = qkv.bfloat16()
+    _same(torch.ops.tpu3dssf.packed_attention_lse(qkv, bias, H, 0.25, None,
+                                                  None, "K2"),
+          fa.flash_attention_packed_lse_reference(qkv, bias, H, 0.25))
+    assert tpu3dssf_torch.kernels.modules.launch_counts() == before
+    for module in (fa, wa, knn):
+        assert not [n for n in vars(module) if n.startswith("_launch")]

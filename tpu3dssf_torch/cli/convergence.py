@@ -339,12 +339,8 @@ def main(argv=None):
             json.dump(counts, f, indent=1)
         return counts
     if device.type == "cuda":
-        from concurrent.futures import ThreadPoolExecutor
         from tpu3dssf_torch.kernels import _build
-        sources = ("flash_attention_packed.cu",
-                   "flash_attention_packed_bwd.cu", "knn.cu")
-        with ThreadPoolExecutor(max_workers=len(sources)) as pool:
-            list(pool.map(_build.load_library, sources))
+        _build.load_cuda_library()     # built at import: raises a failure
     work = tempfile.mkdtemp(prefix="tpu3dssf_convergence_")
     summary = dict(card=card, runs={}, compare={}, parity_ab={},
                    train_step={})

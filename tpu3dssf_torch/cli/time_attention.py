@@ -73,7 +73,8 @@ def rope_outside(fa, qkv, bias, H, angles, n_prefix, q_scale):
     q = q * torch.tensor(q_scale, dtype=q.dtype)
     packed = torch.cat([q.reshape(B, N, C), k.reshape(B, N, C),
                         qkv[..., 2 * C:]], dim=-1)
-    return fa._launch(packed, bias, H, None)
+    return torch.ops.tpu3dssf.packed_attention(packed, bias, H, None, None,
+                                               None)
 
 
 def load_chip_smoke():
@@ -170,6 +171,7 @@ def main(argv=None):
             return max(err(a, b) for a, b in zip(got, want))
         return (got.float() - want.float()).abs().max().item()
 
+    ops = torch.ops.tpu3dssf     # the ops the checkout registers
     B, N = 12, 2845
     result = {"root": root, "card": card}
 
@@ -178,10 +180,11 @@ def main(argv=None):
     bias = torch.zeros(B, 1, N, device="cuda")
     qt, kt, vt = (x.transpose(1, 2) for x in fa._split_heads(qkv, 6))
     result["K1_vits"] = dict(
-        ms=cuda_ms(lambda: fa._launch(qkv, bias, 6, None)),
+        ms=cuda_ms(lambda: ops.packed_attention(qkv, bias, 6, None, None,
+                                                None)),
         sdpa_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, scale=1.0)),
-        max_abs_err=err(fa._launch(qkv, bias, 6, None),
+        max_abs_err=err(ops.packed_attention(qkv, bias, 6, None, None, None),
                         fa.flash_attention_packed_reference(qkv, bias, 6)))
     del qkv, qt, kt, vt
     torch.cuda.empty_cache()
@@ -193,15 +196,14 @@ def main(argv=None):
     leaves = [x.detach().requires_grad_() for x in (q, k, v)]
     qt, kt, vt = (x.transpose(1, 2) for x in leaves)
     result["K8_vitl"] = dict(
-        ms=cuda_ms(lambda: fa._launch_flash(q, k, v, bias, scale)),
+        ms=cuda_ms(lambda: ops.attention(q, k, v, bias, None, "K8")),
         sdpa_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
             qt.detach(), kt.detach(), vt.detach(), scale=scale)),
-        max_abs_err=err(fa._launch_flash(q, k, v, bias, scale),
+        max_abs_err=err(ops.attention(q, k, v, bias, None, "K8"),
                         fa.mha_reference(q, k, v, bias)))
-    out, lse = fa._launch_flash(q, k, v, bias, scale, with_lse=True)
+    out, lse = ops.attention_lse(q, k, v, bias, scale, "K8")
     result["K8_lse_vitl"] = dict(
-        ms=cuda_ms(lambda: fa._launch_flash(q, k, v, bias, scale,
-                                            with_lse=True)),
+        ms=cuda_ms(lambda: ops.attention_lse(q, k, v, bias, scale, "K8")),
         sdpa_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, scale=scale)),
         max_abs_err=err(out, fa.flash_attention_lse_reference(
@@ -210,12 +212,12 @@ def main(argv=None):
     delta = fa.row_delta(dout, out)
     sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
     result["K9_vitl"] = dict(
-        ms=cuda_ms(lambda: fa._launch_flash_bwd(q, k, v, bias, dout, lse,
-                                                delta, scale)),
+        ms=cuda_ms(lambda: ops.attention_bwd(q, k, v, bias, dout, lse, delta,
+                                             scale, "K9")),
         sdpa_ms=cuda_ms(lambda: torch.autograd.grad(
             sdpa_out, leaves, dout.transpose(1, 2), retain_graph=True)),
         max_abs_err=err(
-            fa._launch_flash_bwd(q, k, v, bias, dout, lse, delta, scale),
+            ops.attention_bwd(q, k, v, bias, dout, lse, delta, scale, "K9"),
             fa.flash_attention_bwd_reference(q, k, v, bias, dout, lse, delta,
                                              scale)))
     del q, k, v, leaves, qt, kt, vt, out, lse, dout, delta, sdpa_out
@@ -233,10 +235,10 @@ def main(argv=None):
         row = dict(outside_ms=cuda_ms(lambda: rope_outside(
             fa, qkv, bias, H, angles, cfg.num_prefix_tokens, scale)))
         if branch:
-            row["ms"] = cuda_ms(lambda: fa._launch(qkv, bias, H, scale, cos,
-                                                   sin))
+            row["ms"] = cuda_ms(lambda: ops.packed_attention(
+                qkv, bias, H, scale, cos, sin))
             row["max_abs_err"] = err(
-                fa._launch(qkv, bias, H, scale, cos, sin),
+                ops.packed_attention(qkv, bias, H, scale, cos, sin),
                 fa.flash_attention_packed_reference(qkv, bias, H, scale, cos,
                                                     sin))
         result[f"K1_rope_{name}"] = row

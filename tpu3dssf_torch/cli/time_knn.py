@@ -101,13 +101,16 @@ def loop_mix(sass, k, G):
 
 
 def sass_mix(knn):
-    """``loop_mix`` at k = 5 and k = 1 of the library ``knn`` built."""
+    """``loop_mix`` at k = 5 and k = 1 of the library that holds K7: the
+    CUDA op library, or in a checkout from before it (no
+    ``cuda_library_path``) ``knn.cu``'s own."""
     from tpu3dssf_torch.kernels import _build
     from pathlib import Path
     tool = Path(_build.find_nvcc()).parent / "cuobjdump"
-    sass = subprocess.run(
-        [str(tool), "-sass", str(_build.library_path(knn._SOURCE))],
-        capture_output=True, text=True, check=True).stdout
+    lib = (_build.cuda_library_path() if hasattr(_build, "cuda_library_path")
+           else _build.library_path(knn._SOURCE))
+    sass = subprocess.run([str(tool), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
     return {f"k{k}": loop_mix(sass, k, G) for k, G in ((5, 4), (1, 8))}
 
 

@@ -30,7 +30,7 @@ at both: ``fap_bwd_d16_*`` with dq summed in a fixed order at D = 16,
 ``fap_bwd_d64_kernel`` and its dq cast at D = 64).
 Each takes q, k, v (and do, dq, dk, dv) as separate pointers with their own
 (batch, token, head) strides, so the packed layout is one stride set and
-(B, N, H, D) another; the launchers here pass views and never repack. The
+(B, N, H, D) another; the ops pass views and never repack. The
 window routes of :mod:`tpu3dssf_torch.kernels.window_attention` launch the
 same two kernels and count them as K4, K5 and K6; the (W, K, H, D) one
 trains through :class:`FlashAttention` with a query mask and its own
@@ -40,32 +40,32 @@ The wrappers and training rules here call the kernels as ``torch.library``
 custom ops (:mod:`tpu3dssf_torch.kernels.ops`: ``tpu3dssf::packed_attention``
 and the rest), so a tracer (``torch.export``) sees each launch as one node.
 The dispatcher picks an op's kernel by device and nothing else: a CUDA
-tensor runs its CUDA kernel, which calls a launcher here (``_launch``,
-``_launch_lse``, ``_launch_bwd``, ``_launch_flash``, ``_launch_flash_bwd``)
-and adds one to the counter of the TPU kernel it serves, or raises; a CPU
-tensor takes the plain version. There is no fallback from one to the
-other.
+tensor runs its C++ kernel (``csrc/ops_cuda.cpp``), which checks the
+contract, launches and adds one to the counter of the TPU kernel it
+serves, or raises; a CPU tensor takes the plain version. There is no
+fallback from one to the other. The counters read as :data:`LAUNCHES`
+(K1), ``LSE_LAUNCHES`` (K2), ``BWD_LAUNCHES`` (K3), ``FLASH_LAUNCHES``
+(K8) and ``FLASH_BWD_LAUNCHES`` (K9) here
+(:mod:`tpu3dssf_torch.kernels.modules`).
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from tpu3dssf_torch.kernels import _build
+from tpu3dssf_torch.kernels import modules
 
-_SOURCE = "flash_attention_packed.cu"
 _BWD_SOURCE = "flash_attention_packed_bwd.cu"
 SUPPORTED_HEAD_DIMS = (16, 64)
 
-# kernel launches made in this process: K1, K2, K3, K8 and K9 (counted by
-# the ops of tpu3dssf_torch.kernels.ops)
-LAUNCHES = 0
-LSE_LAUNCHES = 0
-BWD_LAUNCHES = 0
-FLASH_LAUNCHES = 0
-FLASH_BWD_LAUNCHES = 0
+
+def __getattr__(name):
+    """The launch counters of K1, K2, K3, K8 and K9, by name."""
+    return modules.counter("flash_attention", name)
+
+
+def __dir__():
+    return sorted([*globals(), *modules.counter_names("flash_attention")])
 
 
 def pick_head_group(heads: int, channels: int):
@@ -406,18 +406,6 @@ def _check(qkv, heads):
         raise ValueError("flash_attention_packed: qkv must be contiguous")
 
 
-def _check_views(name, views, key_bias):
-    """The kernels' contract on (B, N, H, D) views of CUDA tensors; raises
-    on the first breach."""
-    q = views[0]
-    if q.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {q.device}")
-    check_layout(name, views, key_bias)
-    for x in views:
-        if x.data_ptr() % 16:
-            raise ValueError(_layout_error(name, x))
-
-
 def _layout_error(name, x):
     return (f"{name}: each head's D channels must be contiguous, with "
             f"16-byte-aligned rows and strides a multiple of 8, got strides "
@@ -425,8 +413,10 @@ def _layout_error(name, x):
 
 
 def check_layout(name, views, key_bias):
-    """The part of :func:`_check_views` that needs no data (dtypes, shapes,
-    strides, devices, D), which the ops' fake kernels check too."""
+    """The kernels' contract on (B, N, H, D) views that needs no data
+    (dtypes, shapes, strides, devices, D), which the ops' fake kernels
+    check; their CUDA kernels check it too, with the data pointers'
+    16-byte alignment."""
     q = views[0]
     for x in views:
         if x.dtype != torch.bfloat16:
@@ -453,7 +443,7 @@ def check_layout(name, views, key_bias):
 
 def check_rope(name, q, rope):
     """The RoPE branch's contract but for the tables' 16-byte alignment
-    (which the launcher adds): D = 64 (the D = 16 kernel has no RoPE
+    (which the CUDA kernel adds): D = 64 (the D = 16 kernel has no RoPE
     branch) and contiguous (N, D/2) f32 tables on q's card."""
     B, N, H, D = q.shape
     if D != 64:
@@ -483,103 +473,6 @@ def check_stats(name, q, lse, delta):
                 f"{tuple(x.shape)} on {x.device}")
 
 
-_PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_STRIDES = ctypes.POINTER(ctypes.c_longlong)
-
-
-def _bind(source, name, argtypes):
-    fn = getattr(_build.load_library(source), name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _lib_fwd():
-    return _bind(_SOURCE, "fa_forward_bf16",
-                 [_PTR] * 9 + [_STRIDES] + [_INT] * 4 + [_FLOAT, _PTR])
-
-
-def _lib_bwd():
-    return _bind(_BWD_SOURCE, "fa_backward_bf16",
-                 [_PTR] * 11 + [_STRIDES] + [_INT] * 4 + [_FLOAT, _PTR])
-
-
-def _strides(*views):
-    """(batch, token, head) strides of each view, as the C entry points'
-    int64 array."""
-    flat = [s for x in views for s in x.stride()[:3]]
-    return (ctypes.c_longlong * len(flat))(*flat)
-
-
-def _raise_if_failed(err, name, what, q):
-    if err != 0:
-        B, N, H, D = q.shape
-        raise RuntimeError(f"{name}: {what} kernel launch failed with "
-                           f"cudaError_t {err} (B={B}, N={N}, H={H}, D={D})")
-
-
-def _launch_flash(q, k, v, key_bias, q_scale, with_lse=False,
-                  name="flash_attention", rope=None):
-    """Launch the forward kernel on (B, N, H, D) views of q, k, v: out
-    (B, N, H, D) bf16, and with ``with_lse`` also lse (B, H, N) f32. It
-    serves K8, the window routes' K6 and K4, and the packed K1/K2; the op
-    that calls it counts it. ``rope`` (cos, sin), D = 64 only: the RoPE branch,
-    q·q_scale rotated in the kernel's Q pass and k rotated once by a
-    pre-kernel into a (B, N, H, D) bf16 scratch taken here, which the
-    attention kernel then reads in place of k (two device kernels)."""
-    _check_views(name, (q, k, v), key_bias)
-    B, N, H, D = q.shape
-    if rope is not None:
-        check_rope(name, q, rope)
-        for x in rope:
-            if x.data_ptr() % 16:
-                raise ValueError(_rope_error(name, q, x))
-    out = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
-    lse = (torch.empty((B, H, N), dtype=torch.float32, device=q.device)
-           if with_lse else None)
-    k_rot = torch.empty_like(out) if rope is not None else None
-    fn = _lib_fwd()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 key_bias.data_ptr(), out.data_ptr(),
-                 None if lse is None else lse.data_ptr(),
-                 *((None,) * 3 if rope is None else
-                   (rope[0].data_ptr(), rope[1].data_ptr(), k_rot.data_ptr())),
-                 _strides(q, k, v, out), B, N, H, D, float(q_scale), stream)
-    _raise_if_failed(err, name, "forward-with-LSE" if with_lse else "forward",
-                     q)
-    return (out, lse) if with_lse else out
-
-
-def _launch_flash_bwd(q, k, v, key_bias, dout, lse, delta, q_scale,
-                      out=None, name="flash_attention"):
-    """Launch the backward kernel on (B, N, H, D) views: (dq, dk, dv),
-    written into ``out`` (three views) when given, else into new (B, N, H,
-    D) tensors. It serves K9, the window route's K5 and the packed K3; the
-    op that calls it counts it. The scratch for dq is
-    :func:`dq_scratch`'s."""
-    _check_views(name, (q, k, v, dout), key_bias)
-    check_stats(name, q, lse, delta)
-    if out is None:
-        out = tuple(torch.empty_like(q, memory_format=torch.contiguous_format)
-                    for _ in range(3))
-    _check_views(name, out, key_bias)
-    B, N, H, D = q.shape
-    scratch = dq_scratch(B, N, H, D, q.device)
-    fn = _lib_bwd()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-                 key_bias.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                 *(x.data_ptr() for x in out),
-                 None if scratch is None else scratch.data_ptr(),
-                 _strides(q, k, v, dout, *out), B, N, H, D, float(q_scale),
-                 stream)
-    _raise_if_failed(err, name, "backward", q)
-    return out
-
-
 # keys per CTA of the D = 16 one-pass backward (``kBlockKeys`` in
 # csrc/flash_attention_packed_bwd.cu, ``fa_backward_d16_block_keys()``) and
 # the largest N that its one-warp-per-(row, head) kernel takes
@@ -594,62 +487,8 @@ def d16_key_blocks(N):
     return -(-N // D16_BWD_KEYS) if N > D16_SMALL_N else 1
 
 
-def dq_scratch(B, N, H, D, device):
-    """The backward kernel's f32 scratch for dq, or None. At D = 64 the
-    one-pass kernel sums dq over its key tiles by atomics into a zeroed
-    (B, H, N rounded up to 64, 64) tensor; at D = 16, with two or more key
-    blocks, each block writes its partial into (B, H, blocks, N, 16), which
-    a second kernel adds up in block order: no zero fill, and no atomics, so
-    dq is the same bits on every launch."""
-    if D == 64:
-        return torch.zeros((B, H, -(-N // 64) * 64, 64), dtype=torch.float32,
-                           device=device)
-    blocks = d16_key_blocks(N)
-    if blocks == 1:
-        return None
-    return torch.empty((B, H, blocks, N, 16), dtype=torch.float32,
-                       device=device)
-
-
-def _scale(q_scale):
-    return 1.0 if q_scale is None else float(q_scale)
-
-
 def rope_pair(rope_cos, rope_sin):
     if (rope_cos is None) != (rope_sin is None):
         raise ValueError("flash_attention_packed: pass both rope_cos and "
                          "rope_sin, or neither")
     return None if rope_cos is None else (rope_cos, rope_sin)
-
-
-def _launch(qkv, key_bias, heads, q_scale, rope_cos=None, rope_sin=None):
-    """Launch K1 (with tables: its RoPE branch) on the packed layout; the
-    op counts it."""
-    _check(qkv, heads)
-    out = _launch_flash(*_split_heads(qkv, heads), key_bias, _scale(q_scale),
-                        name="flash_attention_packed",
-                        rope=rope_pair(rope_cos, rope_sin))
-    return out.flatten(2)
-
-
-def _launch_lse(qkv, key_bias, heads, q_scale, rope_cos=None, rope_sin=None):
-    """Launch the forward-with-LSE kernel on the packed layout: K2/K4, or
-    with tables K1's RoPE branch; the op counts it."""
-    _check(qkv, heads)
-    out, lse = _launch_flash(*_split_heads(qkv, heads), key_bias,
-                             _scale(q_scale), with_lse=True,
-                             name="flash_attention_packed",
-                             rope=rope_pair(rope_cos, rope_sin))
-    return out.flatten(2), lse
-
-
-def _launch_bwd(qkv, key_bias, dout, lse, delta, heads, q_scale):
-    """Launch the backward kernel (K3/K5) on the packed layout, into one
-    packed dqkv (B, N, 3C); the op counts it."""
-    _check(qkv, heads)
-    dqkv = torch.empty_like(qkv)
-    _launch_flash_bwd(*_split_heads(qkv, heads), key_bias,
-                      dout.contiguous().unflatten(-1, (heads, -1)), lse,
-                      delta, _scale(q_scale), out=_split_heads(dqkv, heads),
-                      name="flash_attention_packed")
-    return dqkv

@@ -1,7 +1,8 @@
 """k nearest neighbours by squared L2 distance: the CUDA kernel K7.
 
 Port of ``tpu3dssf.kernels.knn.knn_pallas`` (TPU kernel ``_knn_kernel``,
-knn.py:40): ``knn_f32`` in ``csrc/knn.cu``, launched by :func:`_launch`.
+knn.py:40): ``knn_f32`` in ``csrc/knn.cu``, launched by the C++ kernel of
+the op ``tpu3dssf::knn`` (``csrc/ops_cuda.cpp``).
 It takes a whole batch in one call, any Q and R, and k ≤ 8. A call is two
 or three device kernels: the refs packed once; the scan, whose blocks take
 equal runs of the call's (query unit, ref tile) pairs, so that a unit's
@@ -9,54 +10,41 @@ refs may be cut into segments, each giving the unit's queries their own
 top-k (:func:`plan`); and, where a unit is cut, the merge of those lists.
 The plain version of the whole is :func:`topk_neighbors_reference`. The
 op ``tpu3dssf::knn`` (:mod:`tpu3dssf_torch.kernels.ops`) dispatches by
-device: a CUDA tensor launches the kernel and counts it in
-:data:`LAUNCHES`, a CPU tensor takes the plain version. The kernel and the
+device: a CUDA tensor launches the kernel and counts it as K7 (read as
+``LAUNCHES`` here), a CPU tensor takes the plain version. The kernel and the
 plain version round the same f32 operations in the same order and are
 bit-identical on the card.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from tpu3dssf_torch.kernels import _build
+from tpu3dssf_torch.kernels import modules
 
-_SOURCE = "knn.cu"
 MAX_K = 8
 # distance of a masked ref and of an unfilled slot (the kernel's kBad)
 BAD_DIST = 1e30
 
-# kernel launches made in this process (counted by the op tpu3dssf::knn)
-LAUNCHES = 0
 
-_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+def __getattr__(name):
+    """K7's launch counter, ``LAUNCHES``."""
+    return modules.counter("knn", name)
 
 
-def _lib():
-    lib = _build.load_library(_SOURCE)
-    lib.knn_f32.argtypes = [_PTR] * 9 + [_INT] * 5 + [ctypes.c_longlong,
-                                                      _PTR]
-    lib.knn_f32.restype = ctypes.c_int
-    lib.knn_plan.argtypes = [_INT] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
-    lib.knn_plan.restype = ctypes.c_int
-    return lib
+def __dir__():
+    return sorted([*globals(), *modules.counter_names("knn")])
 
 
 def plan(B, Q, R, k):
-    """``knn_plan`` of ``csrc/knn.cu`` on the current device: (the scan's
-    blocks, the most segments a unit of queries is cut into, entries of
-    each partial list, bytes of the pack kernel's flags); a merge kernel
-    runs where the second is above 1. ``knn_f32`` takes the blocks and
-    the entries, and refuses entries that are not its own plan's for
-    those blocks."""
-    out = (ctypes.c_longlong * 4)()
-    err = _lib().knn_plan(B, Q, R, k, out)
-    if err != 0:
-        raise RuntimeError(f"knn: knn_plan failed with cudaError_t {err} "
-                           f"(B={B}, Q={Q}, R={R}, k={k})")
-    return tuple(out)
+    """``knn_plan`` of ``csrc/knn.cu`` on the current device (the op
+    ``tpu3dssf_cuda::knn_plan`` of the CUDA library): (the scan's blocks,
+    the most segments a unit of queries is cut into, entries of each
+    partial list, bytes of the pack kernel's flags); a merge kernel runs
+    where the second is above 1. ``knn_f32`` takes the blocks and the
+    entries, and refuses entries that are not its own plan's for those
+    blocks."""
+    return tuple(torch.ops.tpu3dssf_cuda.knn_plan(B, Q, R, k))
 
 
 def _check(queries, refs, ref_mask, k):
@@ -106,38 +94,6 @@ def knn(queries, refs, ref_mask, k):
     """
     _check(queries, refs, ref_mask, k)
     return torch.ops.tpu3dssf.knn(queries, refs, ref_mask, k)
-
-
-def _launch(queries, refs, ref_mask, k):
-    """Launch K7 (:func:`knn`'s contract); the op counts it."""
-    _check(queries, refs, ref_mask, k)
-    queries, refs = queries.contiguous(), refs.contiguous()
-    mask = ref_mask.contiguous().view(torch.uint8)
-    B, Q, _ = queries.shape
-    R = refs.shape[1]
-    dev = queries.device
-    lib = _lib()
-    with torch.cuda.device(dev):
-        blocks, segs, part, nflags = plan(B, Q, R, k)
-        dist = torch.empty((B, Q, k), dtype=torch.float32, device=dev)
-        idx = torch.empty((B, Q, k), dtype=torch.int32, device=dev)
-        # scratch: the packed refs, the pack kernel's flags, the partial
-        # lists
-        packed = torch.empty((B, R, 4), dtype=torch.float32, device=dev)
-        flags = torch.empty(nflags, dtype=torch.uint8, device=dev)
-        part_d = torch.empty(part, dtype=torch.float32, device=dev)
-        part_i = torch.empty(part, dtype=torch.int32, device=dev)
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.knn_f32(
-            queries.data_ptr(), refs.data_ptr(), mask.data_ptr(),
-            dist.data_ptr(), idx.data_ptr(), packed.data_ptr(),
-            flags.data_ptr(), part_d.data_ptr(), part_i.data_ptr(), B, Q, R,
-            k, blocks, part, stream)
-    if err != 0:
-        raise RuntimeError(f"knn: kernel launch failed with cudaError_t "
-                           f"{err} (B={B}, Q={Q}, R={R}, k={k}, {segs} "
-                           f"segments a unit at most)")
-    return dist, idx
 
 
 def topk_neighbors_reference(queries, refs, ref_mask, k, chunk=1 << 24):

@@ -4,8 +4,8 @@ The package exports the functions ``flash_attention`` and
 ``window_attention``, as ``tpu3dssf.kernels`` does, and those names shadow
 the submodules they come from: ``from tpu3dssf_torch.kernels import
 flash_attention`` and ``import tpu3dssf_torch.kernels.flash_attention as
-fa`` both give the function. Reach a module (its launch counters, its
-launchers) through this one::
+fa`` both give the function. Reach a module (its launch counters) through this
+one::
 
     from tpu3dssf_torch.kernels.modules import flash_attention as fa
     fa.LAUNCHES
@@ -14,16 +14,22 @@ Each name is looked up when it is first asked for, so the kernel modules
 may use this one too.
 
 :data:`COUNTERS` is the one list of the launch counters, by the TPU kernel
-each counts (K1–K9): :func:`count` adds a launch (the ops of
-:mod:`tpu3dssf_torch.kernels.ops` call it), :func:`launch_counts` reads
-them and :func:`set_launch_counts` writes them (the CUDA-graph wrapper of
-:mod:`tpu3dssf_torch.train.graph` puts them back after a capture and adds a
-capture's counts on every replay).
+each counts (K1–K9), with the name each kernel module gives its counter
+(``fa.LAUNCHES`` reads K1). The counts live in the CUDA library
+(``csrc/ops_cuda.cpp``), whose ops' CUDA kernels add a launch where they
+launch, wherever that library is loaded (``ops`` loads it at import where
+a card is present); elsewhere, where nothing launches, they are Python
+integers here. :func:`launch_counts` reads them, :func:`set_launch_counts`
+writes them (the CUDA-graph wrapper of :mod:`tpu3dssf_torch.train.graph`
+puts them back after a capture and adds a capture's counts on every
+replay).
 """
 
 from __future__ import annotations
 
 import importlib
+
+import torch
 
 _MODULES = ("flash_attention", "window_attention", "knn")
 __all__ = list(_MODULES)
@@ -48,23 +54,45 @@ def __getattr__(name):
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
+# the counts where the CUDA library is not loaded
+_COUNTS = dict.fromkeys(COUNTERS, 0)
+
+
+def _in_cuda_library() -> bool:
+    from tpu3dssf_torch.kernels import _build
+    return _build.cuda_library_loaded()
+
+
 def launch_counts() -> dict:
     """{"K1": launches, ..., "K9": launches} made in this process."""
-    return {k: getattr(__getattr__(m), name)
-            for k, (m, name) in COUNTERS.items()}
-
-
-def count(kernel: str):
-    """Add one launch to the counter of ``kernel`` ("K1" ... "K9"): the
-    ops of :mod:`tpu3dssf_torch.kernels.ops` call it where their CUDA
-    kernels launch."""
-    m, name = COUNTERS[kernel]
-    module = __getattr__(m)
-    setattr(module, name, getattr(module, name) + 1)
+    if _in_cuda_library():
+        return dict(zip(COUNTERS, torch.ops.tpu3dssf_cuda.launch_counts()))
+    return dict(_COUNTS)
 
 
 def set_launch_counts(counts: dict):
     """Set the counters named in ``counts`` ({"K1": n, ...})."""
+    now = launch_counts()
     for k, n in counts.items():
-        m, name = COUNTERS[k]
-        setattr(__getattr__(m), name, n)
+        if k not in COUNTERS:
+            raise KeyError(k)
+        now[k] = int(n)
+    if _in_cuda_library():
+        torch.ops.tpu3dssf_cuda.set_launch_counts([now[k] for k in COUNTERS])
+    else:
+        _COUNTS.update(now)
+
+
+def counter(module: str, name: str) -> int:
+    """The count that kernel module ``module`` calls ``name`` (its
+    ``__getattr__``: ``fa.LAUNCHES`` is K1's)."""
+    for k, where in COUNTERS.items():
+        if where == (module, name):
+            return launch_counts()[k]
+    raise AttributeError(f"module 'tpu3dssf_torch.kernels.{module}' has no "
+                         f"attribute {name!r}")
+
+
+def counter_names(module: str) -> list:
+    """The counters' names in kernel module ``module``."""
+    return [name for m, name in COUNTERS.values() if m == module]

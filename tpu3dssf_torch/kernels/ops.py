@@ -1,35 +1,41 @@
-"""The port's CUDA kernels as ``torch.library`` custom ops: ``tpu3dssf::*``.
+"""The port's CUDA kernels as PyTorch operators: ``tpu3dssf::*``.
 
-Seven ops carry the nine TPU kernels (K1–K9). Where two TPU kernels share
-a launcher, the op takes the one it counts as its ``kernel`` argument
-(op: launcher, TPU kernels):
+Seven operators carry the nine TPU kernels (K1–K9). Where two TPU kernels
+share an operator, it takes the one it counts as its ``kernel`` argument
+(operator: TPU kernels):
 
-* ``tpu3dssf::packed_attention``: ``flash_attention._launch``, K1;
-* ``tpu3dssf::packed_attention_lse``: ``_launch_lse``, K1 (its RoPE
-  branch), K2 or K4;
-* ``tpu3dssf::packed_attention_bwd``: ``_launch_bwd``, K3 or K5;
-* ``tpu3dssf::attention``: ``_launch_flash``, K6 or K8;
-* ``tpu3dssf::attention_lse``: ``_launch_flash(with_lse=True)``, K4 or K8;
-* ``tpu3dssf::attention_bwd``: ``_launch_flash_bwd``, K5 or K9;
-* ``tpu3dssf::knn``: ``knn._launch``, K7.
+* ``tpu3dssf::packed_attention``: K1 (with tables its RoPE branch);
+* ``tpu3dssf::packed_attention_lse``: K1 (its RoPE branch), K2 or K4;
+* ``tpu3dssf::packed_attention_bwd``: K3 or K5;
+* ``tpu3dssf::attention``: K6 or K8;
+* ``tpu3dssf::attention_lse``: K4 or K8;
+* ``tpu3dssf::attention_bwd``: K5 or K9;
+* ``tpu3dssf::knn``: K7.
 
-Each op has three kernels, and the dispatcher picks one by the device of
-its tensors:
+They are defined once, in C++ (``csrc/ops_schema.cpp``, built with the host
+compiler and loaded here before anything is registered on them). Each has
+three kernels, and the dispatcher picks one by the device of its tensors:
 
-* CUDA: the launcher (a ctypes call into the library that nvcc builds from
-  ``csrc/`` at first use), then one step to the launch counter of the TPU
-  kernel it serves (:func:`tpu3dssf_torch.kernels.modules.count`). The
-  count is made here, so a program that ``torch.export`` saved and
-  :func:`tpu3dssf_torch.export.load_exported` loaded counts its launches
-  as eager code does. The launchers check the kernels' contract, data
-  pointers' alignment included, and raise on a breach or a failed build or
-  launch; nothing falls back to the plain version.
-* CPU: the plain PyTorch version (the wrappers' CPU results are its
-  results bit for bit); outputs are made contiguous, the layout the CUDA
-  kernels give.
-* fake (``register_fake``): shapes, dtypes and devices only, for tracers.
-  On a CUDA tensor it raises what the launcher's data-free checks raise
-  (dtype, shapes, strides, D ∈ {16, 64}, tables at D = 64 only).
+* CUDA: C++ (``csrc/ops_cuda.cpp``, ``TORCH_LIBRARY_IMPL(tpu3dssf, CUDA,
+  ...)``, in the library that nvcc and the host compiler build with the
+  Hopper kernels; loaded here at import where a card is present). It
+  checks the kernel's contract, data pointers' alignment included, and
+  raises a ``RuntimeError`` on a breach; it takes outputs and scratch from
+  PyTorch's allocator, launches on PyTorch's current stream, raises where
+  the launch fails, and then adds one to the C++ counter of the TPU kernel
+  it served (:mod:`tpu3dssf_torch.kernels.modules` reads them). So a
+  program that ``torch.export`` saved, or an AOTInductor package, counts
+  its launches as eager code does, in a Python process or in one without
+  Python (``csrc/aoti_runner.cpp``). Where the CUDA library fails to build,
+  every CUDA kernel raises that failure: nothing falls back to the plain
+  version.
+* CPU (registered here): the plain PyTorch version (the wrappers' CPU
+  results are its results bit for bit); outputs are made contiguous, the
+  layout the CUDA kernels give.
+* fake (``register_fake``, here): shapes, dtypes and devices only, for
+  tracers. On a CUDA tensor it raises what the C++ kernel's data-free
+  checks raise (dtype, shapes, strides, D ∈ {16, 64}, tables at D = 64
+  only), as the wrappers' Python checks word them.
 
 Outputs never alias inputs. Importing :mod:`tpu3dssf_torch.kernels`
 registers every op; that, and ``torch``, is all a loaded artifact needs.
@@ -40,15 +46,14 @@ ops.
 
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
-from torch import Tensor
 
-from tpu3dssf_torch.kernels import modules
+from tpu3dssf_torch.kernels import _build
 from tpu3dssf_torch.kernels.modules import flash_attention as fa
 from tpu3dssf_torch.kernels.modules import knn as knn_module
 from tpu3dssf_torch.kernels.modules import window_attention as wa
+
+_build.load_schema_library()   # the ops' schemas, before any kernel
 
 # op -> the TPU kernels it may count as
 KERNELS = {
@@ -60,7 +65,7 @@ KERNELS = {
     "attention_bwd": ("K5", "K9"),
     "knn": ("K7",),
 }
-# the wrapper each (B, N, H, D) kernel serves, as the launchers name it in
+# the wrapper each (B, N, H, D) kernel serves, as the checks name it in
 # their errors
 _CALLER = {"K4": "window_attention", "K5": "window_attention",
            "K6": "window_attention", "K8": "flash_attention",
@@ -80,7 +85,7 @@ def _on_cuda(x):
 
 def _contiguous(x):
     """A contiguous stand-in for ``x`` in a fake kernel, which checks the
-    layout the launcher hands the kernel after its ``.contiguous()``."""
+    layout the C++ kernel hands the kernel after its ``.contiguous()``."""
     return x.new_empty(x.shape)
 
 
@@ -91,24 +96,14 @@ def _heads_last(qkv, heads):
 
 # --- K1: the packed inference forward -------------------------------------
 
-@torch.library.custom_op("tpu3dssf::packed_attention", mutates_args=(),
-                         device_types="cpu")
-def packed_attention(qkv: Tensor, key_bias: Tensor, heads: int,
-                     q_scale: Optional[float], rope_cos: Optional[Tensor],
-                     rope_sin: Optional[Tensor]) -> Tensor:
+@torch.library.impl("tpu3dssf::packed_attention", "cpu")
+def packed_attention(qkv, key_bias, heads, q_scale, rope_cos, rope_sin):
     """MHA off the (B, N, 3C) projection → (B, N, C) in qkv's dtype: K1
     (with tables its RoPE branch); see
     :func:`~tpu3dssf_torch.kernels.flash_attention.flash_attention_packed`.
     """
     return fa.flash_attention_packed_reference(
         qkv, key_bias, heads, q_scale, rope_cos, rope_sin).contiguous()
-
-
-@packed_attention.register_kernel("cuda")
-def _(qkv, key_bias, heads, q_scale, rope_cos, rope_sin):
-    out = fa._launch(qkv, key_bias, heads, q_scale, rope_cos, rope_sin)
-    modules.count("K1")
-    return out
 
 
 def _packed_fake_check(qkv, key_bias, heads, rope_cos, rope_sin):
@@ -123,7 +118,7 @@ def _packed_fake_check(qkv, key_bias, heads, rope_cos, rope_sin):
         fa.check_rope(_PACKED, views[0], rope)
 
 
-@packed_attention.register_fake
+@torch.library.register_fake("tpu3dssf::packed_attention")
 def _(qkv, key_bias, heads, q_scale, rope_cos, rope_sin):
     _packed_fake_check(qkv, key_bias, heads, rope_cos, rope_sin)
     B, N, C, _ = _heads_last(qkv, heads)
@@ -139,13 +134,9 @@ def _lse_kernel(kernel, rope_cos):
                          "branch (tables given); K2 and K4 take no tables")
 
 
-@torch.library.custom_op("tpu3dssf::packed_attention_lse", mutates_args=(),
-                         device_types="cpu")
-def packed_attention_lse(qkv: Tensor, key_bias: Tensor, heads: int,
-                         q_scale: Optional[float],
-                         rope_cos: Optional[Tensor],
-                         rope_sin: Optional[Tensor],
-                         kernel: str) -> tuple[Tensor, Tensor]:
+@torch.library.impl("tpu3dssf::packed_attention_lse", "cpu")
+def packed_attention_lse(qkv, key_bias, heads, q_scale, rope_cos, rope_sin,
+                         kernel):
     """:func:`packed_attention` with its LSE: (out (B, N, C), lse (B, H, N)
     f32), the training forward; ``kernel`` K2 (C ≥ 128), K4 (the window
     route's C ∈ {32, 64}) or, with tables, K1."""
@@ -155,16 +146,7 @@ def packed_attention_lse(qkv: Tensor, key_bias: Tensor, heads: int,
     return out.contiguous(), lse.contiguous()
 
 
-@packed_attention_lse.register_kernel("cuda")
-def _(qkv, key_bias, heads, q_scale, rope_cos, rope_sin, kernel):
-    _lse_kernel(kernel, rope_cos)
-    out, lse = fa._launch_lse(qkv, key_bias, heads, q_scale, rope_cos,
-                              rope_sin)
-    modules.count(kernel)
-    return out, lse
-
-
-@packed_attention_lse.register_fake
+@torch.library.register_fake("tpu3dssf::packed_attention_lse")
 def _(qkv, key_bias, heads, q_scale, rope_cos, rope_sin, kernel):
     _lse_kernel(kernel, rope_cos)
     _packed_fake_check(qkv, key_bias, heads, rope_cos, rope_sin)
@@ -175,11 +157,9 @@ def _(qkv, key_bias, heads, q_scale, rope_cos, rope_sin, kernel):
 
 # --- K3, K5: the packed backward -------------------------------------------
 
-@torch.library.custom_op("tpu3dssf::packed_attention_bwd", mutates_args=(),
-                         device_types="cpu")
-def packed_attention_bwd(qkv: Tensor, key_bias: Tensor, dout: Tensor,
-                         lse: Tensor, delta: Tensor, heads: int,
-                         q_scale: Optional[float], kernel: str) -> Tensor:
+@torch.library.impl("tpu3dssf::packed_attention_bwd", "cpu")
+def packed_attention_bwd(qkv, key_bias, dout, lse, delta, heads, q_scale,
+                         kernel):
     """The stats-fed backward on the packed layout: dout (B, N, C), the
     forward's lse and delta = rowsum(dout·out) (B, H, N) f32 → dqkv
     (B, N, 3C) in qkv's dtype; ``kernel`` K3 or K5."""
@@ -188,15 +168,7 @@ def packed_attention_bwd(qkv: Tensor, key_bias: Tensor, dout: Tensor,
         qkv, key_bias, dout, lse, delta, heads, q_scale).contiguous()
 
 
-@packed_attention_bwd.register_kernel("cuda")
-def _(qkv, key_bias, dout, lse, delta, heads, q_scale, kernel):
-    _kernel("packed_attention_bwd", kernel)
-    dqkv = fa._launch_bwd(qkv, key_bias, dout, lse, delta, heads, q_scale)
-    modules.count(kernel)
-    return dqkv
-
-
-@packed_attention_bwd.register_fake
+@torch.library.register_fake("tpu3dssf::packed_attention_bwd")
 def _(qkv, key_bias, dout, lse, delta, heads, q_scale, kernel):
     _kernel("packed_attention_bwd", kernel)
     if _on_cuda(qkv):
@@ -219,10 +191,8 @@ def _attention_kernel(kernel, key_mask):
                          "the key mask, K8 none")
 
 
-@torch.library.custom_op("tpu3dssf::attention", mutates_args=(),
-                         device_types="cpu")
-def attention(q: Tensor, k: Tensor, v: Tensor, key_bias: Tensor,
-              key_mask: Optional[Tensor], kernel: str) -> Tensor:
+@torch.library.impl("tpu3dssf::attention", "cpu")
+def attention(q, k, v, key_bias, key_mask, kernel):
     """MHA on (B, N, H, D) q, k, v with the additive (B, 1, N) ``key_bias``
     and softmax scale 1/√D → (B, N, H, D) in q's dtype. ``kernel`` K8
     (:func:`~tpu3dssf_torch.kernels.flash_attention.flash_attention`), or
@@ -237,18 +207,7 @@ def attention(q: Tensor, k: Tensor, v: Tensor, key_bias: Tensor,
     return out.contiguous()
 
 
-@attention.register_kernel("cuda")
-def _(q, k, v, key_bias, key_mask, kernel):
-    _attention_kernel(kernel, key_mask)
-    out = fa._launch_flash(q, k, v, key_bias, fa._softmax_scale(q),
-                           name=_CALLER[kernel])
-    modules.count(kernel)
-    if key_mask is not None:
-        out = out * wa._query_mask(key_mask, out)
-    return out
-
-
-@attention.register_fake
+@torch.library.register_fake("tpu3dssf::attention")
 def _(q, k, v, key_bias, key_mask, kernel):
     _attention_kernel(kernel, key_mask)
     if _on_cuda(q):
@@ -258,10 +217,8 @@ def _(q, k, v, key_bias, key_mask, kernel):
 
 # --- K4, K8: the (B, N, H, D) forward with its LSE (training) --------------
 
-@torch.library.custom_op("tpu3dssf::attention_lse", mutates_args=(),
-                         device_types="cpu")
-def attention_lse(q: Tensor, k: Tensor, v: Tensor, key_bias: Tensor,
-                  q_scale: float, kernel: str) -> tuple[Tensor, Tensor]:
+@torch.library.impl("tpu3dssf::attention_lse", "cpu")
+def attention_lse(q, k, v, key_bias, q_scale, kernel):
     """The training forward on (B, N, H, D): (out in q's dtype, lse
     (B, H, N) f32), q scaled by ``q_scale``; ``kernel`` K8 or K4."""
     _kernel("attention_lse", kernel)
@@ -269,16 +226,7 @@ def attention_lse(q: Tensor, k: Tensor, v: Tensor, key_bias: Tensor,
     return out.contiguous(), lse.contiguous()
 
 
-@attention_lse.register_kernel("cuda")
-def _(q, k, v, key_bias, q_scale, kernel):
-    _kernel("attention_lse", kernel)
-    out, lse = fa._launch_flash(q, k, v, key_bias, q_scale, with_lse=True,
-                                name=_CALLER[kernel])
-    modules.count(kernel)
-    return out, lse
-
-
-@attention_lse.register_fake
+@torch.library.register_fake("tpu3dssf::attention_lse")
 def _(q, k, v, key_bias, q_scale, kernel):
     _kernel("attention_lse", kernel)
     if _on_cuda(q):
@@ -289,11 +237,8 @@ def _(q, k, v, key_bias, q_scale, kernel):
 
 # --- K5, K9: the (B, N, H, D) backward -------------------------------------
 
-@torch.library.custom_op("tpu3dssf::attention_bwd", mutates_args=(),
-                         device_types="cpu")
-def attention_bwd(q: Tensor, k: Tensor, v: Tensor, key_bias: Tensor,
-                  dout: Tensor, lse: Tensor, delta: Tensor, q_scale: float,
-                  kernel: str) -> tuple[Tensor, Tensor, Tensor]:
+@torch.library.impl("tpu3dssf::attention_bwd", "cpu")
+def attention_bwd(q, k, v, key_bias, dout, lse, delta, q_scale, kernel):
     """The stats-fed backward on (B, N, H, D): (dq, dk, dv) in q's dtype;
     ``kernel`` K9 or K5."""
     _kernel("attention_bwd", kernel)
@@ -301,16 +246,7 @@ def attention_bwd(q: Tensor, k: Tensor, v: Tensor, key_bias: Tensor,
         q, k, v, key_bias, dout, lse, delta, q_scale))
 
 
-@attention_bwd.register_kernel("cuda")
-def _(q, k, v, key_bias, dout, lse, delta, q_scale, kernel):
-    _kernel("attention_bwd", kernel)
-    grads = fa._launch_flash_bwd(q, k, v, key_bias, dout.contiguous(), lse,
-                                 delta, q_scale, name=_CALLER[kernel])
-    modules.count(kernel)
-    return tuple(grads)
-
-
-@attention_bwd.register_fake
+@torch.library.register_fake("tpu3dssf::attention_bwd")
 def _(q, k, v, key_bias, dout, lse, delta, q_scale, kernel):
     _kernel("attention_bwd", kernel)
     if _on_cuda(q):
@@ -322,10 +258,8 @@ def _(q, k, v, key_bias, dout, lse, delta, q_scale, kernel):
 
 # --- K7: k nearest neighbours ----------------------------------------------
 
-@torch.library.custom_op("tpu3dssf::knn", mutates_args=(),
-                         device_types="cpu")
-def knn(queries: Tensor, refs: Tensor, ref_mask: Tensor,
-        k: int) -> tuple[Tensor, Tensor]:
+@torch.library.impl("tpu3dssf::knn", "cpu")
+def knn(queries, refs, ref_mask, k):
     """The k nearest valid refs of each query: (distances (B, Q, k) f32,
     indices (B, Q, k) int32); see
     :func:`~tpu3dssf_torch.kernels.knn.knn`."""
@@ -334,17 +268,32 @@ def knn(queries: Tensor, refs: Tensor, ref_mask: Tensor,
     return dist.contiguous(), idx.contiguous()
 
 
-@knn.register_kernel("cuda")
-def _(queries, refs, ref_mask, k):
-    out = knn_module._launch(queries, refs, ref_mask, k)
-    modules.count("K7")
-    return out
-
-
-@knn.register_fake
+@torch.library.register_fake("tpu3dssf::knn")
 def _(queries, refs, ref_mask, k):
     if _on_cuda(queries):
         knn_module.check_layout(queries, refs, ref_mask, k)
     B, Q, _ = queries.shape
     return (queries.new_empty((B, Q, k), dtype=torch.float32),
             queries.new_empty((B, Q, k), dtype=torch.int32))
+
+
+def _cuda_library():
+    """Where a card is present: build (once per machine) and load the CUDA
+    library, whose ``TORCH_LIBRARY_IMPL`` registers the CUDA kernels. If
+    that fails, each op's CUDA kernel raises the failure."""
+    if not torch.cuda.is_available():
+        return
+    try:
+        _build.load_cuda_library()
+    except Exception as e:  # noqa: BLE001  (raised by every CUDA call)
+        cause = e
+
+        def failed(*args):
+            raise RuntimeError(f"the tpu3dssf CUDA library did not build "
+                               f"or load: {cause}") from cause
+
+        for name in KERNELS:
+            torch.library.impl(f"tpu3dssf::{name}", "cuda")(failed)
+
+
+_cuda_library()

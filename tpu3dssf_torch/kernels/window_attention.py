@@ -31,15 +31,21 @@ from __future__ import annotations
 
 import torch
 
+from tpu3dssf_torch.kernels import modules
 from tpu3dssf_torch.kernels.modules import flash_attention as fa
 
 _NEG = -1e9
 
-# kernel launches made in this process: K6 by window_attention, and K4 and
-# K5 by the training rules of both window routes (counted by the ops)
-LAUNCHES = 0
-LSE_LAUNCHES = 0
-BWD_LAUNCHES = 0
+
+def __getattr__(name):
+    """The launch counters: ``LAUNCHES`` (K6, by window_attention),
+    ``LSE_LAUNCHES`` and ``BWD_LAUNCHES`` (K4 and K5, by the training rules
+    of both window routes)."""
+    return modules.counter("window_attention", name)
+
+
+def __dir__():
+    return sorted([*globals(), *modules.counter_names("window_attention")])
 
 
 def window_attention_reference(q, k, v, key_mask):

@@ -33,8 +33,8 @@ runs on the host after every call, on those arguments: the host halves
 of a step, which a graph cannot replay (a train step's update count).
 
 The kernels' launch counters (:data:`tpu3dssf_torch.kernels.modules.
-COUNTERS`) are Python integers, which a capture raises though nothing runs
-then. The wrapper puts them back after a capture and adds the capture's
+COUNTERS`, kept by the ops' C++ kernels) are host integers, which a capture
+raises though nothing runs then. The wrapper puts them back after a capture and adds the capture's
 counts on every replay, so they go on counting the kernel launches made in
 this process. :data:`CAPTURES` and :data:`REPLAYS` count the graphs
 captured and replayed in this process, so a caller can tell that a path
