@@ -47,7 +47,9 @@ from tpu3dssf.models import ptv3 as jptv3
 from tpu3dssf.models import vit as jvit
 from tpu3dssf.train import loop as jloop
 from tpu3dssf.train import state as jstate
+from __graft_entry__ import _flagship
 from tpu3dssf_torch import convert
+from tpu3dssf_torch.cli import multichip
 from tpu3dssf_torch.cli.main_infer import pad_to
 from tpu3dssf_torch.losses import CELSLoss
 from tpu3dssf_torch.models import lidar_only, vit
@@ -162,6 +164,15 @@ def _inputs(rng, tmp):
     block_params = jax.jit(_sp_block().init)(jax.random.key(1), x, None,
                                              None, mask)
 
+    # dryrun_multichip's flagship at cli/multichip.py's tiny sizes: its
+    # inputs drawn for the global batch of the grad_accum phase
+    mc = multichip.TINY
+    mc_model, mc_cfg, mc_in = _flagship(
+        point_cap=mc["point_cap"], voxel_cap=mc["voxel_cap"],
+        window=mc["window"], batch=4, tok_dim=mc["tok_dim"], small=True,
+        use_pallas=False)
+    mc_params = jax.jit(mc_model.init)(jax.random.PRNGKey(0), *mc_in)
+
     mesh_cfg = _tiny_lidar_config(pathlib.Path(tmp))
     raw = yaml.safe_load(open(mesh_cfg))
     raw["tpu_params"].update(mesh_shape=[2], synthetic_samples=12)
@@ -187,11 +198,14 @@ def _inputs(rng, tmp):
         sp_cpe_state=convert.state_dict_from_flax(to_numpy_tree(cpe_params)),
         sp_block_state=convert.state_dict_from_flax(
             to_numpy_tree(block_params)),
+        mc_state=convert.pipeline_state_dict_from_flax(
+            to_numpy_tree(mc_params)),
         mesh_config=mesh_cfg)
     torch.save(port, os.path.join(tmp, "inputs.pt"))
     jax_side = dict(pcfg=pcfg, jmodel=jmodel, lidar_params=lidar_params,
                     vcfg=vcfg, vit_params=vit_params, cpe_params=cpe_params,
-                    block_params=block_params, one_config=one_cfg)
+                    block_params=block_params, one_config=one_cfg,
+                    mc_model=mc_model, mc_params=mc_params, mc_in=mc_in)
     return port, jax_side
 
 
@@ -310,6 +324,26 @@ def _references(port, j):
         return out, vjp(jnp.ones_like(out))[0]
 
     refs["block"], refs["block_grad"] = map(np.asarray, block_and_grad(x))
+
+    # dryrun_multichip's flagship DP train step on the 2-device data mesh,
+    # on the first 2 scenes of cli/multichip.py's inputs and labels
+    mesh = _sub_mesh("data")
+    pts, valid, tokens, K, Rt = (np.asarray(a)[:2] for a in j["mc_in"])
+    labels = np.random.default_rng(1).integers(
+        0, 17, size=(4, pts.shape[1])).astype(np.int32)[:2]
+    batch = jpar.shard_batch(dict(
+        points=pts, point_valid=valid, labels=labels,
+        mask=np.ones(valid.shape, bool), cam_intrinsics=K, lidar2cam=Rt),
+        mesh)
+    st = jstate.create_train_state(
+        j["mc_model"], j["mc_params"],
+        jstate.create_optimizer("AdamW", 1e-3, weight_decay=1e-2))
+    st = jpar.replicate(st, mesh)
+    toks = jax.device_put(tokens, jax.sharding.NamedSharding(
+        mesh, jax.sharding.PartitionSpec("data")))
+    with mesh:
+        _, m = jloop.make_train_step(loss)(st, batch, toks)
+    refs["mc_dp"] = dict(loss=float(m["loss"]), valid=int(m["valid"]))
     return refs
 
 
@@ -325,6 +359,95 @@ def test_create_mesh_maps_ranks_and_refuses_a_wrong_shape(ranks):
         assert r["shape_error"].startswith(
             "Number of devices 2 must equal the product of mesh_shape (4,)")
         assert r["modules"] == []         # no JAX, no tpu3dssf
+
+
+def test_create_mesh_takes_gloo_on_cpu_and_shows_it(ranks):
+    """CPU ranks take gloo, the mesh says so in its repr, and asking a CPU
+    mesh for NCCL raises."""
+    _, _, results = ranks
+    for r in results:
+        assert r["backend"] == "gloo" and "backend=gloo" in r["repr"]
+        assert "CPU ranks take gloo" in r["backend_error"]
+
+
+@pytest.mark.parametrize("device,ranks,cards,asked,want", [
+    ("cpu", 2, 0, None, "gloo"),
+    ("cuda", 4, 4, None, "nccl"),
+    ("cuda", 1, 1, "nccl", "nccl"),
+    ("cuda", 2, 1, "gloo", "gloo"),
+    ("cuda", 2, 1, None, "NCCL refuses two ranks on one card"),
+    ("cuda", 2, 1, "nccl", "NCCL refuses two ranks on one card"),
+    ("cuda", 4, 4, "gloo", "has a card of its own"),
+    ("cpu", 2, 0, "nccl", "CPU ranks take gloo"),
+])
+def test_pick_backend_follows_the_layout(device, ranks, cards, asked, want):
+    """gloo for CPU ranks, NCCL where each rank has a card; ranks sharing a
+    card only over gloo, and only when the caller asks for it; any other
+    choice raises (nothing falls back)."""
+    from tpu3dssf_torch.parallel.mesh import pick_backend
+    if want in ("gloo", "nccl"):
+        assert pick_backend(device, ranks, cards, asked) == want
+    else:
+        with pytest.raises(ValueError, match=want):
+            pick_backend(device, ranks, cards, asked)
+
+
+def test_multichip_dp_phase_matches_jax_dryrun_step(ranks):
+    """cli/multichip.py's DP phase at two gloo ranks, from JAX's weights:
+    its first train step's loss and valid count against
+    dryrun_multichip's flagship mesh step on the same scenes (loss 1e-5
+    relative); its later steps, eval, restore and grad_accum against the
+    one-process sequence by its own rule; every rank the same bits."""
+    _, j, results = ranks
+    want = j["refs"]["mc_dp"]
+    for r in results:
+        dp = r["mc_dp"]
+        assert dp["loss1"] == pytest.approx(want["loss"], rel=1e-5)
+        assert dp["valid1"] == want["valid"]
+        assert dp["ranks_agree"] and dp["step_after_4"] == 4
+        assert all(dp["one_process"][k]["ok"] for k in (
+            "grad_2", "after_2", "after_restore_3", "after_accum_4"))
+
+
+def test_multichip_dp_rule_catches_its_planted_faults(ranks):
+    """cli/multichip.py's leaf-by-leaf DP rule on the two gloo ranks: the
+    sound steps' gradients and updates within a thousandth of the
+    one-process leaves (f32), and each planted fault, no gradient
+    all-reduce (a rank's own scenes) and an averaging one, outside the
+    gradient limit, the first outside the update limit too."""
+    _, _, results = ranks
+    for r in results:
+        one = r["mc_dp"]["one_process"]
+        for k in ("grad_2", "after_2", "after_restore_3", "after_accum_4"):
+            assert one[k]["worst_leaf_rel"] < 1e-3
+        faults = one["faults"]
+        assert set(faults) == set(multichip.FAULTS)
+        # half the gradient at two ranks (after one faulty update)
+        assert 0.49 < faults["mean"]["grad_2"]["worst_leaf_rel"] < 0.6
+        assert faults["no_all_reduce"]["grad_2"]["worst_leaf_rel"] > 0.5
+        assert faults["no_all_reduce"]["after_2"]["worst_leaf_rel"] > 0.5
+        assert not faults["mean"]["grad_2"]["ok"]
+        assert not faults["no_all_reduce"]["after_2"]["ok"]
+
+
+def test_multichip_tp_and_sp_phases_match_jax(ranks):
+    """cli/multichip.py's TP phase (the dry run's ViT, TP = 2) against
+    JAX's tensor-parallel forward within 1e-5, and its SP phase (the dry
+    run's block) against JAX's ``sp_block_apply``: output and input
+    gradient within 1e-5, the halo over gloo's all_gather (no
+    point-to-point op issued)."""
+    _, j, results = ranks
+    for r in results:
+        assert r["mc_tp"]["tp"] == 2 and r["mc_tp"]["heads_per_rank"] == 2
+        np.testing.assert_allclose(r["mc_vit"], j["refs"]["vit_tp"],
+                                   atol=1e-5)
+        p2p = r["mc_sp"]["halo_p2p_ops"]      # gloo: the all_gather
+        assert [p2p["forward"], p2p["forward_backward"]] == [0, 0]
+    np.testing.assert_allclose(_halves(results, "mc_sp_out"),
+                               j["refs"]["block"], atol=1e-5)
+    for r in results:
+        np.testing.assert_allclose(r["mc_sp_grad"], j["refs"]["block_grad"],
+                                   atol=1e-5)
 
 
 def test_shard_batch_takes_contiguous_rows_of_each_microbatch():
@@ -498,6 +621,36 @@ def test_sequence_parallel_block_gradient_matches_jax(ranks):
     got = results[0]["sp_grad"] + results[1]["sp_grad"]
     np.testing.assert_allclose(got, j["refs"]["block_grad"], atol=1e-5)
     assert np.abs(results[0]["sp_grad"][:, 256:]).max() == 0.0
+
+
+def test_halo_exchange_point_to_point_is_the_all_gather_route(ranks):
+    """The SP halo's point-to-point route (NCCL's) run over gloo against
+    its all_gather route: the same halos and input gradients, bit for bit;
+    each halo the neighbour's edge row, zeros past the ends; a send and a
+    receive each way (2 a forward, 2 a backward at two ranks), none on the
+    all_gather route."""
+    _, _, results = ranks
+    spans = [r["halo_span"] for r in results]
+    for i, r in enumerate(results):
+        p2p, gather = r["halo_p2p"], r["halo_gather"]
+        for a, b in zip(p2p[:3], gather[:3]):
+            np.testing.assert_array_equal(a, b)
+        assert (p2p[3], gather[3]) == (4, 0)
+        left, right = p2p[0][:, 0], p2p[1][:, 0]
+        zero = np.zeros_like(left)
+        np.testing.assert_array_equal(left, spans[0][:, -1] if i else zero)
+        np.testing.assert_array_equal(right, zero if i else spans[1][:, 0])
+        frm_prev, frm_next = r["halo_exchange"]
+        np.testing.assert_array_equal(frm_prev, left)
+        np.testing.assert_array_equal(frm_next, right)
+        # the gradient: the neighbour's halo gradient lands on the edge row
+        other = results[1 - i]["halo_ups"]
+        want = np.zeros_like(spans[i])
+        if i:
+            want[:, 0] = other[1][:, 0]
+        else:
+            want[:, -1] = other[0][:, 0]
+        np.testing.assert_array_equal(p2p[2], want)
 
 
 def test_sequence_parallel_rejects_bad_shapes_and_orders(rng):

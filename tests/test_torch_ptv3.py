@@ -100,7 +100,7 @@ def test_pool_structure_sorted_and_run_max(rng, unique):
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     seg, end_pos = got[0], got[5]
-    pooled = ptv3._run_max_sorted(t(h), seg, end_pos)
+    pooled = ptv3._run_max_sorted(t(h), seg, end_pos, got[2])
     jpooled = jax.vmap(jptv3._run_max_sorted)(jnp.asarray(h), want[0],
                                               want[5])
     np.testing.assert_array_equal(pooled.numpy(), np.asarray(jpooled))

@@ -39,6 +39,11 @@ def run_mesh(inp, out):
     mesh = create_mesh((2,), ("data",), device="cpu")
     out["coords"] = mesh.coords["data"]
     out["owns_group"] = mesh.owns_group
+    out["backend"], out["repr"] = mesh.backend, repr(mesh)
+    try:
+        create_mesh((2,), ("data",), device="cpu", backend="nccl")
+    except ValueError as e:
+        out["backend_error"] = str(e)
     try:
         create_mesh((4,), ("data",), device="cpu")
     except ValueError as e:
@@ -219,6 +224,54 @@ def run_sp(inp, out):
     out["sp_block"], out["sp_grad"] = _np(y), _np(xg.grad)
 
 
+def run_halos(out):
+    """The SP halo exchange over this gloo group both ways: point to point
+    (``_exchange``, the route NCCL takes) and by ``all_gather``, forward
+    and backward, on this rank's seeded (B, n, C) span; with the
+    point-to-point sends and receives each issued."""
+    from tpu3dssf_torch.parallel import create_mesh
+    from tpu3dssf_torch.parallel import sp
+    seq = create_mesh((2,), ("seq",), device="cpu")
+    index = seq.coords["seq"]
+    gen = torch.Generator().manual_seed(10 + index)
+    xs = torch.randn(3, 5, 4, generator=gen)
+    ups = torch.randn(2, 3, 1, 4, generator=gen)
+    group = seq.group("seq")
+    for name, p2p in (("p2p", True), ("gather", False)):
+        x = xs.clone().requires_grad_()
+        before = sp.P2P_OPS
+        left, right = sp._Halos.apply(x, group, 2, index, p2p)
+        ((left * ups[0]).sum() + (right * ups[1]).sum()).backward()
+        out[f"halo_{name}"] = (_np(left), _np(right), _np(x.grad),
+                               sp.P2P_OPS - before)
+    got = sp._exchange((xs[:, 0], xs[:, -1]), group, index, 2)
+    out["halo_exchange"] = [_np(g) for g in got]
+    out["halo_span"], out["halo_ups"] = _np(xs), _np(ups)
+
+
+def run_multichip(inp, out, mesh):
+    """``cli/multichip.py``'s three phases at its tiny sizes on this gloo
+    mesh, with JAX's weights: the flagship's DP sequence, the TP ViT and
+    the SP block."""
+    from tpu3dssf_torch.cli import multichip
+    from tpu3dssf_torch.models.vit import VisionTransformer
+    with contextlib.redirect_stdout(io.StringIO()):
+        out["mc_dp"] = multichip.dp_phase(mesh, multichip.TINY, reps=1,
+                                          state_dict=inp["mc_state"],
+                                          faults=True)
+    vit = VisionTransformer(inp["vit_cfg"])
+    vit.load_state_dict(inp["vit_state"])
+    out["mc_tp"], tokens = multichip.tp_phase(
+        mesh, multichip.TINY, vit=vit,
+        images=torch.from_numpy(inp["vit_images"]))
+    out["mc_vit"] = _np(tokens)
+    out["mc_sp"], y, g = multichip.sp_phase(
+        mesh, multichip.TINY, block_state=inp["sp_block_state"],
+        x=torch.from_numpy(inp["sp_x"]), mask=torch.from_numpy(
+            inp["sp_mask"]))
+    out["mc_sp_out"], out["mc_sp_grad"] = _np(y), _np(g)
+
+
 def run_main_infer(inp, out):
     from tpu3dssf_torch.cli.main_infer import main
     with contextlib.redirect_stdout(io.StringIO()) as said:
@@ -238,6 +291,8 @@ def main(directory):
     run_train(inp, out, mesh)
     run_tp(inp, out, mesh)
     run_sp(inp, out)
+    run_halos(out)
+    run_multichip(inp, out, mesh)
     run_main_infer(inp, out)
     out["modules"] = sorted(m for m in sys.modules if m.split(".")[0] in
                             ("jax", "jaxlib", "flax", "tpu3dssf"))

@@ -25,8 +25,11 @@ encodes its own images and runs its own graphed forward; the loss is the
 whole batch's and the counts are summed over the ranks
 (``train.loop.make_eval_step`` and ``MetricAccumulator`` with the mesh).
 Rank 0 prints the metrics and the throughput, total and per chip. Rank r
-runs on ``cuda:(LOCAL_RANK % device count)``, so ranks may share a card;
-the ranks talk over gloo.
+runs on ``cuda:(LOCAL_RANK % device count)``; the ranks talk over NCCL
+where each has a card of its own, and the eval step is one CUDA graph with
+its gather inside (``parallel.create_mesh`` picks the backend by layout:
+ranks that share a card need a gloo process group brought up by the
+caller, since NCCL refuses them).
 
 ``--device`` defaults to ``cuda``; without a CUDA device the CLI raises
 (it never drops to the CPU). ``--device cpu`` runs the plain versions of

@@ -1,4 +1,5 @@
-"""The fusion train step of one checkout, eager and graphed, on the card.
+"""The fusion train step and batch of one checkout, eager and graphed, on
+the card.
 
     python3 tpu3dssf_torch/cli/time_train_step.py [--root DIR] [--out FILE]
     python3 tpu3dssf_torch/cli/time_train_step.py --ab OLD_ROOT [--out FILE]
@@ -10,8 +11,10 @@ package and kernels: the full-width train step of
 fusion head, loss, backward, AdamW), eager and graphed: CUDA-event medians
 of 10 frames each, eager, graphed, graphed, eager; the profiler's device
 time of a frame of each; peak allocated memory; and the graphed steps held
-against the eager ones. It builds the checkout's kernel sources first, one
-nvcc each, all started together.
+against the eager ones; then phase 22's fusion batch (ViT-S encode + eval
+step, as ``main_infer`` runs it) likewise: the same medians, device time
+and peak memory. It builds the checkout's kernel sources first, one nvcc
+each, all started together.
 
 ``--ab OLD_ROOT`` runs it on OLD_ROOT (an unpacked older commit, e.g.
 ``git archive`` of the parent into ``build/parent``), this checkout, this
@@ -54,7 +57,16 @@ def time_root(root):
             list(pool.map(_build.load_library, chip_smoke.SOURCES))
     card = chip_smoke.card_line()
     row, _ = chip_smoke.run_graph_train(card)
+    from tpu3dssf_torch.cli.common import load_config
+    path = chip_smoke.eval_path("fusion", load_config(chip_smoke.CONFIG),
+                                torch.device("cuda"))
+    batch = chip_smoke.ab_time("fusion", path["eager"], path["graphed"],
+                               path["points"], card)
+    del path
     return dict(root=root, card=card, torch=torch.__version__,
+                fusion_batch={k: batch[k] for k in (
+                    "runs", "device", "peak_eager_bytes",
+                    "peak_graphed_bytes")},
                 runs=row["runs"], device=row["device"],
                 peak_eager_bytes=row["peak_eager_bytes"],
                 peak_graphed_bytes=row["peak_graphed_bytes"],
@@ -73,8 +85,14 @@ def run_ab(old):
           for tag in ("eager", "graphed", "graphed_2", "eager_2")}
     device_ms = {tag: [r["device"][tag]["ms"] for r in runs]
                  for tag in ("eager", "graphed")}
+    batch_ms = {tag: [r["fusion_batch"]["runs"][tag]["ms"] for r in runs]
+                for tag in ("eager", "graphed", "graphed_2", "eager_2")}
+    spread = {"batch_graphed": [r["fusion_batch"]["runs"]["graphed"][
+        "spread"] for r in runs],
+        "train_graphed": [r["runs"]["graphed"]["spread"] for r in runs]}
     return dict(order=order, old=old, new=HERE, ms=ms, device_ms=device_ms,
-                card=runs[0]["card"], runs=runs)
+                batch_ms=batch_ms, spread=spread, card=runs[0]["card"],
+                runs=runs)
 
 
 def main(argv=None):
@@ -89,7 +107,7 @@ def main(argv=None):
         result = run_ab(os.path.abspath(args.ab))
         print(result["card"])
         print("ab " + json.dumps({k: result[k] for k in (
-            "order", "ms", "device_ms")}))
+            "order", "ms", "device_ms", "batch_ms", "spread")}))
     else:
         result = time_root(os.path.abspath(args.root))
         print(result["card"])

@@ -62,6 +62,7 @@ from tpu3dssf_torch.parallel.sp import halo_rows
 from tpu3dssf_torch.serialization import (
     SERIALIZATION_ORDERS,
     argsort_lex,
+    gather_rows,
     inverse_permutation,
     permutation_gather,
     serialization_keys,
@@ -136,7 +137,8 @@ def _compose_perm(a, b):
 
 
 def _rows(x, idx):
-    """x[b, idx[b, i]] for x (B, N, C) and idx (B, M)."""
+    """x[b, idx[b, i]] for x (B, N, C) and idx (B, M): integer rows (no
+    gradient)."""
     return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
 
 
@@ -173,14 +175,17 @@ def _pool_structure_sorted(grid, mask, out_cap):
     return seg, grid_out, mask_out, parent, ok, end_pos
 
 
-def _run_max_sorted(h, seg, end_pos, max_run=8):
+def _run_max_sorted(h, seg, end_pos, mask_out, max_run=8):
     """Per-cell max for SORTED features whose cells are contiguous runs of
     ≤ ``max_run`` elements: log2(max_run) shifted maxima carry each run's
     max to its last element, read out at ``end_pos``.
 
     INVARIANT: runs longer than ``max_run`` are silently truncated, so
     every input slot must be a DISTINCT grid cell.
-    h: (B, N, C); seg: (B, N); end_pos: (B, V). Returns (B, V, C).
+    h: (B, N, C); seg: (B, N); end_pos: (B, V); mask_out (B, V), the
+    live cells, a prefix, whose outputs alone may carry a gradient (the
+    read-out's fixed-order backward, :func:`~tpu3dssf_torch.serialization.
+    gather_rows`). Returns (B, V, C).
     """
     y = h
     shift = 1
@@ -191,7 +196,9 @@ def _run_max_sorted(h, seg, end_pos, max_run=8):
                                                        y[:, :-shift]),
                                    y[:, shift:])], dim=1)
         shift *= 2
-    return _rows(y, end_pos)
+    # empty slots read row 0 and are zeroed by the caller: the backward
+    # leaves them out
+    return gather_rows(y, end_pos, mask_out)
 
 
 def _segment_max(values, seg, out_cap):
@@ -434,7 +441,7 @@ class SerializedPooling(nn.Module):
             _pool_structure_sorted(grid, mask, out_cap)
         h = self.proj(x).float()
         if self.unique_cells:
-            pooled = _run_max_sorted(h, seg, end_pos)
+            pooled = _run_max_sorted(h, seg, end_pos, mask_out)
         else:
             # duplicate cells: runs can exceed 8, so an exact segment max
             # ("empty" sentinel -1e9, far from f32 overflow)
@@ -459,7 +466,9 @@ class SerializedUnpooling(nn.Module):
         self.norm_skip = LayerNorm(channels, dtype=dtype)
 
     def forward(self, x_coarse, skip, parent, parent_ok, mask_fine):
-        up = _rows(self.norm(self.proj(x_coarse)), parent)
+        """Each parent's gradient is summed over its children in a fixed
+        order (:func:`~tpu3dssf_torch.serialization.gather_rows`)."""
+        up = gather_rows(self.norm(self.proj(x_coarse)), parent, parent_ok)
         up = torch.where(parent_ok[..., None], up, 0.0)
         sk = self.norm_skip(self.proj_skip(skip))
         out = F.gelu(up + sk, approximate="tanh")

@@ -19,10 +19,15 @@ own shard, and calls the collectives itself:
   :func:`vit_tp_shardings` cuts a ViT's block weights to this rank's
   tensor-parallel shard.
 
-The backend is gloo. NCCL refuses two ranks on one card; gloo takes CUDA
-tensors in ``all_reduce``, ``all_gather`` and ``broadcast``, staging them
-through host memory itself, and every exchange here is one of those three:
-no step sends a CUDA tensor point to point. The autograd-aware collectives
+The backend follows the layout (:func:`pick_backend`): gloo for CPU ranks;
+NCCL where each rank has a card of its own, which moves the tensors card
+to card in their own dtype (bf16 included), the counterpart of XLA's
+collectives on the TPU's interconnect, and which a CUDA graph can capture;
+gloo for ranks that share one card only where the caller asks for it
+(``backend="gloo"``), since NCCL refuses two ranks on one card. Gloo stages
+CUDA tensors through host memory, as raw bytes where its dtype table lacks
+one (:func:`_byte_view`). Nothing falls back: a layout with no backend, or
+a failed NCCL init, raises. The autograd-aware collectives
 (:func:`gather_batch`, :func:`all_reduce_sum`, :func:`copy_to_axis`) are
 written for the layouts their callers use, and say in which sense their
 backward is right.
@@ -45,11 +50,13 @@ class Mesh:
     """A mesh of ranks: ``axis_names``, ``shape`` ({axis: size}, as JAX's
     ``Mesh.shape``), ``coords`` ({axis: this rank's index}), ``groups``
     ({axis: the process group of the ranks that differ from this one only
-    along that axis}), ``rank`` (in the default group) and ``device``."""
+    along that axis}), ``rank`` (in the default group), ``device`` and
+    ``backend`` (the process groups' backend)."""
 
     def __init__(self, axis_names: Sequence[str], shape: Sequence[int],
                  coords: Sequence[int], groups=None, rank: int = 0,
-                 device="cpu", owns_group: bool = False):
+                 device="cpu", owns_group: bool = False,
+                 backend: str = "gloo"):
         if len(axis_names) != len(shape) or len(coords) != len(shape):
             raise ValueError(f"mesh axes {tuple(axis_names)} do not match "
                              f"shape {tuple(shape)}")
@@ -60,6 +67,7 @@ class Mesh:
         self.rank = rank
         self.device = torch.device(device)
         self.owns_group = owns_group
+        self.backend = backend
 
     @property
     def size(self) -> int:
@@ -88,7 +96,7 @@ class Mesh:
 
     def __repr__(self):
         return (f"Mesh({self.shape}, coords={self.coords}, "
-                f"device={self.device})")
+                f"device={self.device}, backend={self.backend})")
 
 
 def current_mesh() -> Optional[Mesh]:
@@ -113,16 +121,60 @@ def _mesh_device(device="cuda") -> torch.device:
     return device
 
 
+def pick_backend(device, local_ranks: int, cards: int,
+                 backend: Optional[str] = None) -> str:
+    """The backend for ``local_ranks`` ranks of one host on ``device``
+    (``cards`` cards there): gloo for CPU ranks; NCCL where each rank has a
+    card of its own; gloo where ranks share a card, only when ``backend``
+    asks for it (NCCL refuses two ranks on one card). Raises for any other
+    choice: a CUDA mesh with one rank per card never takes gloo."""
+    kind = torch.device(device).type
+    if kind == "cpu":
+        if backend not in (None, "gloo"):
+            raise ValueError(f"backend {backend!r}: CPU ranks take gloo")
+        return "gloo"
+    if kind != "cuda":
+        raise ValueError(f"no backend for ranks on {device}")
+    if local_ranks > cards:
+        if backend != "gloo":
+            raise ValueError(
+                f"{local_ranks} ranks share {cards} card(s): NCCL refuses "
+                "two ranks on one card; pass backend='gloo' to run them "
+                "over gloo, through host memory")
+        return "gloo"
+    if backend not in (None, "nccl"):
+        raise ValueError(
+            f"backend {backend!r}: each of the {local_ranks} ranks has a "
+            "card of its own, which takes NCCL")
+    return "nccl"
+
+
+def _local_ranks() -> int:
+    """Ranks on this host: ``LOCAL_WORLD_SIZE`` (torchrun sets it), else
+    the world size (one host)."""
+    if "LOCAL_WORLD_SIZE" in os.environ:
+        return int(os.environ["LOCAL_WORLD_SIZE"])
+    if dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", 1))
+
+
 def create_mesh(shape: Optional[Tuple[int, ...]] = None,
                 axis_names: Sequence[str] = ("data",),
-                device="cuda") -> Mesh:
+                device="cuda", backend: Optional[str] = None) -> Mesh:
     """A :class:`Mesh` over every rank (default: a 1-D ``data`` axis).
 
-    Brings up the default gloo process group from the environment
-    ``torchrun`` sets, unless it is up; raises when the product of
-    ``shape`` is not the world size, as ``mesh_utils`` does. Rank r sits at
-    ``np.unravel_index(r, shape)``.
+    Brings up the default process group from the environment ``torchrun``
+    sets, unless it is up, over the backend of the layout
+    (:func:`pick_backend`; ``backend="gloo"`` for ranks that share a card);
+    a group already up must have that backend. Under NCCL every group's
+    communicator is made here, by one collective each, so that a CUDA
+    graph can capture the collectives (a lazy init cannot be captured).
+    Raises when the product of ``shape`` is not the world size, as
+    ``mesh_utils`` does. Rank r sits at ``np.unravel_index(r, shape)``.
     """
+    device = _mesh_device(device)
+    cards = torch.cuda.device_count() if device.type == "cuda" else 0
     owns = not dist.is_initialized()
     if owns:
         if "RANK" not in os.environ:
@@ -130,7 +182,15 @@ def create_mesh(shape: Optional[Tuple[int, ...]] = None,
                 "create_mesh: no process group is up and RANK is not set: "
                 "start one process per rank, e.g. torchrun "
                 "--nproc_per_node N -m <module> ...")
-        dist.init_process_group("gloo")
+        backend = pick_backend(device, _local_ranks(), cards, backend)
+        dist.init_process_group(
+            backend, device_id=device if backend == "nccl" else None)
+    else:
+        up = dist.get_backend()
+        if pick_backend(device, _local_ranks(), cards, backend or up) != up:
+            raise ValueError(f"create_mesh: the process group is up over "
+                             f"{up}, not {backend}")
+        backend = up
     world, rank = dist.get_world_size(), dist.get_rank()
     shape = tuple(int(s) for s in (shape or (world,)))
     if math.prod(shape) != world or len(shape) != len(axis_names):
@@ -151,8 +211,13 @@ def create_mesh(shape: Optional[Tuple[int, ...]] = None,
             g = dist.new_group([int(r) for r in line])
             if rank in line:
                 groups[name] = g
-    return Mesh(axis_names, shape, coords, groups, rank,
-                _mesh_device(device), owns)
+    if backend == "nccl":
+        for name in axis_names:
+            dist.all_reduce(torch.zeros(1, device=device),
+                            group=groups[name])
+        torch.cuda.synchronize(device)
+    return Mesh(axis_names, shape, coords, groups, rank, device, owns,
+                backend)
 
 
 def shard_rows(x, mesh: Mesh, axis: str = "data", microbatches: int = 1):
@@ -234,13 +299,18 @@ def _byte_view(x):
 
 
 def all_gather_rows(x, group, size):
-    """(n, ...) on each of ``size`` ranks → (size·n, ...) in rank order, by
-    one gloo ``all_gather`` of the raw bytes."""
+    """(n, ...) on each of ``size`` ranks → (size·n, ...) in rank order:
+    one NCCL ``all_gather_into_tensor`` in ``x``'s own dtype on the card,
+    or one gloo ``all_gather`` of the raw bytes."""
+    rows = (size * x.shape[0],) + tuple(x.shape[1:])
+    if dist.get_backend(group) == "nccl":
+        out = torch.empty(rows, dtype=x.dtype, device=x.device)
+        dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+        return out
     src = _byte_view(x)
     out = [torch.empty_like(src) for _ in range(size)]
     dist.all_gather(out, src, group=group)
-    return torch.cat(out).view(x.dtype).reshape((size * x.shape[0],)
-                                                + tuple(x.shape[1:]))
+    return torch.cat(out).view(x.dtype).reshape(rows)
 
 
 class _GatherBatch(torch.autograd.Function):

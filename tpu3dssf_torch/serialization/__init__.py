@@ -7,8 +7,10 @@ from tpu3dssf_torch.serialization.codes import (
 )
 from tpu3dssf_torch.serialization.partition import (
     argsort_lex,
+    gather_rows,
     inverse_permutation,
     permutation_gather,
+    segment_sum,
 )
 
 __all__ = [
@@ -20,4 +22,6 @@ __all__ = [
     "argsort_lex",
     "inverse_permutation",
     "permutation_gather",
+    "gather_rows",
+    "segment_sum",
 ]

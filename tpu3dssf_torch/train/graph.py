@@ -40,6 +40,17 @@ this process. :data:`CAPTURES` and :data:`REPLAYS` count the graphs
 captured and replayed in this process, so a caller can tell that a path
 ran through graphs.
 
+A step may hold NCCL collectives (a data-parallel step over a mesh with
+one rank per card, :mod:`tpu3dssf_torch.parallel`): the mesh makes every
+communicator before any step runs (a lazy NCCL init cannot be captured),
+the eager first call's collectives have finished before the capture
+begins (``torch.cuda.graph`` synchronises the device), and the capture runs
+in ``thread_local`` mode, so that the NCCL watchdog thread, which polls
+the events of earlier collectives, does not invalidate it; each replay
+runs the captured collectives, so every rank must replay its graph, as
+every rank calls an eager step. Gloo collectives go through the host and
+cannot be captured: a gloo mesh keeps its collectives outside any graph.
+
 On CPU tensors the wrapper calls the eager step: there are no graphs. A
 capture that fails raises; nothing falls back to the eager step. A restore
 that replaces state a graph reads (``TrainState.load_state_dict``) drops the
@@ -81,6 +92,16 @@ def _side_stream(device):
     if device.index not in _STREAMS:
         _STREAMS[device.index] = torch.cuda.Stream(device)
     return _STREAMS[device.index]
+
+
+def _capture_mode():
+    """``thread_local`` where an NCCL process group is up (its watchdog
+    thread polls events while a step is captured), else ``global``."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_backend() == "nccl":
+        return "thread_local"
+    return "global"
 
 
 def _leaf_key(x):
@@ -161,7 +182,8 @@ class GraphedStep:
             before = kernel_modules.launch_counts()
             try:
                 with torch.cuda.graph(graph, pool=_pool(device),
-                                      stream=stream):
+                                      stream=stream,
+                                      capture_error_mode=_capture_mode()):
                     captured = self.step(
                         *pytree.tree_unflatten(inputs, spec))
                 counts = kernel_modules.launch_counts()

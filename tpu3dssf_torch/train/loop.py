@@ -116,10 +116,15 @@ def make_train_step(loss_fn: CELSLoss, dropout_seed: Optional[int] = None,
     microbatch (its CE denominator and Lovász class presence are the whole
     microbatch's), runs the backward, sums the gradients over the axis and
     makes one update, the same on every rank. The state must start the
-    same on every rank (:func:`~tpu3dssf_torch.parallel.replicate`). The
-    gloo collectives cannot be captured in a CUDA graph, so a mesh step
-    runs eagerly: it is never passed to :func:`~tpu3dssf_torch.train.graph.
-    graph_train_step` (``main_train`` ignores the mesh, as JAX's does).
+    same on every rank (:func:`~tpu3dssf_torch.parallel.replicate`). Over
+    NCCL (one rank per card) :func:`~tpu3dssf_torch.train.graph.
+    graph_train_step` captures the whole mesh step in one CUDA graph per
+    rank: forward, the gather and its backward, the loss, the backward,
+    the gradient all-reduce and the fused update, DropPath's masks an
+    input, as JAX jits its mesh step whole. Gloo's collectives go through
+    the host and cannot be captured, so over gloo (CPU ranks, ranks sharing
+    a card) the mesh step runs eagerly. ``main_train`` ignores the mesh, as
+    JAX's does.
     """
 
     def split(x):
@@ -194,9 +199,10 @@ def make_eval_step(loss_fn: CELSLoss, num_classes: int, mesh=None):
     labels and mask gathered over the ``data`` axis, then the loss of the
     whole batch, the same on every rank, and the counts (correct, valid,
     confusion) of this rank's rows, which :class:`MetricAccumulator` sums
-    over the axis. The forward and the loss are each graphed (``graphed``
-    runs CPU tensors eagerly); the gather runs between them, since a CUDA
-    graph cannot capture gloo.
+    over the axis. Over NCCL the step is one CUDA graph (forward, gather,
+    loss); over gloo the forward and the loss are each graphed and the
+    gather runs between them, since a CUDA graph cannot capture gloo
+    (``graphed`` runs CPU tensors eagerly).
     """
 
     def forward(model, batch, patch_tokens):
@@ -229,14 +235,22 @@ def make_eval_step(loss_fn: CELSLoss, num_classes: int, mesh=None):
 
         return eval_step
 
-    local = graphed(torch.inference_mode()(forward), "eval_forward")
-
     @torch.inference_mode()
     def global_metrics(logits, labels, mask):
         n = logits.shape[0] // mesh.shape["data"]
         lo = mesh.coords["data"] * n
         return metrics(logits, labels, mask, slice(lo, lo + n))
 
+    if mesh.backend == "nccl":
+        @torch.inference_mode()
+        def mesh_step(model, batch, patch_tokens):
+            return global_metrics(*(gather_batch(x, mesh) for x in (
+                forward(model, batch, patch_tokens), batch["labels"],
+                batch["mask"])))
+
+        return graphed(mesh_step, "eval_step")
+
+    local = graphed(torch.inference_mode()(forward), "eval_forward")
     fold = graphed(global_metrics, "eval_loss")
 
     @torch.inference_mode()
@@ -254,8 +268,8 @@ class MetricAccumulator:
 
     With a ``mesh`` each rank sums the counts of its own rows (a mesh eval
     step's ``correct``, ``valid`` and ``confusion``), and :meth:`metrics`
-    sums them over the ``data`` axis (one gloo ``all_reduce`` of the int64
-    counts) before it derives the metrics: the global sums JAX's eval under
+    sums them over the ``data`` axis (one ``all_reduce`` of the int64
+    counts, on the mesh's card under NCCL) before it derives the metrics: the global sums JAX's eval under
     a mesh computes. The loss sums are not reduced: a mesh eval step's loss is
     already the whole batch's, the same on every rank.
     """
@@ -308,8 +322,10 @@ class MetricAccumulator:
             cm = sums["confusion"]
             flat = torch.from_numpy(np.concatenate(
                 [cm.reshape(-1), [sums["correct"], sums["valid"]]]))
+            if self.mesh.backend == "nccl":
+                flat = flat.to(self.mesh.device)
             dist.all_reduce(flat, group=self.mesh.group("data"))
-            flat = flat.numpy()
+            flat = flat.cpu().numpy()
             sums.update(confusion=flat[:cm.size].reshape(cm.shape),
                         correct=int(flat[-2]), valid=int(flat[-1]))
         return sums

@@ -7,9 +7,13 @@ contract are the JAX package's, including the voxel slot order (cell keys
 sorted as signed (hi, lo) int32 pairs) and the overflow rule (voxels past
 ``capacity`` in that order are dropped and their points flagged).
 
-The segment sums use ``index_add_``; on CUDA that is atomic, so centroid
-sums are taken in an order that changes from run to run (integer outputs
-do not depend on it).
+The centroid sums run over the points sorted by cell key, where each
+voxel's points are one run: :func:`~tpu3dssf_torch.serialization.
+segment_sum` adds each run in that order (the counts as a column of
+ones, exact in f32), so every output is the same bits on every run, as JAX's
+``segment_sum`` is on the TPU. The devoxelizing gathers (many points to
+one voxel) sum their gradients in a fixed order too
+(:func:`~tpu3dssf_torch.serialization.gather_rows`).
 
 The k-NN parity modes (``intensity_mode="knn5"``, :func:`devoxelize_nearest`)
 find neighbours with :func:`_topk_neighbors`, the op ``tpu3dssf::knn``: a
@@ -28,7 +32,8 @@ import torch
 from tpu3dssf_torch.kernels import knn
 from tpu3dssf_torch.kernels.knn import topk_neighbors_reference  # noqa: F401
 from tpu3dssf_torch.serialization.codes import pack_cell_keys
-from tpu3dssf_torch.serialization.partition import argsort_lex
+from tpu3dssf_torch.serialization.partition import (argsort_lex, gather_rows,
+                                                    segment_sum)
 from tpu3dssf_torch.utils.constants import device_constants
 
 # the reference's 5-NN intensity weights (utils/lidar.py:101)
@@ -59,7 +64,7 @@ class VoxelizeResult(NamedTuple):
 
 
 def _take(x, idx):
-    """x[b, idx[b, i]] for x (B, N, ...) and idx (B, M)."""
+    """x[b, idx[b, i]] for x (B, N, ...) and idx (B, M) (no gradient)."""
     if x.dim() == 2:
         return torch.gather(x, 1, idx)
     return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
@@ -94,19 +99,16 @@ def voxelize(points, point_mask, voxel_size, capacity,
     new_voxel = torch.where(valid_s, new_voxel, 0)
     vid_s = torch.cumsum(new_voxel, dim=1, dtype=torch.int32) - 1
     ok_s = valid_s & (vid_s >= 0) & (vid_s < capacity)
-    # dropped points go to a scratch segment `capacity`
+    # dropped points (and invalid ones, sorted last) go to segment
+    # `capacity`, past the voxels: seg is nondecreasing along the sort
     seg = torch.where(ok_s, vid_s, capacity).to(torch.int64)
-    flat = (seg + torch.arange(B, device=dev)[:, None] * (capacity + 1))
-    flat = flat.reshape(-1)
 
     pts_s = torch.where(ok_s[..., None], _take(points, perm), 0.0)
-    sums = torch.zeros((B * (capacity + 1), 4), dtype=torch.float32,
-                       device=dev).index_add_(0, flat, pts_s.reshape(-1, 4))
-    counts = torch.zeros(B * (capacity + 1), dtype=torch.float32,
-                         device=dev).index_add_(
-                             0, flat, ok_s.reshape(-1).to(torch.float32))
-    sums = sums.reshape(B, capacity + 1, 4)[:, :capacity]
-    counts = counts.reshape(B, capacity + 1)[:, :capacity]
+    # a fifth column of ones: each voxel's count, exact in f32
+    ones = ok_s[..., None].to(torch.float32)
+    sums = segment_sum(torch.cat([pts_s.float(), ones], -1), seg, capacity)
+    counts = sums[..., 4]
+    sums = sums[..., :4]
 
     voxel_mask = counts > 0
     denom = counts.clamp_min(1.0)[..., None]
@@ -146,7 +148,7 @@ def voxelize(points, point_mask, voxel_size, capacity,
 def devoxelize_own_voxel(point_voxel, point_ok, voxel_values):
     """Per-voxel values (B, V, C) onto points via the recorded voxel
     assignment; returns (point_values (B, P, C), point_voxel)."""
-    values = _take(voxel_values, point_voxel.to(torch.int64))
+    values = gather_rows(voxel_values, point_voxel.to(torch.int64), point_ok)
     return torch.where(point_ok[..., None], values, 0.0), point_voxel
 
 
@@ -187,6 +189,6 @@ def devoxelize_nearest(points_xyz, point_mask, centroids, voxel_mask,
     (B, P, C), nearest voxel (B, P) int32), both 0 at invalid points."""
     _, idx = _topk_neighbors(points_xyz, centroids, voxel_mask, 1)
     idx = idx[..., 0]
-    values = _take(voxel_values, idx.to(torch.int64))
+    values = gather_rows(voxel_values, idx.to(torch.int64), point_mask)
     return (torch.where(point_mask[..., None], values, 0.0),
             torch.where(point_mask, idx, 0))
