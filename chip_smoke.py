@@ -28,7 +28,8 @@ their encode, eval and train steps as CUDA graphs
 (``tpu3dssf_torch.train.graph``, one capture per step and batch shape),
 so every CLI run below also checks
 that each of its step calls was a capture or a replay. It checks, in
-order (any failure raises, exit code ≠ 0):
+order, but for 25, which runs right after 11 so that 32's compiles run on
+the host beside 13–31 (any failure raises, exit code ≠ 0):
 
 1. a CUDA device is present; prints the card's name and power limit, and
    its maximum SM clock, which sets the exp's rate in the bounds;
@@ -160,9 +161,9 @@ order (any failure raises, exit code ≠ 0):
 22. the fusion, ViT-L fusion, parity and window-48 batches as the CLIs
     run them (encode + eval step), eager against graphed: peak allocated
     memory of each (the graphed one over the first call and the capture),
-    CUDA-event medians of 10 frames in the order eager, graphed, graphed,
-    eager with their spread (max/min), the profiler's device time of a
-    frame of each; exact launches per eager frame and per replay (34 K1,
+    CUDA-event medians of 5 frames in the order eager, graphed, graphed,
+    eager with their spread (max/min), the profiler's device time of one
+    graphed frame; exact launches per eager frame and per replay (34 K1,
     46 K1, 22 K1 + 2 K7, 22 K6); the graphed logits, loss and confusion
     matrix against the eager ones under the rule of 22–24, 27 and 29
     (:func:`eager_rule`, :func:`bit_exact`): 3 graphed and 3 eager frames,
@@ -255,7 +256,8 @@ order (any failure raises, exit code ≠ 0):
     eager, exact launches (K2 14, K3 14, K4 8, K5 8 a step), finite
     metrics, then every kernel call of one eager step against its plain
     version; (b) each setting on the full-width fusion step, eager
-    against graphed as phase 23 (wall ms, device ms, peak memory, exact
+    against graphed as phase 23 (the A/B of wall ms, device ms and peak
+    memory on all four together alone; exact
     launches per replay, graphed runs from one state under the rule of
     22–23 with the chain's counts and plateau the same bits in every run
     after every step, and the rate each update took equal to
@@ -288,7 +290,8 @@ order (any failure raises, exit code ≠ 0):
     counts set to 0 before: exact launches per replay of each graph (K2
     14, K3 14, K4 8, K5 8; with remat K2 28, K4 16; the forward K1 22),
     and in all the sum of each graph's calls times its launches.
-Phases 30 and 31 print their seconds.
+Phases 30 and 31 print their seconds; ``sub_seconds`` the wall seconds
+of pieces inside the phases (A/B runs, held train runs, states built).
 32. (run after 25, on its four programs) each CUDA op fed inputs that
     break its kernel's contract (a wrong dtype, D = 32, a view one element
     off 16-byte alignment, tables at D = 16, an lse of the wrong shape, knn
@@ -310,7 +313,8 @@ Phases 30 and 31 print their seconds.
     ``ldd`` shows no libpython) on the same package and inputs: exit 0, the
     same launches, outputs bit-identical to the Python-loaded package's,
     and its wall ms per call (median of 10) beside 25's graphed ms.
-33. (run after 26) ``tpu3dssf_torch/cli/multichip.py``, the port of
+33. (run beside 26, in a process of its own) ``tpu3dssf_torch/cli/
+    multichip.py``, the port of
     ``__graft_entry__.dryrun_multichip``, under torchrun at one rank over
     NCCL (:func:`run_multichip`): the flagship's data-parallel train steps
     at full width, each one CUDA graph with its gather and all-reduce
@@ -319,11 +323,29 @@ Phases 30 and 31 print their seconds.
     step, each gradient and update the one-process step's bit for bit;
     ViT-L/16 at TP = 1 (24 K1); one
     SP PTv3 block at C = 256 (K1, then K2 + K3); the DP frame and train
-    step timed. Uncut (about a minute).
+    step timed, on a card that 26's ranks share. Uncut (about a minute).
+34. (run after 32) the fusion path with ``image_encoder: dinov2`` (ViT-S/14
+    at 224 x 224: 257 tokens, no RoPE, no registers) on a copy of the
+    fusion config, uncut (:func:`run_dinov2`): ``main_infer`` over its test
+    batches, every step graphed, exactly 34 K1 launches a batch (12 ViT
+    layers + 22 PTv3 blocks) and no other kernel; one batch eager against
+    graphed, launches and outputs bit for bit; K1 inside it held on its
+    own inputs. Phase 3 holds K1 at that shape alone (B = 12, N = 257,
+    H = 6, D = 64).
+35. the attribution CLIs (``cli/attr_bwd.py``, ``cli/time_ptv3_parts.py``,
+    ``cli/time_block_glue.py``, ``cli/time_loss_parts.py``) in process at
+    their full shapes, two repeats a piece and two timed replays
+    (:func:`run_attribution`): every row present with a finite wall time
+    above 0, a device time above 0 (all but 5% of the rows, whose every
+    profiler record may be lost late in the run) and the attention
+    launches of its route (K2/K3 at
+    C >= 128, K4/K5 at C = 32 and 64 with a gradient; K1 without), and
+    attr_bwd's whole LiDAR-only and fusion train steps at their launches.
 
 ``graphs``, ``remat``, ``export``, ``packages``, ``parallel``,
 ``multichip``, ``lidar_train``, ``parity_ab``, ``settings``,
-``bench_frames`` and ``bench_train`` print phases 22–33's records (times in ms or s as named,
+``bench_frames``, ``bench_train``, ``dinov2`` and ``attribution`` print
+phases 22–35's records (times in ms or s as named,
 memory in bytes), ``phase_seconds`` the wall seconds of each stretch of
 phases. The last two lines are a JSON record of the kernels and the
 device line.
@@ -337,7 +359,9 @@ in ``bound_by``) and ``library_ms`` (the PyTorch call named in ``library``). K1'
 numbers are per inference batch (step 4, 6 batches; ``parity`` holds its
 time per parity batch, step 15, ``vitl`` per ViT-L batch, step 17, and
 ``rope`` the RoPE branch per call at the ViT-S and ViT-L shapes, step 3,
-with the launches of step 21); K2–K5's per train step (step 9; launches
+with the launches of step 21, and ``dinov2`` the dinov2 encoder's K1 per
+batch, step 34, and per call at its shape, step 3, beside its bound and
+SDPA); K2–K5's per train step (step 9; launches
 from the one-epoch run of step 8); K7's per parity batch (step 15;
 launches from step 14's main_infer run); K6's
 per window-48 batch (step 20), K8's per ViT-L encode (step 18) and K9's
@@ -352,11 +376,14 @@ the launches of step 27's run, ``parity_ab_launches`` (K1, K7) those per
 batch of each variant in step 28, ``settings_train_launches`` (K2–K5)
 those of step 29's main_train run, ``bench_frame_launches`` (K1) those
 per replay of step 30's frames and ``bench_train_launches`` (K1, K2–K5)
-those per replay of each graph of step 31.
+those per replay of each graph of step 31, ``attribution_launches`` (K1–K5)
+those per repeat summed over each attribution CLI's pieces in step 35, and
+the counters over that step.
 Every ``ms`` is device time from the profiler.
 Needs the repository checkout around it; JAX is never imported.
 """
 
+import atexit
 import json
 import os
 import re
@@ -366,8 +393,12 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# wall seconds of pieces inside the phases, by piece (printed as
+# ``sub_seconds`` beside ``phase_seconds``)
+SUB_SECONDS = {}
 CONFIG = "configs/synthetic_convergence_fusion_r3.yaml"
 KERNEL_TOL = 0.05            # bf16 kernel vs plain (check_tpu_kernels.py)
 LSE_TOL = 1e-3               # f32 LSE, kernel vs plain, rows with a key
@@ -413,7 +444,7 @@ REL_TOL = 0.02
 # programs are not the eager step's (an exported program, the bench
 # frame), keep the older rule (:func:`within_eager`): bit-identical where
 # the eager runs are, else within GRAPH_DIFF_FACTOR x their difference
-GRAPH_REPS, GRAPH_RUNS, GRAPH_TRAIN_STEPS = 10, 3, 3
+GRAPH_REPS, GRAPH_RUNS, GRAPH_TRAIN_STEPS = 5, 3, 3
 GRAPH_DIFF_FACTOR = 2.0
 # per remat train step from given tokens: the recompute runs every block's
 # attention forward again with a gradient pending (K2 at C >= 128, K4 at
@@ -462,6 +493,17 @@ K7_KERNELS = r"knn_(pack|kernel|merge)"
 # hold each D = 16 row of check_flash_shape to those kernels' names and
 # counts (time_attention.py turns it off to time an older checkout)
 D16_NAMES = True
+
+
+@contextmanager
+def timed(piece):
+    """Add the wall seconds of the block to ``SUB_SECONDS[piece]``."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        SUB_SECONDS[piece] = (SUB_SECONDS.get(piece, 0.0)
+                              + time.perf_counter() - t0)
 
 
 def card_line():
@@ -761,7 +803,7 @@ def profiled_counts(kernels, specs):
 
 
 def time_kernels_in_path(frame, specs):
-    """Kernels inside one batch of a path. From the profiler (3 batches):
+    """Kernels inside one batch of a path. From the profiler (one batch):
     each kernel's device time and launches per batch, which must be exactly
     its expected count (the profiler now and then drops a device record, so
     a short count is profiled once more; a real miscount repeats). Then, on
@@ -788,12 +830,13 @@ def time_kernels_in_path(frame, specs):
             ms > 0 and n == specs[tag].get("device_kernels",
                                            specs[tag]["launches"]))]
 
-    _, kernels, _ = profile_kernels(frame, reps=3)
+    with timed("kernels in path: profile"):
+        _, kernels, _ = profile_kernels(frame, reps=1)
     no_deleted_kernels(kernels)
     if short(profiled_counts(kernels, specs)):
         print(f"profiler: counts {profiled_counts(kernels, specs)} off "
               f"their expected values; profiling once more")
-        _, kernels, _ = profile_kernels(frame, reps=3)
+        _, kernels, _ = profile_kernels(frame, reps=1)
     counts = profiled_counts(kernels, specs)
     total = sum(us for us, _ in kernels.values()) / 1e3
     print(f"profiler, per batch: device kernel time {total:.3f} ms over "
@@ -1971,7 +2014,8 @@ def flash_cases(window_shapes):
     """Cases at D = 64 beside the ViT-S one of :func:`inference_cases`: K8
     (with its LSE) and K9 at the ViT-L/16 encoder's shape (B = 12 images,
     N = 2845, H = 16) and at ragged N = 1, 77, 130 with the trailing keys
-    masked, and K1 at those ragged N (ViT-S heads); then K6 and the window
+    masked, K1 at those ragged N (ViT-S heads) and at the dinov2 encoder's
+    shape (B = 12, N = 257, H = 6, no RoPE); then K6 and the window
     route's K4/K5 at every window-48 shape (``window_shapes``)."""
     cases = [("vitl", 12, 2845, 16, 64, "all", "bhnd", ("K8", "K8", "K9"),
               VITL_LAYERS, 0.125)]
@@ -1979,6 +2023,11 @@ def flash_cases(window_shapes):
                ("K8", "K8", "K9"), 0, 0.125) for n in (1, 77, 130)]
     cases += [(f"ragged_n{n}_packed", 2, n, 6, 64, "trailing", "packed",
                ("K1", None, None), 0, None) for n in (1, 77, 130)]
+    # the dinov2 ViT-S/14 encoder's call (phase 34): 12 images, 1 + 16 x 16
+    # tokens (one valid row in the last query tile), q_scale 1/8, no RoPE;
+    # counted per call, not in the fusion batch's sums
+    cases += [("dinov2", 12, 257, 6, 64, "all", "packed", ("K1", None, None),
+               0, 0.125)]
     return cases + rope_cases() + window_cases(window_shapes)
 
 
@@ -2024,9 +2073,10 @@ def check_attention(cases, seed):
     gen = torch.Generator().manual_seed(seed)
     rows = {}
     for case in cases:
-        for tag, row in check_flash_shape(gen, *case).items():
-            rows.setdefault((tag, case[6]), []).append(row)
-        torch.cuda.empty_cache()
+        with timed(f"attention {case[6]}"):
+            for tag, row in check_flash_shape(gen, *case).items():
+                rows.setdefault((tag, case[6]), []).append(row)
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -2145,6 +2195,54 @@ def run_vitl_frame(card, tmp):
         peak_bytes=peak, batches=n, main_infer_s=seconds,
         device_kernel_ms=total, k1=inside["K1"]), (
         vit, vit_cfg, encode, images)
+
+
+DINOV2_LAUNCHES = 12 + 22   # K1 per batch: ViT-S/14's 12 layers + PTv3
+
+
+def run_dinov2(card, tmp):
+    """Phase 34: the fusion path with ``image_encoder: dinov2`` (ViT-S/14 at
+    224 x 224, 257 tokens, no RoPE, no registers) at the fusion config's
+    full width on a temporary copy: ``main_infer`` over its test batches
+    (every step graphed, exactly 34 K1 launches per batch and no other
+    kernel), then one batch eager against graphed (the launches of an eager
+    frame and of a replay, and the logits, loss and confusion matrix bit for
+    bit, :func:`check_graphed_outputs`), and K1 inside that batch on its
+    own inputs (:func:`time_kernels_in_path`). Returns the phase's record
+    (``k1``: K1 per batch)."""
+    import numpy as np
+    import torch
+    from tpu3dssf_torch.cli import common, main_infer
+
+    path, _ = config_copy(CONFIG, tmp, "dinov2.yaml",
+                          train=dict(image_encoder="dinov2"))
+    cfg = common.load_config(path)
+    n = len(common.build_dataloaders(cfg)["test"])
+    reset_counters()
+    metrics = check_graphed_cli("dinov2 main_infer", lambda: main_infer.main(
+        ["--config", path, "--split", "test"]), 2 * n)
+    launches = counters()
+    want = {k: DINOV2_LAUNCHES * n if k == "K1" else 0 for k in launches}
+    bad = {k: v for k, v in metrics.items() if not np.isfinite(v).all()}
+    print(f"dinov2 main_infer: {n} batches, launches {launches} (expected "
+          f"{want})", flush=True)
+    if launches != want or bad:
+        raise AssertionError(f"dinov2 main_infer: launches {launches} "
+                             f"(expected {want}), non-finite {bad}")
+    device = torch.device("cuda")
+    frame = eval_path("dinov2", cfg, device)
+    frame["graphed"]()          # the first call of each step, and captures
+    per_batch = check_graphed_counts("dinov2", frame["eager"],
+                                     frame["graphed"],
+                                     {"K1": DINOV2_LAUNCHES})
+    outputs = check_graphed_outputs(frame)
+    inside, total = time_kernels_in_path(frame["eager"], {"K1": k1_spec(
+        DINOV2_LAUNCHES)})
+    del frame
+    torch.cuda.empty_cache()
+    return dict(batches=n, launches=launches["K1"], per_batch=per_batch,
+                outputs=outputs, device_kernel_ms=total, k1=inside["K1"],
+                card=card)
 
 
 def run_vitl_k8(vit, encode, images):
@@ -2487,33 +2585,37 @@ def eval_path(name, cfg, device):
 
 
 def ab_time(name, eager, graphed, points, card):
-    """A/B of one path (phase 22, 23): its peak allocated memory eager
-    (two frames) and graphed (the first call of each step and its capture,
-    then a replay); then eager, graphed, graphed, eager, each the
+    """A/B of one path (phases 22, 23 and 29): its peak allocated memory
+    eager (two frames) and graphed (the first call of each step and its
+    capture, then a replay); then eager, graphed, graphed, eager, each the
     CUDA-event median of GRAPH_REPS frames with their spread (max/min);
-    then the profiler's device time of a frame of each. Returns the row."""
+    then the profiler's device time of one graphed frame (the eager
+    frame's kernels are the same; profiling its host ops costs seconds).
+    Returns the row."""
     import statistics
     import torch
     from tpu3dssf_torch.utils import profile_kernels
 
     peaks = {}
-    for tag, fn in (("eager", eager), ("graphed", graphed)):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        fn()
-        fn()
-        torch.cuda.synchronize()
-        peaks[tag] = torch.cuda.max_memory_allocated()
+    with timed(f"ab {name}: peaks"):
+        for tag, fn in (("eager", eager), ("graphed", graphed)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fn()
+            fn()
+            torch.cuda.synchronize()
+            peaks[tag] = torch.cuda.max_memory_allocated()
     runs = {}
-    for tag, fn in (("eager", eager), ("graphed", graphed),
-                    ("graphed_2", graphed), ("eager_2", eager)):
-        times = event_times(fn)
-        runs[tag] = dict(ms=statistics.median(times),
-                         spread=max(times) / min(times))
+    with timed(f"ab {name}: runs"):
+        for tag, fn in (("eager", eager), ("graphed", graphed),
+                        ("graphed_2", graphed), ("eager_2", eager)):
+            times = event_times(fn)
+            runs[tag] = dict(ms=statistics.median(times),
+                             spread=max(times) / min(times))
     device = {}
-    for tag, fn in (("eager", eager), ("graphed", graphed)):
-        _, kernels, _ = profile_kernels(fn, reps=3)
-        device[tag] = dict(
+    with timed(f"ab {name}: device"):
+        _, kernels, _ = profile_kernels(graphed, reps=1)
+        device["graphed"] = dict(
             ms=sum(us for us, _ in kernels.values()) / 1e3,
             kernels=sum(c for _, c in kernels.values()))
     row = dict(path=name, points=points, runs=runs, device=device,
@@ -2616,12 +2718,14 @@ def run_graph_paths(card, tmp):
     for name, src, train, tpu, want in specs:
         cfg = common.load_config(config_copy(src, tmp, f"{name}_g.yaml",
                                              train=train, tpu=tpu)[0])
-        path = eval_path(name, cfg, device)
+        with timed("graph paths: build"):
+            path = eval_path(name, cfg, device)
         row = ab_time(name, path["eager"], path["graphed"], path["points"],
                       card)
-        row["launches"] = check_graphed_counts(name, path["eager"],
-                                               path["graphed"], want)
-        row["outputs"] = check_graphed_outputs(path)
+        with timed("graph paths: counts and outputs"):
+            row["launches"] = check_graphed_counts(name, path["eager"],
+                                                   path["graphed"], want)
+            row["outputs"] = check_graphed_outputs(path)
         if name == "fusion":
             row["second_shape"] = check_second_shape(path, want)
         rows[name] = row
@@ -2665,6 +2769,11 @@ def hold_train_runs(what, state, g_step, step, args, each_step=None):
     are held with the parameters (:func:`chain_after`).
     ``each_step(state)`` runs after every step. Returns dict(params_diff,
     key_bias_diff, counts)."""
+    with timed(f"hold {what}"):
+        return _hold_train_runs(what, state, g_step, step, args, each_step)
+
+
+def _hold_train_runs(what, state, g_step, step, args, each_step):
     import torch
     names = [n for n, _ in state.model.named_parameters()]
     snap = snapshot(state)
@@ -2867,6 +2976,7 @@ def run_remat(card, tokens, batch, vit_cfg):
             gc.collect()
             torch.cuda.empty_cache()
             base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
             state, step, g_step = fusion_state(cfg, vit_cfg, device)
             torch.cuda.reset_peak_memory_stats()
             g_step(state, batch, tokens)    # the first call and its capture
@@ -2895,7 +3005,7 @@ def run_remat(card, tokens, batch, vit_cfg):
             times = event_times(lambda: g_step(state, batch, tokens),
                                 reps=5, warmup=1)
             _, kernels, _ = profile_kernels(
-                lambda: g_step(state, batch, tokens), reps=3)
+                lambda: g_step(state, batch, tokens), reps=1)
             row.update(ms=statistics.median(times),
                        spread=max(times) / min(times),
                        device_ms=sum(us for us, _ in kernels.values()) / 1e3)
@@ -2915,6 +3025,7 @@ def run_remat(card, tokens, batch, vit_cfg):
                                      f"(expected {want}), gradients "
                                      f"{row['grad_diff']}")
             del state, step, g_step, graphs
+            SUB_SECONDS[f"remat {variant}"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for variant in ("remat", "remat_attention"):
@@ -3109,11 +3220,10 @@ def op_dispatch_us(calls=200, runs=5):
     return out
 
 
-def run_export(card, tmp):
-    """Phase 25: export, load in a fresh process, check counts and outputs
-    (see :func:`export_programs` and :func:`run_loaded`). Returns the
-    ``export`` record."""
-    rows = export_programs(tmp)
+def run_export(card, tmp, rows):
+    """Phase 25 after :func:`export_programs` (its ``rows``): load in a
+    fresh process, check counts and outputs (see :func:`run_loaded`).
+    Returns the ``export`` record."""
     t0 = time.perf_counter()
     res = subprocess.run(
         [sys.executable, "-c", "import sys, chip_smoke; "
@@ -3174,6 +3284,9 @@ FAULT_SCALES = (1.0, 1.02, 1.05, 1.1, 1.25)
 FAULT_HELD = 1.25
 FAULT_PROGRAMS = ("vits_encode", "parity", "fusion")
 RUNNER_CALLS = 10
+# the compiles run beside phases 26-31, whose eager paths are bound by
+# the host: their processes (and Inductor's workers) take a lower priority
+PACKAGE_NICE = 10
 # compiled in this order; the first three reach every inference op
 PACKAGES = ("vits_encode", "parity", "window48", "fusion")
 
@@ -3233,6 +3346,7 @@ def compile_package(directory, name):
     into ``directory/<name>.aoti.pt2``. Prints one JSON line: the compile
     seconds, the package's MB and the ops it calls through the
     dispatcher."""
+    os.nice(PACKAGE_NICE)      # the card's phases keep the host first
     import torch
     import tpu3dssf_torch.kernels  # noqa: F401  (the ops' fake kernels)
     from tpu3dssf_torch.export import compile_infer_package, package_ops
@@ -3286,7 +3400,8 @@ def run_packages_loaded(directory):
     library: every package under ``directory`` loaded by ``load_package``
     and called twice on its saved inputs, with its launches per call (the
     C++ counters), its outputs written as raw files for the runner's to be
-    held against and the wall ms of a call (median of 10 after 2); then
+    held against and the wall ms of a call (median of GRAPH_REPS after
+    2); then
     called on each of its PACKAGE_INPUTS input sets, each read against the
     eager model's output (:func:`package_reading`); then, as controls, the
     packages that call K1 read again with K1 served by its plain version,
@@ -3354,11 +3469,12 @@ def run_packages_loaded(directory):
 
 
 def start_package_compiles(tmp):
-    """Phase 32's compiles, started right after phase 25: one process a
+    """Phase 32's compiles, started right after phase 25's exports: one process a
     program (:func:`compile_package`), all at once, each with its share of
     the host's cores for Inductor's compile workers, their output in files
     under ``tmp``; and the programs' inputs written as raw files for the
-    runner. They run on the host's cores while phases 26–31 use the card.
+    runner. They run on the host's cores, at PACKAGE_NICE, while phases
+    26–31 use the card.
     Returns what :func:`run_packages` and :func:`stop_package_compiles`
     take."""
     import torch
@@ -3417,7 +3533,8 @@ def run_packages(card, tmp, export, compiles):
                          text=True, timeout=60).stdout
     rows = {}
     for name, (proc, logs) in compiles["procs"].items():
-        proc.wait(timeout=1200)
+        with timed("packages: compile wait"):
+            proc.wait(timeout=1200)
         for f in logs:
             f.close()
         out, err = (open(f.name).read() for f in logs)
@@ -3427,10 +3544,11 @@ def run_packages(card, tmp, export, compiles):
         rows[name] = json.loads(out.strip().splitlines()[-1])
         print(f"package {name}: {json.dumps(rows[name])}", flush=True)
     compile_wall = time.perf_counter() - compiles["start"]
-    res = subprocess.run(
-        [sys.executable, "-c", "import sys, chip_smoke; "
-         "chip_smoke.run_packages_loaded(sys.argv[1])", tmp], cwd=ROOT,
-        capture_output=True, text=True, timeout=900)
+    with timed("packages: loaded process"):
+        res = subprocess.run(
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             "chip_smoke.run_packages_loaded(sys.argv[1])", tmp], cwd=ROOT,
+            capture_output=True, text=True, timeout=900)
     print(res.stderr[-4000:], end="", flush=True)
     if res.returncode != 0:
         raise AssertionError(f"loading the packages failed (exit "
@@ -3966,7 +4084,30 @@ def run_parallel(card):
 MULTICHIP_TIMEOUT = 600
 
 
-def run_multichip(card):
+def start_multichip():
+    """Phase 33's process, started beside phase 26's ranks (its checks are
+    bit for bit against its own one-process steps, so a card shared with
+    them changes its times only): torchrun at one rank, its output in
+    files. Returns what :func:`run_multichip` takes."""
+    out = tempfile.mktemp(prefix="tpu3dssf_multichip_", suffix=".json")
+    logs = [tempfile.TemporaryFile("w+") for _ in range(2)]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
+         "1", "--master_port", str(free_port()), "-m",
+         "tpu3dssf_torch.cli.multichip", "--out", out], cwd=ROOT,
+        stdout=logs[0], stderr=logs[1], text=True)
+    atexit.register(stop_process, proc)
+    return dict(proc=proc, logs=logs, out=out, start=time.perf_counter())
+
+
+def stop_process(proc):
+    """End ``proc`` if it is still running (after a failure)."""
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def run_multichip(card, started):
     """Phase 33: ``tpu3dssf_torch/cli/multichip.py``, the port of
     ``__graft_entry__.dryrun_multichip``, started by torchrun at one rank
     on the card, so NCCL (one rank, one card), the captured mesh steps and
@@ -3977,20 +4118,23 @@ def run_multichip(card):
     one-process steps bit for bit; ViT-L/16 at TP = 1 (24 K1); one SP
     block at C = 256 (K1, then K2 + K3). At full width, uncut. The script
     checks each phase
-    itself and exits non-zero where one fails. Returns its record."""
-    out = tempfile.mktemp(prefix="tpu3dssf_multichip_", suffix=".json")
-    t0 = time.perf_counter()
-    res = subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
-         "1", "--master_port", str(free_port()), "-m",
-         "tpu3dssf_torch.cli.multichip", "--out", out], cwd=ROOT,
-        capture_output=True, text=True, timeout=MULTICHIP_TIMEOUT)
-    wall = time.perf_counter() - t0
-    for line in res.stdout.splitlines()[-8:]:
+    itself and exits non-zero where one fails. ``started``: what
+    :func:`start_multichip` returned. Returns its record."""
+    proc, out = started["proc"], started["out"]
+    proc.wait(timeout=max(1.0, MULTICHIP_TIMEOUT - (
+        time.perf_counter() - started["start"])))
+    wall = time.perf_counter() - started["start"]
+    stdout, stderr = [], []
+    for f, into in zip(started["logs"], (stdout, stderr)):
+        f.seek(0)
+        into.append(f.read())
+        f.close()
+    stdout, stderr = stdout[0], stderr[0]
+    for line in stdout.splitlines()[-8:]:
         print(f"[multichip] {line[:4000]}")
-    if res.returncode != 0:
+    if proc.returncode != 0:
         raise AssertionError(f"phase 33: multichip exited "
-                             f"{res.returncode}:\n{res.stderr[-6000:]}")
+                             f"{proc.returncode}:\n{stderr[-6000:]}")
     try:
         with open(out) as f:
             record = json.load(f)
@@ -4277,6 +4421,9 @@ SETTINGS["all"] = {k: v for d in SETTINGS.values() for k, v in d.items()}
 # (d): epochs of 3 values, patience 2, so a short sequence crosses several
 # decisions; values at these indices are NaN, and one is Inf
 PLATEAU_NAN, PLATEAU_INF = (4, 13, 14, 30), 22
+# (b): the setting whose step is also timed eager against graphed (it
+# holds the other four)
+SETTINGS_TIMED = "all"
 
 
 def plateau_values():
@@ -4481,15 +4628,17 @@ def check_device_plateau():
 
 def run_graph_settings(card, tmp):
     """Phase 29: (a) then, for each of :data:`SETTINGS`, (b) the
-    full-width fusion step eager against graphed; (c) and (d) (see the
-    module docstring). Returns the record."""
+    full-width fusion step eager against graphed (timed on
+    SETTINGS_TIMED); (c) and (d) (see the module docstring). Returns the
+    record."""
     import dataclasses
 
     import torch
     from tpu3dssf_torch.cli import common
     from tpu3dssf_torch.train.graph import graphed
 
-    record = {"train": run_settings_training(card, tmp)}
+    with timed("settings main_train"):
+        record = {"train": run_settings_training(card, tmp)}
     base = common.load_config(CONFIG)
     device = torch.device("cuda")
     encode, vit_cfg = common.build_image_encoder(base, device, graph=False)
@@ -4499,7 +4648,8 @@ def run_graph_settings(card, tmp):
     rows = {}
     for name, change in SETTINGS.items():
         cfg = dataclasses.replace(base, **change)
-        state, step, g_step = fusion_state(cfg, vit_cfg, device)
+        with timed("settings state"):
+            state, step, g_step = fusion_state(cfg, vit_cfg, device)
 
         def eager():
             return step(state, batch, encode(images))
@@ -4507,10 +4657,15 @@ def run_graph_settings(card, tmp):
         def graphed_frame():
             return g_step(state, batch, g_encode(images))
 
-        row = ab_time(f"train_step {name}", eager, graphed_frame, points,
-                      card)
-        row["launches"] = check_graphed_counts(
-            f"train_step {name}", eager, graphed_frame, TRAIN_LAUNCHES)
+        if name == SETTINGS_TIMED:
+            row = ab_time(f"train_step {name}", eager, graphed_frame,
+                          points, card)
+        else:
+            row = {}
+            graphed_frame()          # the first call and its capture
+        with timed("settings counts"):
+            row["launches"] = check_graphed_counts(
+                f"train_step {name}", eager, graphed_frame, TRAIN_LAUNCHES)
         lr_err = []
         row.update(hold_train_runs(
             f"{name} train step", state, g_step, step, (batch, tokens),
@@ -4521,8 +4676,9 @@ def run_graph_settings(card, tmp):
             raise AssertionError(f"{name} train step: lr error "
                                  f"{row['lr_err']}")
         if name == "all":
-            record["nan_batches"] = check_nan_batches(state, step, g_step,
-                                                      batch, tokens)
+            with timed("settings nan batches"):
+                record["nan_batches"] = check_nan_batches(
+                    state, step, g_step, batch, tokens)
         rows[name] = row
         del state, step, g_step, eager, graphed_frame
         torch.cuda.empty_cache()
@@ -4711,6 +4867,95 @@ def run_bench_train(card):
     return dict(rows=rows, launches=total, seconds=seconds, card=card)
 
 
+# phase 35: the attribution CLIs in process at two repeats a piece; the rows
+# each must print at the full train shapes
+ATTRIBUTION_TOOLS = {"attr_bwd": 103, "time_ptv3_parts": 32,
+                     "time_block_glue": 45, "time_loss_parts": 11}
+ATTRIBUTION_ARGS = ["--r", "2", "--replays", "2", "--warmup", "1"]
+# rows that may lack a device time (the profiler lost every record of their
+# windows, which it does now and then late in a long process: phase 13's
+# rows show it too); the wall time is held for every row
+ATTRIBUTION_UNRECORDED = 0.05
+
+
+def attribution_launches(row):
+    """The attention launches a row of the attribution CLIs must show per
+    repeat: its SerializedAttention's route at its (N, C, H) for the rows
+    that run attention (``cli.pieces.attention_launches``), K1 per block
+    for the full PTv3 forward, none for every other piece."""
+    from tpu3dssf_torch.cli.pieces import attention_launches
+    kind = row.get("kind", "")
+    grad = kind.endswith("fwd_bwd")
+    if kind in ("block_fwd", "block_fwd_bwd", "attention", "block",
+                "decoder_block") or (kind.startswith("sub_") and
+                                     row["sub"].startswith("attn")):
+        return attention_launches(row["C"], row["H"], min(1024, row["N"]),
+                                  grad)
+    if kind == "full":
+        return {"K1": 22}
+    return {}
+
+
+def run_attribution(card, tmp):
+    """Phase 35: ``cli/attr_bwd.py``, ``cli/time_ptv3_parts.py``,
+    ``cli/time_block_glue.py`` and ``cli/time_loss_parts.py`` run in this
+    process at their full shapes with two repeats a piece and two timed
+    replays (:data:`ATTRIBUTION_ARGS`); each one's JSON (``--out``) must hold
+    all its rows, each with a finite wall time > 0, a finite device time
+    > 0 (all but ATTRIBUTION_UNRECORDED of them: a window whose every
+    record the profiler lost has none) and the attention launches of
+    :func:`attribution_launches`, and attr_bwd's
+    whole train steps 14 K2 + 14 K3 + 8 K4 + 8 K5 each. Returns {tool:
+    {rows, seconds, launches by kernel summed over its rows}} and the
+    counters' launches over the phase."""
+    import importlib
+    import math
+    reset_counters()
+    out = {}
+    for tool, n_rows in ATTRIBUTION_TOOLS.items():
+        path = os.path.join(tmp, f"{tool}.json")
+        t0 = time.perf_counter()
+        importlib.import_module(f"tpu3dssf_torch.cli.{tool}").main(
+            ATTRIBUTION_ARGS + ["--out", path])
+        seconds = time.perf_counter() - t0
+        with open(path) as f:
+            rec = json.load(f)
+        unit, rows = rec["unit"], rec["rows"]
+        bad = [r["piece"] for r in rows if not (
+            math.isfinite(r[unit]) and r[unit] > 0
+            and (r["device_" + unit] is None or (
+                math.isfinite(r["device_" + unit])
+                and r["device_" + unit] > 0))
+            and r["launches"] == attribution_launches(r))]
+        unrecorded = [r["piece"] for r in rows
+                      if r["device_" + unit] is None]
+        if (len(rows) != n_rows or bad or rec["card"] != card
+                or len(unrecorded) > ATTRIBUTION_UNRECORDED * n_rows):
+            raise AssertionError(f"{tool}: {len(rows)} rows (expected "
+                                 f"{n_rows}), off: {bad}, without a device "
+                                 f"time: {unrecorded}")
+        if tool == "attr_bwd":
+            for name, whole in rec["sums"]["wholes"].items():
+                if whole["launches"] != {k: TRAIN_LAUNCHES[k] for k in (
+                        "K2", "K3", "K4", "K5")} or not whole["ms"] > 0:
+                    raise AssertionError(f"attr_bwd {name} step: {whole}")
+        summed = {}
+        for r in rows:
+            for k, v in r["launches"].items():
+                summed[k] = summed.get(k, 0) + v
+        out[tool] = dict(rows=len(rows), seconds=seconds, launches=summed,
+                         device_not_recorded=unrecorded,
+                         sums=rec.get("sums"))
+        print(f"attribution {tool}: {len(rows)} rows in {seconds:.1f} s, "
+              f"attention launches per repeat summed over the rows "
+              f"{summed}, rows without a device time {unrecorded} "
+              f"[{card}]", flush=True)
+    counts = counters()
+    if any(counts[k] == 0 for k in ("K1", "K2", "K3", "K4", "K5")):
+        raise AssertionError(f"attribution CLIs: launches {counts}")
+    return out, counts
+
+
 def per_path(rows, key, count):
     """Σ over a kernel's shapes of (calls per batch or step × per call)."""
     return sum(r[count] * r[key] for r in rows)
@@ -4781,8 +5026,9 @@ def main():
         export_tmp = tempfile.mkdtemp(prefix="tpu3dssf_smoke_")
         compiles = None
         try:
-            export = run_export(card, export_tmp)
+            rows = export_programs(export_tmp)
             compiles = start_package_compiles(export_tmp)
+            export = run_export(card, export_tmp, rows)
             runner_future.result()
             run_packages(card, export_tmp, export, compiles)
         finally:
@@ -4831,6 +5077,22 @@ def main():
     check_small_model_grad()
     mark("8-11")
 
+    # phase 25: the inference programs exported, loaded without model
+    # code; phase 32: the same programs as AOTInductor packages, compiled
+    # on the host's cores at a low priority from the end of the exports
+    # while 25's loading process and phases 13-31 use the card, then
+    # loaded in Python and run by aoti_runner (25 runs after 9, whose
+    # profiler ranges would stretch beside the compiles). On a failure the
+    # compiles are stopped and the directory removed at exit.
+    export_tmp = tempfile.mkdtemp(prefix="tpu3dssf_smoke_")
+    atexit.register(shutil.rmtree, export_tmp, ignore_errors=True)
+    with timed("export: programs"):
+        export_rows = export_programs(export_tmp)
+    compiles = start_package_compiles(export_tmp)
+    atexit.register(stop_package_compiles, compiles)
+    export = run_export(card, export_tmp, export_rows)
+    mark("25")
+
     parity_rows = check_attention(inference_cases(slice_attention_shapes(
         load_config(PARITY_CONFIG))), seed=13)[("K1", "packed")]
     knn_rows = check_knn(card)
@@ -4846,17 +5108,21 @@ def main():
     try:
         vitl_k1, vitl_frame, (vit, vit_cfg, encode, images) = \
             run_vitl_frame(card, tmp)
+        mark("17")
         k8_launches, k8, route = run_vitl_k8(vit, encode, images)
+        mark("18")
         grad_launches, k9, grad = run_vitl_grad(vit, vit_cfg, images)
+        mark("19")
         # phase 21: the same gradient on the K1 route (24 K1 + 24 K9)
         # (its gradient function is dropped: it holds the encoder)
         k1_grad_launches, k1_grad = vitl_gradient(vit, vit_cfg, images,
                                                   True)[:2]
         del vit, encode, images
         torch.cuda.empty_cache()
+        mark("21")
         k6_launches, k6, window_frame, step_launches = run_window_path(card,
                                                                        tmp)
-        mark("17-21")
+        mark("20")
         # phase 22: the four inference paths eager against graphed
         graph_rows = run_graph_paths(card, tmp)
     finally:
@@ -4864,60 +5130,60 @@ def main():
     mark("22")
     # phases 23 and 24: the train step graphed, then with remat
     graph_rows["train_step"], train_inputs = run_graph_train(card)
+    mark("23")
     remat = run_remat(card, *train_inputs)
     del train_inputs
-    mark("23-24")
-    # phase 25: the inference programs exported, loaded without model
-    # code; phase 32: the same programs as AOTInductor packages, compiled
-    # on the host's cores while phases 26-31 use the card, then loaded in
-    # Python and run by aoti_runner
-    export_tmp = tempfile.mkdtemp(prefix="tpu3dssf_smoke_")
-    compiles = None
+    mark("24")
+    # phase 26: two gloo ranks sharing the card (DP inference and train
+    # step, ViT-L tensor parallelism, one sequence-parallel block); beside
+    # them phase 33: cli/multichip.py at one rank over NCCL
+    torch.cuda.empty_cache()
+    started = start_multichip()
+    parallel = run_parallel(card)
+    mark("26")
+    multichip = run_multichip(card, started)
+    mark("33")
+
+    # phases 27 and 28: the LiDAR-only model trained through
+    # main_train, then the ported parity_ab on its checkpoint
+    tmp = tempfile.mkdtemp(prefix="tpu3dssf_smoke_")
     try:
-        export = run_export(card, export_tmp)
-        mark("25")
-        compiles = start_package_compiles(export_tmp)
-
-        # phase 26: two gloo ranks sharing the card (DP inference and train
-        # step, ViT-L tensor parallelism, one sequence-parallel block)
-        torch.cuda.empty_cache()
-        parallel = run_parallel(card)
-        mark("26")
-        # phase 33: cli/multichip.py at one rank over NCCL
-        multichip = run_multichip(card)
-        mark("33")
-
-        # phases 27 and 28: the LiDAR-only model trained through
-        # main_train, then the ported parity_ab on its checkpoint
-        tmp = tempfile.mkdtemp(prefix="tpu3dssf_smoke_")
-        try:
-            lidar_train, path, ckpt = run_lidar_training(card, tmp)
-            ab = run_parity_ab(card, path, ckpt, tmp)
-        finally:
-            shutil.rmtree(tmp, ignore_errors=True)
-        mark("27-28")
-
-        # phase 29: every train configuration through one graph
-        tmp = tempfile.mkdtemp(prefix="tpu3dssf_smoke_")
-        try:
-            settings = run_graph_settings(card, tmp)
-        finally:
-            shutil.rmtree(tmp, ignore_errors=True)
-        mark("29")
-
-        # phases 30 and 31: the bench entry points (cli/bench.py's frame,
-        # float and W8A8; cli/bench_train.py's rows)
-        bench_frames = run_bench_frames(card)
-        bench_rows = run_bench_train(card)
-        mark("30-31")
-
-        runner_future.result()
-        packages = run_packages(card, export_tmp, export, compiles)
-        mark("32")
+        lidar_train, path, ckpt = run_lidar_training(card, tmp)
+        ab = run_parity_ab(card, path, ckpt, tmp)
     finally:
-        if compiles is not None:
-            stop_package_compiles(compiles)
-        shutil.rmtree(export_tmp, ignore_errors=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+    mark("27-28")
+
+    # phase 29: every train configuration through one graph
+    tmp = tempfile.mkdtemp(prefix="tpu3dssf_smoke_")
+    try:
+        settings = run_graph_settings(card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    mark("29")
+
+    # phases 30 and 31: the bench entry points (cli/bench.py's frame,
+    # float and W8A8; cli/bench_train.py's rows)
+    bench_frames = run_bench_frames(card)
+    bench_rows = run_bench_train(card)
+    mark("30-31")
+
+    runner_future.result()
+    packages = run_packages(card, export_tmp, export, compiles)
+    mark("32")
+
+    # phase 34: the fusion path with the dinov2 encoder; phase 35: the
+    # attribution CLIs
+    tmp = tempfile.mkdtemp(prefix="tpu3dssf_smoke_")
+    try:
+        torch.cuda.empty_cache()
+        dinov2 = run_dinov2(card, tmp)
+        mark("34")
+        attribution, attribution_counts = run_attribution(card, tmp)
+        mark("35")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    dinov2_row = next(r for r in rows if r["shape"] == "dinov2")
 
     def parallel_launches(k):
         """Launches of kernel ``k`` on rank 0 in each path of phase 26."""
@@ -4934,7 +5200,8 @@ def main():
         "replaces": KERNELS["K1"][2],
         "launches": launches,
         "max_abs_err": max([k1["max_abs_err"], in_parity["K1"]["max_abs_err"],
-                            vitl_frame["k1"]["max_abs_err"]]
+                            vitl_frame["k1"]["max_abs_err"],
+                            dinov2["k1"]["max_abs_err"]]
                            + [h["K1"]["max_abs_err"]
                               for h in ab["held"].values()]
                            + [r["max_abs_err"] for r in rows + parity_rows
@@ -4976,6 +5243,18 @@ def main():
                 "ms", "bound_ms", "bound_by", "plain_ms", "outside_route_ms",
                 "library_ms", "max_abs_err", "rel_err")}
                for size in ("s", "l")}},
+        # the dinov2 encoder (phase 34): launches over its main_infer run
+        # and per batch; K1 per batch on that batch's own inputs; and per
+        # call at its shape (phase 3: B = 12, N = 257, H = 6, D = 64) beside
+        # its bound and SDPA on the same inputs
+        "dinov2": {
+            "launches": dinov2["launches"],
+            "launches_per_batch": dinov2["per_batch"]["K1"],
+            "per_batch": {key: dinov2["k1"][key] for key in (
+                "ms", "plain_ms", "max_abs_err", "rel_err")},
+            "per_call": {key: dinov2_row[key] for key in (
+                "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "max_abs_err", "rel_err")}},
         # per parity batch, likewise
         "parity": dict(
             ms=in_parity["K1"]["ms"], plain_ms=in_parity["K1"]["plain_ms"],
@@ -5092,6 +5371,12 @@ def main():
 
     for record in records:
         k = next(k for k, v in KERNELS.items() if v[2] == record["replaces"])
+        if k in ("K1", "K2", "K3", "K4", "K5"):
+            # phase 35: per repeat, summed over each attribution CLI's
+            # pieces, and the counters over the phase
+            record["attribution_launches"] = dict(
+                {t: a["launches"].get(k, 0) for t, a in attribution.items()},
+                phase=attribution_counts[k])
         record["parallel_launches_per_rank"] = parallel_launches(k)
         record["multichip_launches"] = multichip_launches(k)
         # the op's C++ CUDA kernel that checks, allocates, launches, counts
@@ -5114,6 +5399,9 @@ def main():
     print("settings " + json.dumps(settings))
     print("bench_frames " + json.dumps(bench_frames))
     print("bench_train " + json.dumps(bench_rows))
+    print("dinov2 " + json.dumps(dinov2))
+    print("attribution " + json.dumps(attribution))
+    print("sub_seconds " + json.dumps(SUB_SECONDS))
     print("phase_seconds " + json.dumps(seconds))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -912,6 +912,26 @@ def test_d64_forward_and_backward_match_their_plain_versions(cuda, N, packed,
         assert a[1].abs().max().item() == 0.0, name   # the all-masked row
 
 
+def test_k1_at_the_dinov2_shape(cuda):
+    """K1 as the dinov2 ViT-S/14 encoder calls it: 6 cameras of 2 scenes
+    (B = 12), 1 + 16 x 16 tokens (N = 257: one valid row in the last
+    64-row query tile, one key in the last 128-key tile), H = 6, D = 64,
+    no RoPE, q_scale 1/8, every key live; one launch, held against its
+    plain version within 0.05 · max(1, max |plain|) and 2% of max |plain|,
+    the last query row alone too."""
+    gen = torch.Generator().manual_seed(257)
+    qkv = torch.randn(12, 257, 3 * 384, generator=gen).to(cuda,
+                                                           torch.bfloat16)
+    bias = wa.key_bias(torch.ones(12, 257, dtype=torch.bool, device=cuda))
+    before = fa.LAUNCHES
+    out = fa.flash_attention_packed(qkv, bias, 6, 0.125)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == before + 1
+    ref = fa.flash_attention_packed_reference(qkv, bias, 6, 0.125)
+    _close(out, ref, "dinov2 K1")
+    _close(out[:, -1], ref[:, -1], "dinov2 K1, the last query row")
+
+
 def test_d64_launches_count_once_each(cuda):
     """A D = 64 call counts once as K1 (packed), K8 and K9."""
     q, k, v, bias, dout = _d64_inputs(cuda, 300, packed=True)

@@ -309,7 +309,11 @@ def test_port_imports_no_jax():
         " 'tpu3dssf_torch.parallel.mesh', 'tpu3dssf_torch.parallel.sp',"
         " 'tpu3dssf_torch.cli.parity_ab', 'tpu3dssf_torch.cli.convergence',"
         " 'tpu3dssf_torch.cli.bench', 'tpu3dssf_torch.cli.bench_train',"
-        " 'tpu3dssf_torch.cli.bench_vitl', 'tpu3dssf_torch.cli.sweep'}\n"
+        " 'tpu3dssf_torch.cli.bench_vitl', 'tpu3dssf_torch.cli.sweep',"
+        " 'tpu3dssf_torch.cli.attr_bwd', 'tpu3dssf_torch.cli.time_ptv3_parts',"
+        " 'tpu3dssf_torch.cli.time_block_glue',"
+        " 'tpu3dssf_torch.cli.time_loss_parts', 'tpu3dssf_torch.cli.pieces',"
+        " 'tpu3dssf_torch.train.convert'}\n"
         "assert new <= set(sys.modules), new - set(sys.modules)\n"
         "import tpu3dssf_torch.kernels as k\n"
         "names = ('flash_attention', 'mha_reference', 'window_attention')\n"

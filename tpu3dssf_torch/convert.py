@@ -15,7 +15,9 @@ port's modules, whose submodule names follow the flax names. Layout rules:
   f32 under their own names;
 * everything else (``bias``, ``gamma``, tokens, ``pos_embed``) as it is.
 
-This module needs neither JAX nor flax.
+A PTv3 tree in the JAX package's ``scan_blocks`` layout is unstacked on the
+way in (:func:`pipeline_state_dict_from_flax`). This module needs neither
+JAX nor flax.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+
+from tpu3dssf_torch.train.convert import convert_tree
 
 _VIT_BLOCK = re.compile(r"^block(\d+)$")
 
@@ -76,13 +80,12 @@ def _to_torch(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
 def pipeline_state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
     """``SegmentationPipeline`` params (``ptv3`` + ``fusion``) →
     ``tpu3dssf_torch.models.SegmentationPipeline`` state_dict. PTv3 blocks
-    must be unrolled (``enc{s}_blk{b}``; the CLI configs leave
-    ``scan_blocks`` False)."""
+    may be unrolled (``enc{s}_blk{b}``) or stacked by the JAX package's
+    ``scan_blocks`` (``enc{s}_scan``, a leading depth axis), which this
+    unstacks first (:func:`tpu3dssf_torch.train.convert.convert_tree`)."""
     p = _unwrap(params)
     if any(k.endswith("_scan") for k in p.get("ptv3", {})):
-        raise ValueError("scan_blocks PTv3 trees are not supported: convert "
-                         "with tpu3dssf.train.convert.convert_tree(tree, "
-                         "to_scan=False) first")
+        p = dict(p, ptv3=convert_tree(p["ptv3"], to_scan=False))
     return state_dict_from_flax(p)
 
 

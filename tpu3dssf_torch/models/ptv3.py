@@ -295,6 +295,25 @@ def attention_route(channels, heads, window):
     return "window"
 
 
+def windowed_attention(qkvw, key_mask, heads):
+    """Attention within each window of the (W, K, 3C) projection ``qkvw``
+    under the (W, K) ``key_mask``, on the route of :func:`attention_route`
+    (its kernel on a CUDA tensor), the masked query rows zeroed: (W, K,
+    C)."""
+    W, K, C3 = qkvw.shape
+    C = C3 // 3
+    route = attention_route(C, heads, K)
+    if route == "packed":
+        out = flash_attention_packed(qkvw, key_bias(key_mask), heads,
+                                     1.0 / ((C // heads) ** 0.5))
+        return out * key_mask[..., None].to(out.dtype)
+    if route == "window_packed":
+        return window_attention_packed(qkvw, key_mask, heads)
+    # strided (W, K, H, D) views of the projection: no copy
+    q, k, v = qkvw.unflatten(-1, (3, heads, C // heads)).unbind(2)
+    return window_attention(q, k, v, key_mask).reshape(W, K, C)
+
+
 class SerializedAttention(nn.Module):
     """Windowed MHA over one serialization order."""
 
@@ -314,20 +333,8 @@ class SerializedAttention(nn.Module):
         else:
             mask_s = mask
         W = N // K
-        H = self.heads
-        qkvw = qkv.reshape(B * W, K, 3 * C)
-        key_mask = mask_s.reshape(B * W, K)
-        route = attention_route(C, H, K)
-        if route == "packed":
-            out = flash_attention_packed(qkvw, key_bias(key_mask), H,
-                                         1.0 / ((C // H) ** 0.5))
-            out = out * key_mask[..., None].to(out.dtype)
-        elif route == "window_packed":
-            out = window_attention_packed(qkvw, key_mask, H)
-        else:
-            # strided (W, K, H, D) views of the projection: no copy
-            q, k, v = qkvw.unflatten(-1, (3, H, C // H)).unbind(2)
-            out = window_attention(q, k, v, key_mask)
+        out = windowed_attention(qkv.reshape(B * W, K, 3 * C),
+                                 mask_s.reshape(B * W, K), self.heads)
         out = out.reshape(B, N, C)
         if inv is not None:
             out = permutation_gather(out, inv, perm)

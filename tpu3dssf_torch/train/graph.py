@@ -26,6 +26,11 @@ per shape and static argument:
    the graph and returns clones of its outputs: callers keep outputs across
    calls, and a replay overwrites the static ones.
 
+With ``nodes=True`` each capture also keeps the CUDA graph's kernel nodes
+(the graph's DOT dump, one label per node, function names included:
+:meth:`_Graph.count_nodes`), so a caller can count the device kernels of
+one replay where a profiler may lose records.
+
 ``before(*args)``, where given, runs on the host before every call and
 returns the arguments the step takes (a train step draws its DropPath
 masks there, which the graph then copies in as an input); ``after(*args)``
@@ -60,7 +65,11 @@ anew.
 
 from __future__ import annotations
 
+import os
+import re
+import tempfile
 import time
+import warnings
 import weakref
 from typing import Callable, Optional
 
@@ -111,13 +120,23 @@ def _leaf_key(x):
 
 
 class _Graph:
-    """One captured step: the graph, its static inputs and outputs, and the
-    kernel launches it makes per replay."""
+    """One captured step: the graph, its static inputs and outputs, the
+    kernel launches it makes per replay and, where it was captured with
+    ``nodes=True``, the labels of its nodes."""
 
-    def __init__(self, graph, device, inputs, outputs, out_spec, launches):
+    def __init__(self, graph, device, inputs, outputs, out_spec, launches,
+                 nodes=None):
         self.graph, self.device = graph, device
         self.inputs, self.outputs, self.out_spec = inputs, outputs, out_spec
-        self.launches = launches
+        self.launches, self.nodes = launches, nodes
+
+    def count_nodes(self, pattern):
+        """The nodes whose label matches ``pattern`` (a regular expression
+        searched in each label; a kernel node's holds its function
+        name)."""
+        if self.nodes is None:
+            raise ValueError("this graph was captured without nodes=True")
+        return sum(1 for body in self.nodes if re.search(pattern, body))
 
     def replay(self, leaves):
         global REPLAYS
@@ -140,8 +159,9 @@ class GraphedStep:
 
     def __init__(self, step: Callable, name: Optional[str] = None,
                  before: Optional[Callable] = None,
-                 after: Optional[Callable] = None):
+                 after: Optional[Callable] = None, nodes: bool = False):
         self.step, self.before, self.after = step, before, after
+        self.nodes = nodes
         self.name = name or getattr(step, "__name__", "step")
         self.graphs: dict = {}
         _LIVE.add(self)
@@ -178,7 +198,9 @@ class GraphedStep:
             t0 = time.perf_counter()
             inputs = [x.clone() if isinstance(x, torch.Tensor) else x
                       for x in leaves]
-            graph = torch.cuda.CUDAGraph()
+            graph = torch.cuda.CUDAGraph(keep_graph=self.nodes)
+            if self.nodes:
+                graph.enable_debug_mode()
             before = kernel_modules.launch_counts()
             try:
                 with torch.cuda.graph(graph, pool=_pool(device),
@@ -189,10 +211,14 @@ class GraphedStep:
                 counts = kernel_modules.launch_counts()
             finally:
                 kernel_modules.set_launch_counts(before)
+            nodes = None
+            if self.nodes:
+                nodes = _kernel_nodes(graph)
+                graph.instantiate()
             outputs, out_spec = pytree.tree_flatten(captured)
             self.graphs[key] = _Graph(
                 graph, device, inputs, outputs, out_spec,
-                {k: counts[k] - before[k] for k in before})
+                {k: counts[k] - before[k] for k in before}, nodes)
             CAPTURES += 1
         first = next((x for x in leaves if isinstance(x, torch.Tensor)),
                      None)
@@ -208,12 +234,26 @@ class GraphedStep:
                        if not any(x is obj for x in key[1])}
 
 
+def _kernel_nodes(graph):
+    """The labels of the nodes of a captured (not yet instantiated) graph,
+    from its DOT dump: one statement a node, its label over several lines
+    (a kernel node's holds the kernel's function name)."""
+    with tempfile.TemporaryDirectory() as tmp, warnings.catch_warnings():
+        warnings.simplefilter("ignore")      # torch's "DEBUG: calling ..."
+        path = os.path.join(tmp, "graph.dot")
+        graph.debug_dump(path)
+        with open(path) as f:
+            text = f.read()
+    return re.findall(r'"\w+"\s*\[(.*?)\];', text, re.S)
+
+
 def graphed(step: Callable, name: Optional[str] = None,
             before: Optional[Callable] = None,
-            after: Optional[Callable] = None) -> GraphedStep:
+            after: Optional[Callable] = None,
+            nodes: bool = False) -> GraphedStep:
     """``step(*args)`` as a :class:`GraphedStep` (the module docstring says
     how it runs)."""
-    return GraphedStep(step, name, before, after)
+    return GraphedStep(step, name, before, after, nodes)
 
 
 def drop_graphs(obj):

@@ -1,7 +1,8 @@
 """Device timing on a CUDA card, and the host-side timers.
 
 The port's counterpart of ``tpu3dssf.utils.timing``: the median of a
-callable between CUDA events (:func:`cuda_ms`, the port's ``time_device``),
+callable between CUDA events (:func:`cuda_ms`, the port's ``time_device``,
+over the samples of :func:`cuda_times`),
 the device time of each CUDA kernel a callable launches
 (:func:`profile_kernels`), the peak allocated device memory
 (:func:`peak_hbm_mb`), a wall-time and memory snapshot around one call
@@ -20,9 +21,10 @@ import torch
 _MIB = 1024 ** 2
 
 
-def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median milliseconds of ``fn()`` between CUDA events, after
-    ``warmup`` untimed calls; synchronises after every call."""
+def cuda_times(fn, reps: int = 20, warmup: int = 3):
+    """Milliseconds of each of ``reps`` calls of ``fn()`` between CUDA
+    events, after ``warmup`` untimed calls; synchronises after every
+    call."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -35,6 +37,13 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
+    return times
+
+
+def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median milliseconds of ``fn()`` between CUDA events, after
+    ``warmup`` untimed calls (:func:`cuda_times`)."""
+    times = cuda_times(fn, reps, warmup)
     return sorted(times)[len(times) // 2]
 
 
