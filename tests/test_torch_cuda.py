@@ -440,6 +440,158 @@ def test_the_tensor_lr_follows_the_schedule_across_replays(cuda):
                       _max_diff(runs[2], runs[1]))
 
 
+# The program's spans in CUDA graphs (tpu3dssf_torch.utils.timing): off,
+# a capture holds what it held before spans existed; on, the same kernel
+# nodes plus two event-record nodes a span, read after every replay.
+def _node_labels(g):
+    """A graph's node labels with every number taken out (pointers, node
+    ids and launch sizes differ between two captures of one step)."""
+    import re
+    (captured,) = g.graphs.values()
+    return [re.sub(r"0x[0-9a-fA-F]+|\d+", "", body)
+            for body in captured.nodes if "shape=" in body]   # no edges
+
+
+def _is_event(label):
+    return "EVENT" in label.upper()
+
+
+def _with_spans(on, fn):
+    from tpu3dssf_torch.utils import timing
+    timing.enable_spans(on)
+    timing.reset_spans()
+    try:
+        return fn()
+    finally:
+        timing.enable_spans(False)
+
+
+def _labels_step(model, batch, tokens):
+    return model(batch["points"], batch["point_valid"], tokens,
+                 batch["cam_intrinsics"], batch["lidar2cam"]).argmax(-1)
+
+
+@pytest.mark.parametrize("kind", ["labels", "eval", "train"])
+def test_spans_add_only_event_nodes_to_a_graph(cuda, kind):
+    from tpu3dssf_torch.train import graph, make_eval_step, make_train_step
+
+    labels = {}
+    for on in (False, True):
+        state, loss_fn, batch, tokens = _small_model(cuda)
+        if kind == "train":
+            g = graph.graphed(make_train_step(loss_fn).update, nodes=True)
+            args = (state, batch, tokens)
+        else:
+            step = (_labels_step if kind == "labels"
+                    else make_eval_step(loss_fn, 16))
+            g = graph.graphed(torch.inference_mode()(step), nodes=True)
+            args = (state.model, batch, tokens)
+        _with_spans(on, lambda: g(*args))
+        labels[on] = _node_labels(g)
+        if on:
+            (captured,) = g.graphs.values()
+            spans = captured.spans
+    from collections import Counter
+    assert labels[False] and not any(map(_is_event, labels[False]))
+    events = [x for x in labels[True] if _is_event(x)]
+    on = Counter(x for x in labels[True] if not _is_event(x))
+    off = Counter(labels[False])
+    assert on == off, (list(on - off)[:2], list(off - on)[:2])
+    names = {name for name, _, _, _ in spans}
+    want = {"forward", "voxelize", "ptv3", "head", "devoxelize",
+            "ptv3.blocks", "ptv3.serialize", "ptv3.pool", "ptv3.unpool"}
+    want |= {"eval": {"loss"}, "train": {"update", "loss", "backward",
+                                         "optimizer"}}.get(kind, set())
+    assert names == want and len(events) == 2 * len(spans)
+
+
+def test_replayed_spans_read_positive_times_children_inside_parents(cuda):
+    from tpu3dssf_torch.train import graph
+    from tpu3dssf_torch.utils import timing
+
+    state, loss_fn, batch, tokens = _small_model(cuda)
+    g = graph.graphed(torch.inference_mode()(_labels_step), "labels")
+
+    def run():
+        for _ in range(3):
+            g(state.model, batch, tokens)
+        torch.cuda.synchronize()
+        (captured,) = g.graphs.values()
+        inside = all(
+            captured.spans[p][2].elapsed_time(start) >= 0.0
+            and end.elapsed_time(captured.spans[p][3]) >= 0.0
+            for _, p, start, end in captured.spans if p is not None)
+        return inside, timing.span_records(), timing.span_summary()
+
+    inside, records, summary = _with_spans(True, run)
+    assert inside
+    device = [r for r in records if r[3] == "device"]
+    # the eager first call's spans and two replays' of the same layout
+    assert {r[2] for r in device} == {r[2] for r in records
+                                      if r[0].startswith(("capture:",
+                                                          "replay:"))}
+    assert summary["forward"]["count"] == 3
+    assert summary["forward"]["frames"] == 3
+    assert summary["replay:labels"]["count"] == 2
+    assert summary["replay:labels"]["clock"] == "host"
+    for name, parent, frame, clock, ms in device:
+        assert ms > 0.0, name
+        if parent is not None:
+            assert records[parent][2] == frame
+            assert ms <= records[parent][4] + 1e-3, (name, records[parent])
+    assert summary["forward"]["self_ms"] >= -1e-3
+
+
+def test_spans_leave_labels_and_the_train_update_bit_identical(cuda):
+    from tpu3dssf_torch.train import graph, make_train_step
+
+    got = {}
+    for on in (False, True):
+        state, loss_fn, batch, tokens = _small_model(cuda, drop_path=0.3)
+        labels = graph.graphed(torch.inference_mode()(_labels_step))
+        train = graph.graph_train_step(make_train_step(loss_fn, 7))
+
+        def run():
+            out = [labels(state.model, batch, tokens) for _ in range(3)]
+            for _ in range(3):
+                train(state, batch, tokens)
+            torch.cuda.synchronize()
+            return out
+
+        out = _with_spans(on, run)
+        got[on] = (out, [p.detach().clone()
+                         for p in state.model.parameters()])
+    for a, b in zip(got[False][0], got[True][0]):
+        assert torch.equal(a, b)
+    assert _max_diff(got[False][1], got[True][1]) == 0.0
+
+
+def test_span_reads_wait_for_nothing_in_a_loop_with_a_blocking_copy(cuda):
+    """The loops' order (a blocking copy of the batch, then the replay)
+    leaves every read of the last replay's spans to events already
+    reached; replays enqueued back to back make the reads wait."""
+    from tpu3dssf_torch.cli.common import batch_to_device
+    from tpu3dssf_torch.train import graph
+    from tpu3dssf_torch.utils import timing
+
+    state, loss_fn, batch, tokens = _small_model(cuda)
+    host = {k: v.cpu().numpy() for k, v in batch.items()}
+    g = graph.graphed(torch.inference_mode()(_labels_step), "labels")
+
+    def loop(copy):
+        g(state.model, batch, tokens)
+        timing.reset_spans()
+        for _ in range(10):
+            b = batch_to_device(host, cuda) if copy else batch
+            g(state.model, b, tokens)
+        return timing.span_counters()
+
+    counters = _with_spans(True, lambda: loop(True))
+    assert counters["span_waits"] == 0 and counters["graph_replays"] == 10
+    assert counters["batch_to_device.tensors"] == 10 * len(host)
+    assert _with_spans(True, lambda: loop(False))["span_waits"] > 0
+
+
 @pytest.mark.parametrize("setting", ["plateau", "skip", "sgd",
                                      "drop_path", "all"])
 def test_every_train_setting_replays_its_eager_step(cuda, setting):

@@ -21,6 +21,7 @@ and its own state before a skipped update.
 """
 
 import functools
+import json
 import os
 
 import jax
@@ -656,6 +657,21 @@ def test_train_model_epochs_checkpoints_and_profiler_trace(tmp_path, rng):
                           profile_steps=(1, 2))
     assert state.step == 3 and len(tr) == len(val) == 1
     assert (tmp_path / "prof" / "train_trace.json").stat().st_size > 0
+    # the spans were on from the first step, and are off again
+    with open(tmp_path / "prof" / "spans.json") as f:
+        spans = json.load(f)
+    assert spans["spans"]["eager:train_step"]["count"] == 2
+    for name in ("update", "forward", "loss", "backward", "optimizer"):
+        assert spans["spans"][name]["frames"] == 2
+    assert spans["counters"]["span_waits"] == 0
+    # the two steps' batches went through the copy's range and counters
+    copied = [k for k in host if k != "images"]
+    assert spans["spans"]["batch_to_device"]["count"] == 2
+    assert spans["counters"]["batch_to_device.tensors"] == 2 * len(copied)
+    assert spans["counters"]["batch_to_device.bytes"] == 2 * sum(
+        np.asarray(host[k]).nbytes for k in copied)
+    from tpu3dssf_torch.utils import timing
+    assert not timing.spans_enabled() and timing.span_records() == []
     assert latest_checkpoint(str(tmp_path)) == 0
     assert latest_checkpoint(str(tmp_path / "last")) == 0
 

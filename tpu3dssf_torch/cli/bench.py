@@ -21,14 +21,12 @@ Timing: the CUDA-event median of 20 graphed replays after warm-up
 device time of a frame, its kernels by device time, the wall/device ratio
 and the card's name and power limit; the last line of stdout is
 ``bench.py``'s JSON: ``metric`` (``fused_points_per_sec_per_chip``,
-``..._vitl`` with ViT-L), ``value`` (points/s per card), ``unit``,
-``vs_baseline`` (against the reference's
-estimated 100,000 points/s, ``bench.py``'s docstring) and ``peak_hbm_mb``
-(``torch.cuda.max_memory_allocated``) with ``peak_hbm_source:
-"runtime"``. ``--device cpu`` runs the plain versions on the CPU (tiny
-sizes only: the functions below take the sizes and configs as
-arguments) and times with the host clock; without it the frame needs a
-card. Not ported: ``BENCH_SQUEEZE`` (``hbm_squeeze``, a TPU runtime
+``..._vitl`` with ViT-L), ``value`` (points/s per card), ``unit`` and
+``peak_hbm_mb`` (``torch.cuda.max_memory_allocated``) with
+``peak_hbm_source: "runtime"``. ``--device cpu`` runs the plain versions
+on the CPU (tiny sizes only: the functions below take the sizes and
+configs as arguments) and times with the host clock; without it the frame
+needs a card. Not ported: ``BENCH_SQUEEZE`` (``hbm_squeeze``, a TPU runtime
 workaround) and the ViT-L looped encode (a TPU compiler workaround).
 """
 
@@ -43,7 +41,6 @@ import time
 import numpy as np
 import torch
 
-BASELINE_POINTS_PER_SEC = 100_000.0
 POINT_CAP = 34816       # about one nuScenes sweep, a multiple of 1024
 VOXEL_CAP = 25600       # about 34k points at 0.1 m voxels, a window multiple
 WINDOW = 1024
@@ -170,7 +167,6 @@ def record(metric, points_per_sec, peak_mb):
         "metric": metric,
         "value": round(points_per_sec, 1),
         "unit": "points/s",
-        "vs_baseline": round(points_per_sec / BASELINE_POINTS_PER_SEC, 3),
         "peak_hbm_mb": round(peak_mb, 1),
         "peak_hbm_source": "runtime",
     }

@@ -25,6 +25,7 @@ from tpu3dssf_torch.data import (  # noqa: F401  (re-exported)
     HostDataPipeline,
     NuScenesDataset,
     SyntheticNuScenes,
+    batch_to_device,
 )
 from tpu3dssf_torch.models.ptv3 import _round_up
 from tpu3dssf_torch.utils.logging import (  # noqa: F401  (re-exported)
@@ -211,13 +212,6 @@ def zero_tokens(cfg: Config, vit_cfg, batch_size: int, device="cpu"):
         return torch.zeros((batch_size, 1, 1, 1), device=device)
     return torch.zeros((batch_size, 6, vit_cfg.num_patches,
                         vit_cfg.hidden_size), device=device)
-
-
-def batch_to_device(batch, device):
-    """Host numpy batch → tensors on ``device`` (images stay on the host
-    side of the caller)."""
-    return {k: torch.as_tensor(np.asarray(v)).to(device)
-            for k, v in batch.items()}
 
 
 def card_line() -> str:

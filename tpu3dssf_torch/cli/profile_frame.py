@@ -7,10 +7,11 @@ Builds what ``main_infer`` builds (same config, same seeded weights), takes
 the first batch of the split and prints, beside the card's name and power
 limit:
 
-- ``segments_ms``: CUDA-event medians (10 after 3 warm-ups) of each stage
-  of the batch (encode = preprocess + ViT, voxelize, ptv3, fusion head,
-  devoxelize, loss) and their sum; ``preprocess_ms`` is the part of
-  encode that resizes and normalises the images;
+- ``spans_ms``: the program's spans (:mod:`tpu3dssf_torch.utils.timing`)
+  over 10 eager batches after 3 warm-ups, each stage's device ms and self
+  ms a batch (``encode`` > ``vit.preprocess``, ``vit.blocks``;
+  ``forward`` > ``voxelize``, ``ptv3`` > ``ptv3.*``, ``head``,
+  ``devoxelize``; ``loss``);
 - ``batch_ms``: the eval step on the batch (encode + pipeline + loss) with
   the loader's prefetch thread closed, then live, then closed again;
 - a ``torch.profiler`` table over 3 batches; the device kernel time and
@@ -31,47 +32,11 @@ import subprocess
 import torch
 
 from tpu3dssf_torch.cli import common
-from tpu3dssf_torch.models.vit import preprocess_images
 from tpu3dssf_torch.train.loop import make_eval_step
-from tpu3dssf_torch.utils import cuda_ms, profile_kernels
-from tpu3dssf_torch.voxel import devoxelize_own_voxel, voxelize
+from tpu3dssf_torch.utils import cuda_ms, profile_kernels, timing
 
 # K1's device kernels: D = 16 (PTv3), D = 64 and its k-rotation (the ViT)
 K1_NAME = re.compile(r"fap_fwd_(d16|kernel_d64|kernel_rope_k)")
-
-
-def segments(encode, model, loss_fn, images, b):
-    """CUDA-event milliseconds of each stage of one batch."""
-    pipe = model.config
-    marks = []
-
-    def mark(name):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        marks.append((name, ev))
-
-    with torch.inference_mode():
-        mark("start")
-        tokens = encode(images)
-        mark("encode")
-        vox = voxelize(b["points"], b["point_valid"], pipe.voxel_size,
-                       pipe.voxel_capacity,
-                       intensity_mode=pipe.intensity_mode)
-        mark("voxelize")
-        feats, mask = model.ptv3(vox.voxel_raw, vox.voxel_coords,
-                                 vox.voxel_mask)
-        mark("ptv3")
-        scores = model.fusion(tokens, feats, vox.voxel_raw, mask,
-                              b["cam_intrinsics"], b["lidar2cam"])
-        mark("fusion")
-        logits, _ = devoxelize_own_voxel(vox.point_voxel, vox.point_ok,
-                                         scores)
-        mark("devoxelize")
-        loss_fn(logits, b["labels"], b["mask"])
-        mark("loss")
-    torch.cuda.synchronize()
-    return {name: marks[i - 1][1].elapsed_time(ev)
-            for i, (name, ev) in enumerate(marks) if i}
 
 
 def main(argv=None):
@@ -92,7 +57,7 @@ def main(argv=None):
     print(card)
     device = torch.device("cuda")
     cfg = common.load_config(args.config)
-    # eager, stage by stage (chip_smoke.py phase 22 times the graphed batch)
+    # eager (chip_smoke.py phase 22 times the graphed batch)
     encode, vit_cfg = common.build_image_encoder(cfg, device, graph=False)
     model, _ = common.build_pipeline(cfg, vit_cfg, device)
     loss_fn = common.build_loss(cfg)
@@ -103,18 +68,21 @@ def main(argv=None):
     images = torch.as_tensor(host.pop("images")).to(device)
     b = common.batch_to_device(host, device)
 
-    for _ in range(3):
-        segments(encode, model, loss_fn, images, b)
-    rows = [segments(encode, model, loss_fn, images, b)
-            for _ in range(10)]
-    med = {k: sorted(r[k] for r in rows)[len(rows) // 2] for k in rows[0]}
-    pre_ms = cuda_ms(lambda: preprocess_images(images, vit_cfg.image_size,
-                                               vit_cfg.dtype), reps=10)
-    print(f"segments_ms {json.dumps(med)} total {sum(med.values())} "
-          f"preprocess_ms {pre_ms} [{card}]")
-
     def frame():
         return step(model, b, encode(images))
+
+    # eager, so every stage's span is a pair of events around its kernels
+    timing.enable_spans(True)
+    for i in range(13):
+        if i == 3:                          # the warm-ups end
+            torch.cuda.synchronize()
+            timing.reset_spans()
+        with timing.frame():
+            frame()
+    spans = {k: {"ms": v["ms"] / 10, "self_ms": v["self_ms"] / 10}
+             for k, v in timing.span_summary().items()}
+    timing.enable_spans(False)
+    print(f"spans_ms {json.dumps(spans)} [{card}]")
 
     closed = cuda_ms(frame, reps=10, warmup=2)
     live = iter(common.build_dataloaders(cfg)[args.split])

@@ -22,6 +22,7 @@ from tpu3dssf_torch.geometry import (
 )
 from tpu3dssf_torch.models.layers import Dense
 from tpu3dssf_torch.models.ptv3 import PointTransformerV3, PTv3Config
+from tpu3dssf_torch.utils.timing import span
 from tpu3dssf_torch.voxel import (
     devoxelize_nearest,
     devoxelize_own_voxel,
@@ -134,19 +135,26 @@ class SegmentationPipeline(nn.Module):
     def forward(self, points, point_mask, patch_tokens, cam_intrinsics,
                 lidar2cam, keep=None):
         cfg = self.config
-        vox = voxelize(points, point_mask, cfg.voxel_size,
-                       cfg.voxel_capacity, intensity_mode=cfg.intensity_mode)
-        voxel_feats, voxel_mask = self.ptv3(vox.voxel_raw, vox.voxel_coords,
-                                            vox.voxel_mask, keep)
-        voxel_scores = self.fusion(patch_tokens, voxel_feats, vox.voxel_raw,
-                                   voxel_mask, cam_intrinsics, lidar2cam)
-        if cfg.devoxelize_mode == "own":
-            point_scores, _ = devoxelize_own_voxel(
-                vox.point_voxel, vox.point_ok, voxel_scores)
-        elif cfg.devoxelize_mode == "nearest":
-            point_scores, _ = devoxelize_nearest(
-                points[..., :3], point_mask, vox.voxel_raw[..., :3],
-                vox.voxel_mask, voxel_scores)
-        else:
-            raise ValueError(cfg.devoxelize_mode)
+        with span("forward", points):
+            with span("voxelize", points):
+                vox = voxelize(points, point_mask, cfg.voxel_size,
+                               cfg.voxel_capacity,
+                               intensity_mode=cfg.intensity_mode)
+            with span("ptv3", points):
+                voxel_feats, voxel_mask = self.ptv3(
+                    vox.voxel_raw, vox.voxel_coords, vox.voxel_mask, keep)
+            with span("head", points):
+                voxel_scores = self.fusion(patch_tokens, voxel_feats,
+                                           vox.voxel_raw, voxel_mask,
+                                           cam_intrinsics, lidar2cam)
+            with span("devoxelize", points):
+                if cfg.devoxelize_mode == "own":
+                    point_scores, _ = devoxelize_own_voxel(
+                        vox.point_voxel, vox.point_ok, voxel_scores)
+                elif cfg.devoxelize_mode == "nearest":
+                    point_scores, _ = devoxelize_nearest(
+                        points[..., :3], point_mask, vox.voxel_raw[..., :3],
+                        vox.voxel_mask, voxel_scores)
+                else:
+                    raise ValueError(cfg.devoxelize_mode)
         return point_scores

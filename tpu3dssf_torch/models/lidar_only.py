@@ -11,6 +11,7 @@ from torch import nn
 from tpu3dssf_torch.models.fusion import PipelineConfig
 from tpu3dssf_torch.models.layers import Dense
 from tpu3dssf_torch.models.ptv3 import PointTransformerV3
+from tpu3dssf_torch.utils.timing import span
 from tpu3dssf_torch.voxel import (devoxelize_nearest, devoxelize_own_voxel,
                                   voxelize)
 
@@ -36,16 +37,22 @@ class LidarSegmentationModel(nn.Module):
     def forward(self, points, point_mask, patch_tokens=None,
                 cam_intrinsics=None, lidar2cam=None, keep=None):
         cfg = self.config
-        vox = voxelize(points, point_mask, cfg.voxel_size,
-                       cfg.voxel_capacity, intensity_mode=cfg.intensity_mode)
-        voxel_feats, voxel_mask = self.ptv3(vox.voxel_raw, vox.voxel_coords,
-                                            vox.voxel_mask, keep)
-        voxel_scores = self.head(voxel_feats) * voxel_mask[..., None]
-        if cfg.devoxelize_mode == "own":
-            point_scores, _ = devoxelize_own_voxel(
-                vox.point_voxel, vox.point_ok, voxel_scores)
-        else:
-            point_scores, _ = devoxelize_nearest(
-                points[..., :3], point_mask, vox.voxel_raw[..., :3],
-                vox.voxel_mask, voxel_scores)
+        with span("forward", points):
+            with span("voxelize", points):
+                vox = voxelize(points, point_mask, cfg.voxel_size,
+                               cfg.voxel_capacity,
+                               intensity_mode=cfg.intensity_mode)
+            with span("ptv3", points):
+                voxel_feats, voxel_mask = self.ptv3(
+                    vox.voxel_raw, vox.voxel_coords, vox.voxel_mask, keep)
+            with span("head", points):
+                voxel_scores = self.head(voxel_feats) * voxel_mask[..., None]
+            with span("devoxelize", points):
+                if cfg.devoxelize_mode == "own":
+                    point_scores, _ = devoxelize_own_voxel(
+                        vox.point_voxel, vox.point_ok, voxel_scores)
+                else:
+                    point_scores, _ = devoxelize_nearest(
+                        points[..., :3], point_mask, vox.voxel_raw[..., :3],
+                        vox.voxel_mask, voxel_scores)
         return point_scores

@@ -67,6 +67,7 @@ from tpu3dssf_torch.serialization import (
     permutation_gather,
     serialization_keys,
 )
+from tpu3dssf_torch.utils.timing import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -581,8 +582,9 @@ class PointTransformerV3(nn.Module):
         # ---- encoder ----
         for s in range(cfg.num_stages):
             if s > 0:
-                x, grid, msk, parent, parent_ok = getattr(
-                    self, f"pool{s}")(x, grid, msk, caps[s])
+                with span("ptv3.pool", feat):
+                    x, grid, msk, parent, parent_ok = getattr(
+                        self, f"pool{s}")(x, grid, msk, caps[s])
                 pools.append((parent, parent_ok))
             if s > 0 and cfg.collapse_pooled_orders:
                 # hierarchical curve: the pooled stream is already in this
@@ -591,36 +593,43 @@ class PointTransformerV3(nn.Module):
                              if o != cpe_order)
                 perms = {cpe_order: (None, None)}
                 if need:
-                    perms.update(_serialize_perms(grid, msk, need))
+                    with span("ptv3.serialize", feat):
+                        perms.update(_serialize_perms(grid, msk, need))
                 cpe_sorts.append(None)
             else:
-                perms_orig = _serialize_perms(
-                    grid, msk, used_orders(cfg.enc_depths[s]))
-                perm_c, inv_c, perms = sorted_space(perms_orig)
-                x = permutation_gather(x, perm_c, inv_c)
-                grid = _rows(grid, perm_c)
-                msk = torch.gather(msk, 1, perm_c)
+                with span("ptv3.serialize", feat):
+                    perms_orig = _serialize_perms(
+                        grid, msk, used_orders(cfg.enc_depths[s]))
+                    perm_c, inv_c, perms = sorted_space(perms_orig)
+                    x = permutation_gather(x, perm_c, inv_c)
+                    grid = _rows(grid, perm_c)
+                    msk = torch.gather(msk, 1, perm_c)
                 cpe_sorts.append((perm_c, inv_c))
-            x = self._run_blocks(x, perms, msk, cfg.enc_depths[s], f"enc{s}",
-                                 keep)
+            with span("ptv3.blocks", feat):
+                x = self._run_blocks(x, perms, msk, cfg.enc_depths[s],
+                                     f"enc{s}", keep)
             skips.append((x, grid, msk, perms))
 
         # ---- decoder ----
         for d in reversed(range(cfg.num_stages - 1)):
             skip_x, skip_grid, skip_mask, skip_perms = skips[d]
             parent, parent_ok = pools[d]
-            if cpe_sorts[d + 1] is not None:
-                parent = _compose_perm(cpe_sorts[d + 1][1], parent)
-            x = getattr(self, f"unpool{d}")(x, skip_x, parent, parent_ok,
-                                            skip_mask)
+            with span("ptv3.unpool", feat):
+                if cpe_sorts[d + 1] is not None:
+                    parent = _compose_perm(cpe_sorts[d + 1][1], parent)
+                x = getattr(self, f"unpool{d}")(x, skip_x, parent, parent_ok,
+                                                skip_mask)
             grid, msk = skip_grid, skip_mask
             need = used_orders(cfg.dec_depths[d])
             missing = tuple(o for o in need if o not in skip_perms)
             perms = dict(skip_perms)
             if missing:
-                perms.update(_serialize_perms(grid, msk, missing))
-            x = self._run_blocks(x, perms, msk, cfg.dec_depths[d], f"dec{d}",
-                                 keep)
+                with span("ptv3.serialize", feat):
+                    perms.update(_serialize_perms(grid, msk, missing))
+            with span("ptv3.blocks", feat):
+                x = self._run_blocks(x, perms, msk, cfg.dec_depths[d],
+                                     f"dec{d}", keep)
 
         perm0, inv0 = cpe_sorts[0]
-        return permutation_gather(x, inv0, perm0), mask
+        with span("ptv3.serialize", feat):
+            return permutation_gather(x, inv0, perm0), mask

@@ -45,6 +45,14 @@ this process. :data:`CAPTURES` and :data:`REPLAYS` count the graphs
 captured and replayed in this process, so a caller can tell that a path
 ran through graphs.
 
+With the program's spans on (:mod:`tpu3dssf_torch.utils.timing`), every
+call runs in one frame of its own inside a host range: ``capture:<name>``
+(the eager first call and the capture), ``replay:<name>`` (the copies into
+the static inputs, the replay and the output clones) or ``eager:<name>``
+(CPU tensors). A capture keeps the spans the step opens as event-record
+nodes of the graph; each replay reads the last replay's spans before it
+records them anew. With spans off a capture holds the step's nodes alone.
+
 A step may hold NCCL collectives (a data-parallel step over a mesh with
 one rank per card, :mod:`tpu3dssf_torch.parallel`): the mesh makes every
 communicator before any step runs (a lazy NCCL init cannot be captured),
@@ -77,6 +85,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from tpu3dssf_torch.kernels import modules as kernel_modules
+from tpu3dssf_torch.utils import timing
 
 # graphs captured and replayed in this process
 CAPTURES = 0
@@ -125,10 +134,11 @@ class _Graph:
     ``nodes=True``, the labels of its nodes."""
 
     def __init__(self, graph, device, inputs, outputs, out_spec, launches,
-                 nodes=None):
+                 nodes=None, spans=()):
         self.graph, self.device = graph, device
         self.inputs, self.outputs, self.out_spec = inputs, outputs, out_spec
         self.launches, self.nodes = launches, nodes
+        self.spans, self.pending = spans, []
 
     def count_nodes(self, pattern):
         """The nodes whose label matches ``pattern`` (a regular expression
@@ -140,11 +150,15 @@ class _Graph:
 
     def replay(self, leaves):
         global REPLAYS
+        # the last replay's spans, before this one records their events anew
+        timing.read_spans(self.pending)
         for dst, src in zip(self.inputs, leaves):
             if isinstance(dst, torch.Tensor):
                 dst.copy_(src)
         self.graph.replay()
+        self.pending = timing.replayed_spans(self.spans)
         REPLAYS += 1
+        timing.count("graph_replays")
         counts = kernel_modules.launch_counts()
         kernel_modules.set_launch_counts(
             {k: counts[k] + n for k, n in self.launches.items() if n})
@@ -172,15 +186,20 @@ class GraphedStep:
         leaves, spec = pytree.tree_flatten(args)
         device = next((x.device for x in leaves
                        if isinstance(x, torch.Tensor)), None)
-        if device is None or device.type != "cuda":
-            out = self.step(*args)
-        else:
-            key = (spec, tuple(map(_leaf_key, leaves)))
-            graph = self.graphs.get(key)
-            if graph is None:
-                out = self._first_call(key, device, args, leaves, spec)
+        with timing.frame():
+            if device is None or device.type != "cuda":
+                with timing.span("eager:" + self.name):
+                    out = self.step(*args)
             else:
-                out = graph.replay(leaves)
+                key = (spec, tuple(map(_leaf_key, leaves)))
+                graph = self.graphs.get(key)
+                if graph is None:
+                    with timing.span("capture:" + self.name):
+                        out = self._first_call(key, device, args, leaves,
+                                               spec)
+                else:
+                    with timing.span("replay:" + self.name):
+                        out = graph.replay(leaves)
         if self.after is not None:
             self.after(*args)
         return out
@@ -203,9 +222,9 @@ class GraphedStep:
                 graph.enable_debug_mode()
             before = kernel_modules.launch_counts()
             try:
-                with torch.cuda.graph(graph, pool=_pool(device),
-                                      stream=stream,
-                                      capture_error_mode=_capture_mode()):
+                with timing.capture_spans() as spans, torch.cuda.graph(
+                        graph, pool=_pool(device), stream=stream,
+                        capture_error_mode=_capture_mode()):
                     captured = self.step(
                         *pytree.tree_unflatten(inputs, spec))
                 counts = kernel_modules.launch_counts()
@@ -218,8 +237,9 @@ class GraphedStep:
             outputs, out_spec = pytree.tree_flatten(captured)
             self.graphs[key] = _Graph(
                 graph, device, inputs, outputs, out_spec,
-                {k: counts[k] - before[k] for k in before}, nodes)
+                {k: counts[k] - before[k] for k in before}, nodes, spans)
             CAPTURES += 1
+            timing.count("graph_captures")
         first = next((x for x in leaves if isinstance(x, torch.Tensor)),
                      None)
         print(f"[graph] {self.name}: captured CUDA graph "

@@ -22,6 +22,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from tpu3dssf_torch.data.device import batch_to_device
 from tpu3dssf_torch.losses import CELSLoss
 from tpu3dssf_torch.metrics import (confusion_matrix, evaluate_from_confusion,
                                     format_metrics)
@@ -29,8 +30,9 @@ from tpu3dssf_torch.models.vit import preprocess_images
 from tpu3dssf_torch.parallel.mesh import all_reduce_grads, gather_batch
 from tpu3dssf_torch.train.checkpoint import save_checkpoint
 from tpu3dssf_torch.train.graph import graph_train_step, graphed
+from tpu3dssf_torch.utils import timing
 from tpu3dssf_torch.utils.logging import MetricLogger, NullLogger
-from tpu3dssf_torch.utils.timing import peak_hbm_mb
+from tpu3dssf_torch.utils.timing import peak_hbm_mb, span
 
 
 def make_image_encode_fn(vit_model, encoder_hw, compute_dtype=torch.float32):
@@ -45,10 +47,15 @@ def make_image_encode_fn(vit_model, encoder_hw, compute_dtype=torch.float32):
     @torch.inference_mode()
     def encode(images):
         B, n_cam = images.shape[:2]
-        x = preprocess_images(images, encoder_hw, dtype=compute_dtype)
-        x = x.reshape((B * n_cam,) + tuple(x.shape[2:]))
-        tokens = vit_model(x)["patch_features"]
-        return tokens.reshape(B, n_cam, tokens.shape[1], tokens.shape[2])
+        with span("encode", images):
+            with span("vit.preprocess", images):
+                x = preprocess_images(images, encoder_hw,
+                                      dtype=compute_dtype)
+            x = x.reshape((B * n_cam,) + tuple(x.shape[2:]))
+            with span("vit.blocks", x):
+                tokens = vit_model(x)["patch_features"]
+            return tokens.reshape(B, n_cam, tokens.shape[1],
+                                  tokens.shape[2])
 
     return encode
 
@@ -141,37 +148,41 @@ def make_train_step(loss_fn: CELSLoss, dropout_seed: Optional[int] = None,
         return state, batch, patch_tokens, keep
 
     def update(state, batch, patch_tokens, keep=None):
-        model = state.model
-        micro = {k: split(v) for k, v in batch.items()}
-        tokens = (split(patch_tokens) if patch_tokens is not None
-                  else (None,) * grad_accum)
-        state.optimizer.zero_grad()
-        sums = None
-        for i in range(grad_accum):
-            b = {k: v[i] for k, v in micro.items()}
-            logits = model(b["points"], b["point_valid"], tokens[i],
-                           b["cam_intrinsics"], b["lidar2cam"],
-                           keep=None if keep is None else keep[i])
-            labels, mask = b["labels"], b["mask"]
+        model, points = state.model, batch["points"]
+        with span("update", points):
+            micro = {k: split(v) for k, v in batch.items()}
+            tokens = (split(patch_tokens) if patch_tokens is not None
+                      else (None,) * grad_accum)
+            state.optimizer.zero_grad()
+            sums = None
+            for i in range(grad_accum):
+                b = {k: v[i] for k, v in micro.items()}
+                logits = model(b["points"], b["point_valid"], tokens[i],
+                               b["cam_intrinsics"], b["lidar2cam"],
+                               keep=None if keep is None else keep[i])
+                labels, mask = b["labels"], b["mask"]
+                if mesh is not None:
+                    logits, labels, mask = (gather_batch(x, mesh)
+                                            for x in (logits, labels, mask))
+                with span("loss", points):
+                    out = loss_fn(logits, labels, mask)
+                with span("backward", points):
+                    out.total.backward()  # accumulates the sum into .grad
+                m = {"loss": out.total.detach(), "ce": out.ce.detach(),
+                     "lovasz": out.lovasz.detach(),
+                     "correct": out.num_correct, "valid": out.num_valid}
+                sums = m if sums is None else {k: sums[k] + m[k] for k in m}
             if mesh is not None:
-                logits, labels, mask = (gather_batch(x, mesh)
-                                        for x in (logits, labels, mask))
-            out = loss_fn(logits, labels, mask)
-            out.total.backward()  # accumulates the sum into .grad
-            m = {"loss": out.total.detach(), "ce": out.ce.detach(),
-                 "lovasz": out.lovasz.detach(), "correct": out.num_correct,
-                 "valid": out.num_valid}
-            sums = m if sums is None else {k: sums[k] + m[k] for k in m}
-        if mesh is not None:
-            all_reduce_grads(model.parameters(), mesh)
-        if grad_accum > 1:
-            inv = 1.0 / grad_accum
-            for p in model.parameters():
-                if p.grad is not None:
-                    p.grad.mul_(inv)
-            for k in ("loss", "ce", "lovasz"):
-                sums[k] = sums[k] * inv
-        state.optimizer.step(value=sums["loss"])
+                all_reduce_grads(model.parameters(), mesh)
+            if grad_accum > 1:
+                inv = 1.0 / grad_accum
+                for p in model.parameters():
+                    if p.grad is not None:
+                        p.grad.mul_(inv)
+                for k in ("loss", "ce", "lovasz"):
+                    sums[k] = sums[k] * inv
+            with span("optimizer", points):
+                state.optimizer.step(value=sums["loss"])
         return sums
 
     def advance(state, *_):
@@ -210,22 +221,25 @@ def make_eval_step(loss_fn: CELSLoss, num_classes: int, mesh=None):
                      batch["cam_intrinsics"], batch["lidar2cam"])
 
     def metrics(logits, labels, mask, rows=None):
-        out = loss_fn(logits, labels, mask)
-        preds, valid = out.predictions, out.valid
-        correct, n_valid = out.num_correct, out.num_valid
-        if rows is not None:   # this rank's rows of the gathered batch
-            preds, labels, valid = (x[rows] for x in (preds, labels, valid))
-            correct = ((preds == labels.to(torch.int32)) & valid).sum(
-                dtype=torch.int32)
-            n_valid = valid.sum(dtype=torch.int32)
-        return {
-            "loss": out.total,
-            "ce": out.ce,
-            "lovasz": out.lovasz,
-            "correct": correct,
-            "valid": n_valid,
-            "confusion": confusion_matrix(preds, labels, num_classes, valid),
-        }
+        with span("loss", logits):
+            out = loss_fn(logits, labels, mask)
+            preds, valid = out.predictions, out.valid
+            correct, n_valid = out.num_correct, out.num_valid
+            if rows is not None:   # this rank's rows of the gathered batch
+                preds, labels, valid = (x[rows]
+                                        for x in (preds, labels, valid))
+                correct = ((preds == labels.to(torch.int32)) & valid).sum(
+                    dtype=torch.int32)
+                n_valid = valid.sum(dtype=torch.int32)
+            return {
+                "loss": out.total,
+                "ce": out.ce,
+                "lovasz": out.lovasz,
+                "correct": correct,
+                "valid": n_valid,
+                "confusion": confusion_matrix(preds, labels, num_classes,
+                                              valid),
+            }
 
     if mesh is None:
         @torch.inference_mode()
@@ -344,8 +358,7 @@ class MetricAccumulator:
 def _device_batch(batch, encode_fn, zero_tokens_fn, device):
     """Host batch → (model inputs on ``device``, patch tokens)."""
     images = batch.pop("images", None)
-    out = {k: torch.as_tensor(np.asarray(v)).to(device)
-           for k, v in batch.items()}
+    out = batch_to_device(batch, device)
     if encode_fn is not None and images is not None:
         tokens = encode_fn(torch.as_tensor(images).to(device))
     elif zero_tokens_fn is not None:
@@ -393,7 +406,11 @@ def train_model(state, dataloaders: Dict, loss_fn: CELSLoss, encode_fn,
     holding the final weights. Per-step metrics stay on the device and are
     read at ``log_every`` boundaries. ``profile_dir`` captures a
     ``torch.profiler`` trace of the steps in ``profile_steps`` (from, to)
-    into ``<profile_dir>/train_trace.json``. The train and eval steps are
+    into ``<profile_dir>/train_trace.json``, with the program's spans on
+    from the first step to the trace's end
+    (:mod:`tpu3dssf_torch.utils.timing`: their ``tpu3dssf::`` ranges in
+    the trace, their sums by name in ``<profile_dir>/spans.json``). The
+    train and eval steps are
     graphed (:mod:`tpu3dssf_torch.train.graph`), under every
     configuration.
     """
@@ -406,6 +423,17 @@ def train_model(state, dataloaders: Dict, loss_fn: CELSLoss, encode_fn,
     tr_hist, val_hist, history = [], [], []
     global_step = 0
     prof = None
+    spans_were = timing.spans_enabled()
+    if profile_dir:
+        timing.enable_spans(True)
+        timing.reset_spans()
+
+    def spans_back():
+        # the window's records are in spans.json: drop them unless the
+        # caller had spans on
+        timing.enable_spans(spans_were)
+        if not spans_were:
+            timing.reset_spans()
     for epoch in range(start_epoch, num_epochs):
         print(f"Epoch {epoch}/{num_epochs - 1}\n" + "-" * 20)
         run_loss, run_correct, run_valid, it = 0.0, 0, 0, 0
@@ -434,6 +462,13 @@ def train_model(state, dataloaders: Dict, loss_fn: CELSLoss, encode_fn,
                 prof.export_chrome_trace(path)
                 prof = None
                 print(f"[profiler] trace written to {path}")
+                path = os.path.join(profile_dir, "spans.json")
+                with open(path, "w") as f:
+                    json.dump({"spans": timing.span_summary(),
+                               "counters": timing.span_counters()}, f,
+                              indent=1)
+                print(f"[spans] sums by name written to {path}")
+                spans_back()
             batch, tokens = _device_batch(batch, encode_fn, zero_tokens_fn,
                                           device)
             m = train_step(state, batch, tokens)
@@ -503,4 +538,6 @@ def train_model(state, dataloaders: Dict, loss_fn: CELSLoss, encode_fn,
             json.dump({"best_val_acc": float(best_acc), "epochs": history},
                       f, indent=1)
     print(f"Best val Acc: {best_acc:.4f}")
+    if profile_dir:
+        spans_back()
     return tr_hist, val_hist

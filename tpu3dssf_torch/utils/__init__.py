@@ -1,6 +1,8 @@
-from tpu3dssf_torch.utils.timing import (StepTimer, cuda_ms, cuda_times,
-                                         measure_efficiency, peak_hbm_mb,
-                                         profile_kernels)
+from tpu3dssf_torch.utils.timing import (cuda_ms, cuda_times, enable_spans,
+                                         peak_hbm_mb, profile_kernels,
+                                         reset_spans, span, span_counters,
+                                         span_summary)
 
-__all__ = ["StepTimer", "cuda_ms", "cuda_times", "measure_efficiency",
-           "peak_hbm_mb", "profile_kernels"]
+__all__ = ["cuda_ms", "cuda_times", "enable_spans", "peak_hbm_mb",
+           "profile_kernels", "reset_spans", "span", "span_counters",
+           "span_summary"]

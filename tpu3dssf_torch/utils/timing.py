@@ -1,19 +1,40 @@
-"""Device timing on a CUDA card, and the host-side timers.
+"""Device timing on a CUDA card, and the program's spans.
 
 The port's counterpart of ``tpu3dssf.utils.timing``: the median of a
 callable between CUDA events (:func:`cuda_ms`, the port's ``time_device``,
-over the samples of :func:`cuda_times`),
-the device time of each CUDA kernel a callable launches
-(:func:`profile_kernels`), the peak allocated device memory
-(:func:`peak_hbm_mb`), a wall-time and memory snapshot around one call
-(:func:`measure_efficiency`) and a rolling per-step wall timer
-(:class:`StepTimer`). The JAX module's ``chained_slope``,
-``program_peak_mb`` and ``hbm_squeeze`` work around a TPU runtime without
-memory statistics and have no counterpart.
+over the samples of :func:`cuda_times`), the device time of each CUDA
+kernel a callable launches (:func:`profile_kernels`) and the peak
+allocated device memory (:func:`peak_hbm_mb`). The JAX module's
+``chained_slope``, ``program_peak_mb`` and ``hbm_squeeze`` work around a
+TPU runtime without memory statistics and have no counterpart.
+
+Spans (:func:`span`) name the stages of the program from inside it: the
+encode, the forward and its stages, the loss, the backward and the
+optimizer, the replays and captures of :mod:`tpu3dssf_torch.train.graph`
+and the batch's copy to the card. They are off unless
+:func:`enable_spans` turned them on; off, :func:`span` returns one shared
+null context (no event, no profiler range, no allocation), so a CUDA graph
+captured with spans off holds exactly the nodes it would hold without
+them. On, a span opens a ``torch.profiler.record_function`` range
+``tpu3dssf::<name>`` (the program's ranges on the profiler's clock) and
+times itself: on a CUDA tensor by a pair of timing CUDA events on the
+current stream (``external`` ones, so that a capture turns them into
+event-record nodes of the graph, which every replay records anew), else by
+the host's ``time.perf_counter``. A graph's spans are read after each
+replay, before the graph's next replay re-records them
+(:func:`read_spans`, :func:`replayed_spans`); a read that has to wait for
+the card counts in ``span_waits``. Spans nest: each record keeps its name,
+its parent (the innermost open span on the same clock), its frame (one
+call of a :class:`~tpu3dssf_torch.train.graph.GraphedStep`, one replay,
+or else one root span) and its milliseconds. :func:`span_summary` sums
+them by name; :func:`span_counters` gives the counters that the program's
+layers add to with :func:`count` (this module imports none of them) since
+the last :func:`reset_spans`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import torch
@@ -110,38 +131,235 @@ def peak_hbm_mb(device=None) -> float:
     return torch.cuda.max_memory_allocated(device) / _MIB
 
 
-def measure_efficiency(func, *args, **kwargs):
-    """``func(*args, **kwargs)`` with its wall time, closed by a
-    ``torch.cuda.synchronize`` where a card is present, and the allocated
-    device memory after it: ``(result, {"runtime_sec", "mem_alloc_MB"})``
-    (memory 0.0 without a card)."""
-    cuda = torch.cuda.is_available()
-    t0 = time.perf_counter()
-    result = func(*args, **kwargs)
-    if cuda:
-        torch.cuda.synchronize()
-    runtime = time.perf_counter() - t0
-    mem_mb = torch.cuda.memory_allocated() / _MIB if cuda else 0.0
-    return result, {"runtime_sec": runtime, "mem_alloc_MB": mem_mb}
+# ---- spans -------------------------------------------------------------
+
+_ON = False
+_NULL = contextlib.nullcontext()
+_RECORDS: list = []        # every span of this generation, in entry order
+_PENDING: list = []        # device records whose events are not read yet
+_STACK: list = []          # the open spans
+_CAPTURE = None            # the span layout of the graph being captured
+_FRAME = None              # the frame of the GraphedStep call under way
+_GEN = 0                   # bumped by reset_spans
+_NEXT_FRAME = 0
+_COUNTS: dict = {}
 
 
-class StepTimer:
-    """Rolling per-step wall-time tracker for train loops."""
+def enable_spans(on: bool = True):
+    """Turn spans on or off for this process (off at import). A graph
+    captured while they were off has no span in it."""
+    global _ON
+    _ON = bool(on)
 
-    def __init__(self, window: int = 50):
-        self.window = window
-        self._times = []
-        self._last = None
 
-    def tick(self):
-        now = time.perf_counter()
-        if self._last is not None:
-            self._times.append(now - self._last)
-            if len(self._times) > self.window:
-                self._times.pop(0)
-        self._last = now
+def spans_enabled() -> bool:
+    return _ON
 
-    @property
-    def mean_ms(self) -> float:
-        return 1e3 * (sum(self._times) / len(self._times)) \
-            if self._times else 0.0
+
+class _Record:
+    __slots__ = ("name", "parent", "frame", "clock", "ms", "start", "end",
+                 "gen")
+
+    def __init__(self, name, parent, frame, clock, start=None, end=None):
+        self.name, self.parent, self.frame, self.clock = (name, parent,
+                                                          frame, clock)
+        self.start, self.end, self.ms, self.gen = start, end, None, _GEN
+
+
+def _new_frame():
+    global _NEXT_FRAME
+    _NEXT_FRAME += 1
+    return _NEXT_FRAME
+
+
+def _parent(layout, clock):
+    """The index of the innermost open span kept in ``layout`` (the
+    records, or a capture's layout) on ``clock``."""
+    return next((s.index for s in reversed(_STACK)
+                 if s.layout is layout and s.clock == clock), None)
+
+
+class _Span:
+    __slots__ = ("name", "clock", "range", "layout", "index", "item")
+
+    def __init__(self, name, clock):
+        self.name, self.clock = name, clock
+
+    def __enter__(self):
+        self.range = torch.profiler.record_function("tpu3dssf::" + self.name)
+        self.range.__enter__()
+        self.layout, self.index, self.item = None, None, None
+        if self.clock == "device" and torch.cuda.is_current_stream_capturing():
+            # event-record nodes of the graph, read after each replay; a
+            # capture that keeps no layout (not a GraphedStep's) gets none
+            if _CAPTURE is not None:
+                start = torch.cuda.Event(enable_timing=True, external=True)
+                self.item = [self.name, _parent(_CAPTURE, "device"), start,
+                             None]
+                self.layout, self.index = _CAPTURE, len(_CAPTURE)
+                _CAPTURE.append(self.item)
+                start.record()
+        else:
+            parent = _parent(_RECORDS, self.clock)
+            fr = (_FRAME if _FRAME is not None
+                  else _RECORDS[parent].frame if parent is not None
+                  else _new_frame())
+            self.item = _Record(self.name, parent, fr, self.clock)
+            self.layout, self.index = _RECORDS, len(_RECORDS)
+            _RECORDS.append(self.item)
+            if self.clock == "device":
+                self.item.start = torch.cuda.Event(enable_timing=True)
+                self.item.start.record()
+            else:
+                self.item.start = time.perf_counter()
+        _STACK.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        _STACK.pop()
+        item = self.item
+        if isinstance(item, list):                # a captured span
+            item[3] = torch.cuda.Event(enable_timing=True, external=True)
+            item[3].record()
+        elif item is not None and self.clock == "device":
+            item.end = torch.cuda.Event(enable_timing=True)
+            item.end.record()
+            _PENDING.append(item)
+        elif item is not None:
+            item.ms = (time.perf_counter() - item.start) * 1e3
+        self.range.__exit__(*exc)
+        return False
+
+
+def span(name: str, on=None):
+    """A context manager naming a stage ``name``: the shared null context
+    while spans are off; on, a ``tpu3dssf::<name>`` profiler range timed
+    on the card where ``on`` (a tensor or device) is a CUDA one, else on
+    the host."""
+    if not _ON:
+        return _NULL
+    dev = getattr(on, "device", on)
+    cuda = dev is not None and torch.device(dev).type == "cuda"
+    return _Span(name, "device" if cuda else "host")
+
+
+class _Frame:
+    __slots__ = ()
+
+    def __enter__(self):
+        global _FRAME
+        _FRAME = _new_frame()
+
+    def __exit__(self, *exc):
+        global _FRAME
+        _FRAME = None
+        return False
+
+
+def frame():
+    """A context in which every span shares one new frame (a call of a
+    graphed step); the shared null context while spans are off or a frame
+    is under way."""
+    return _Frame() if _ON and _FRAME is None else _NULL
+
+
+@contextlib.contextmanager
+def capture_spans():
+    """Collects the layout of the spans a CUDA graph capture records:
+    ``[name, parent index, start event, end event]`` each."""
+    global _CAPTURE
+    outer, _CAPTURE = _CAPTURE, []
+    try:
+        yield _CAPTURE
+    finally:
+        _CAPTURE = outer
+
+
+def replayed_spans(layout):
+    """Records of the spans of a replay just enqueued, in the current
+    frame; returns them to be read (:func:`read_spans`) before the graph's
+    next replay."""
+    if not _ON or not layout:
+        return []
+    fr = _FRAME if _FRAME is not None else _new_frame()
+    base = len(_RECORDS)
+    out = []
+    for name, parent, start, end in layout:
+        rec = _Record(name, None if parent is None else base + parent, fr,
+                      "device", start, end)
+        _RECORDS.append(rec)
+        out.append(rec)
+    _PENDING.extend(out)
+    return out
+
+
+def read_spans(records):
+    """Milliseconds of each device record from its events; a record whose
+    end the card has not reached yet waits for it and counts in
+    ``span_waits``."""
+    for rec in records:
+        if rec.ms is not None or rec.gen != _GEN:
+            continue
+        if not rec.end.query():
+            count("span_waits")
+            rec.end.synchronize()
+        rec.ms = rec.start.elapsed_time(rec.end)
+        rec.start = rec.end = None
+
+
+def count(name: str, amount: int = 1):
+    """Adds ``amount`` to the counter ``name`` while spans are on."""
+    if _ON:
+        _COUNTS[name] = _COUNTS.get(name, 0) + amount
+
+
+def reset_spans():
+    """Drops every record and restarts the counters (graphs keep their
+    span layouts: their next replays are recorded anew)."""
+    global _RECORDS, _PENDING, _GEN
+    _GEN += 1
+    _RECORDS, _PENDING = [], []
+    _COUNTS.clear()
+
+
+def span_counters() -> dict:
+    """The counters (:func:`count`) since the last :func:`reset_spans`:
+    reads that waited (``span_waits``, 0 where none did), graphs captured
+    and replayed (``graph_captures``, ``graph_replays``) and the batch's
+    copies (``batch_to_device.tensors``, ``.bytes``)."""
+    return {"span_waits": 0, **_COUNTS}
+
+
+def span_summary() -> dict:
+    """``{name: {"clock", "count", "ms", "self_ms", "frames"}}`` over the
+    records since the last :func:`reset_spans`: the calls, their
+    milliseconds in all, the same less their children's (on the same
+    clock) and the frames they ran in. Reads every pending device record
+    first."""
+    read_spans(list(_PENDING))
+    _PENDING.clear()
+    child_ms = [0.0] * len(_RECORDS)
+    for rec in _RECORDS:
+        if rec.parent is not None and rec.ms is not None:
+            child_ms[rec.parent] += rec.ms
+    out: dict = {}
+    for i, rec in enumerate(_RECORDS):
+        if rec.ms is None:          # still open
+            continue
+        s = out.setdefault(rec.name, {"clock": rec.clock, "count": 0,
+                                      "ms": 0.0, "self_ms": 0.0,
+                                      "frames": set()})
+        s["count"] += 1
+        s["ms"] += rec.ms
+        s["self_ms"] += rec.ms - child_ms[i]
+        s["frames"].add(rec.frame)
+    for s in out.values():
+        s["frames"] = len(s["frames"])
+    return out
+
+
+def span_records():
+    """The records since the last :func:`reset_spans`, pending ones read:
+    ``(name, parent index or None, frame, clock, ms)`` each."""
+    span_summary()
+    return [(r.name, r.parent, r.frame, r.clock, r.ms) for r in _RECORDS]
