@@ -1,9 +1,10 @@
 """Chip smoke test of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--packages]
+    python3 chip_smoke.py [--packages | --layer-norm]
 
 (``--packages``: phases 1–2, 25 and 32 alone, the exported programs and
-their AOTInductor packages, with no result line.)
+their AOTInductor packages, with no result line; ``--layer-norm``: phases
+1–2 and 36 alone.)
 
 Drives the port's paths at full width with seeded random weights:
 streaming fused inference (``tpu3dssf_torch.cli.main_infer``) and training
@@ -27,8 +28,11 @@ call against its plain version see the call through a
 their encode, eval and train steps as CUDA graphs
 (``tpu3dssf_torch.train.graph``, one capture per step and batch shape),
 so every CLI run below also checks
-that each of its step calls was a capture or a replay. It checks, in
-order, but for 25, which runs right after 11 so that 32's compiles run on
+that each of its step calls was a capture or a replay. Every exact launch
+count below also holds the port's LayerNorm kernels (LN a LayerNorm call:
+57 a PTv3 forward, 25 a ViT-S encode, 49 a ViT-L encode; and LNB a
+LayerNorm's gradient), which every LayerNorm of the port runs. It checks,
+in order, but for 25, which runs right after 11 so that 32's compiles run on
 the host beside 13–31 (any failure raises, exit code ≠ 0):
 
 1. a CUDA device is present; prints the card's name and power limit, and
@@ -341,6 +345,20 @@ of pieces inside the phases (A/B runs, held train runs, states built).
     launches of its route (K2/K3 at
     C >= 128, K4/K5 at C = 32 and 64 with a gradient; K1 without), and
     attr_bwd's whole LiDAR-only and fusion train steps at their launches.
+36. (run right after 2) LayerNorm, the port's own kernels
+    (:func:`run_layer_norm`), through the port's module
+    (``models.layers.LayerNorm``) as the models run it: the 57 norms of one
+    eval batch of the LiDAR-only cell (PTv3 base, 12 scenes of 25,600
+    voxels) forward (LN) and forward and backward (LN, LNB), and the 25 of
+    one train encode of the fusion cell (ViT-S/16, 72 images), on seeded
+    bf16 inputs: y and dx within :data:`LN_ULPS` bf16 ulp of the plain
+    version (the port's LayerNorm before the kernel: the cast to f32,
+    torch's LayerNorm, the cast back, and autograd's gradient through
+    them), dweight and dbias within :data:`LN_GRAD_TOL` of the largest
+    plain value, the op's mean and rstd within 1e-5; one LN launch a call
+    (and one LNB a gradient), no device kernel but ``layer_norm_*``; device
+    time per pass beside the bytes bound and the plain version's. Its row
+    prints as ``layer_norm``.
 
 ``graphs``, ``remat``, ``export``, ``packages``, ``parallel``,
 ``multichip``, ``lidar_train``, ``parity_ab``, ``settings``,
@@ -405,10 +423,18 @@ LSE_TOL = 1e-3               # f32 LSE, kernel vs plain, rows with a key
 SMALL_MODEL_TOL = 0.05       # bf16 card vs f32 CPU, relative to max |logit|
 GRAD_COSINE = 0.98           # bf16 card vs f32 CPU, the whole gradient
 LAUNCHES_PER_BATCH = 12 + 22
+# LayerNorms a forward, each one LN launch (and one LNB in a gradient):
+# PTv3's two a block, its embedding's, one a pooling and two an unpooling;
+# a ViT's two a layer and its last (ViT-S/16 and DINOv2's ViT-S/14: 12
+# layers, ViT-L/16: 24)
+PTV3_NORMS = 2 * 22 + 1 + 4 + 2 * 4
+VITS_NORMS, VITL_NORMS = 2 * 12 + 1, 2 * 24 + 1
+# per fusion batch: the ViT-S encode and the PTv3 forward
+FRAME_LAUNCHES = {"K1": LAUNCHES_PER_BATCH, "LN": VITS_NORMS + PTV3_NORMS}
 PARITY_CONFIG = "configs/synthetic_convergence_lidar_parity.yaml"
 # per batch of the LiDAR-only parity model: 22 PTv3 blocks (K1), the knn5
-# intensity transfer and the nearest devoxelization (K7)
-PARITY_LAUNCHES = {"K1": 22, "K7": 2}
+# intensity transfer and the nearest devoxelization (K7), its LayerNorms
+PARITY_LAUNCHES = {"K1": 22, "K7": 2, "LN": PTV3_NORMS}
 # H100 SXM peaks from NVIDIA's datasheet: bf16 tensor cores, f32
 # outside the tensor cores, HBM
 BF16_FLOPS, F32_FLOPS, HBM_BYTES = 989e12, 67e12, 3.35e12
@@ -416,16 +442,21 @@ BF16_FLOPS, F32_FLOPS, HBM_BYTES = 989e12, 67e12, 3.35e12
 # 1980 MHz; main() sets it from the card's own clocks.max.sm
 H100_SMS = 132
 EXP_RATE = 16 * H100_SMS * 1980e6
-# per train step: K1 (frozen ViT), K2/K3 (14 blocks at C >= 128), K4/K5
-# (8 blocks at C in {32, 64})
-TRAIN_LAUNCHES = {"K1": 12, "K2": 14, "K3": 14, "K4": 8, "K5": 8}
+# per train step from tokens: K2/K3 (14 blocks at C >= 128), K4/K5 (8
+# blocks at C in {32, 64}), and LN and LNB at every PTv3 LayerNorm; with its
+# encode, K1 and LN in the frozen ViT-S too
+STEP_ATTENTION = {"K2": 14, "K3": 14, "K4": 8, "K5": 8}
+STEP_LAUNCHES = dict(STEP_ATTENTION, LN=PTV3_NORMS, LNB=PTV3_NORMS)
+TRAIN_LAUNCHES = dict(STEP_LAUNCHES, K1=12, LN=VITS_NORMS + PTV3_NORMS)
 # the ViT-L/16 fusion frame: K1 per batch (24 ViT layers + 22 PTv3 blocks),
 # and K8 per encode (24 layers) on the (B, N, H, D) route
 VITL_LAUNCHES, VITL_LAYERS = 24 + 22, 24
+VITL_FRAME_LAUNCHES = {"K1": VITL_LAUNCHES, "LN": VITL_NORMS + PTV3_NORMS}
 # the LiDAR-only config at PTv3's upstream constructor window of 48: every
 # block on the (W, K, H, D) route, K6 per batch and K4 + K5 per train step
 LIDAR_CONFIG = "configs/synthetic_convergence_lidar.yaml"
 WINDOW, WINDOW_CAPACITY, WINDOW_LAUNCHES = 48, 726 * 48, 22
+WINDOW_FRAME_LAUNCHES = {"K6": WINDOW_LAUNCHES, "LN": PTV3_NORMS}
 # every kernel comparison also holds each compared output to
 # max |kernel - plain| <= REL_TOL * max |plain| (see rel_err): the absolute
 # limits above are as large as a typical value over a long key row (|out|
@@ -448,14 +479,19 @@ GRAPH_REPS, GRAPH_RUNS, GRAPH_TRAIN_STEPS = 5, 3, 3
 GRAPH_DIFF_FACTOR = 2.0
 # per remat train step from given tokens: the recompute runs every block's
 # attention forward again with a gradient pending (K2 at C >= 128, K4 at
-# C in {32, 64}); the backward kernels run once
-REMAT_LAUNCHES = {"K2": 28, "K3": 14, "K4": 16, "K5": 8}
+# C in {32, 64}), and with ``remat`` (the whole block) the block's two
+# LayerNorms too; the backward kernels run once
+REMAT_LAUNCHES = {
+    variant: dict(STEP_LAUNCHES, K2=28, K4=16, LN=PTV3_NORMS + norms)
+    for variant, norms in (("remat", 2 * 22), ("remat_attention", 0))}
 # phase 25: launches per call of each exported program (the fusion
 # pipeline takes its tokens as an input; the ViT-S encode is a program of
 # its own)
-EXPORT_LAUNCHES = {"fusion": {"K1": 22}, "parity": dict(PARITY_LAUNCHES),
-                   "window48": {"K6": WINDOW_LAUNCHES}, "vits_encode":
-                   {"K1": LAUNCHES_PER_BATCH - 22}}
+EXPORT_LAUNCHES = {"fusion": {"K1": 22, "LN": PTV3_NORMS},
+                   "parity": dict(PARITY_LAUNCHES),
+                   "window48": dict(WINDOW_FRAME_LAUNCHES),
+                   "vits_encode": {"K1": LAUNCHES_PER_BATCH - 22,
+                                   "LN": VITS_NORMS}}
 # K8 route vs K1 route patch tokens, max abs error over max |token|: the K1
 # route rotates q·(1/8) and k inside its kernel, the K8 route rotates them
 # outside in plain torch and scales q in its kernel; both round once, the
@@ -488,6 +524,18 @@ K1_KERNELS = r"fap_fwd_(d16|kernel_d64|kernel_rope_k)"
 D16_LSE_KERNELS = r"fap_fwd_d16_\w+<(\d+, ?)?true>"
 D16_BWD_KERNELS = r"fap_bwd_d16_"
 DELETED_D16 = re.compile(r"fap_fwd_kernel<|fap_bwd_(dkdv|dq)_kernel")
+# phase 36: LayerNorm (LN, LNB: the port's own kernels) at the norms of one
+# eval batch of the LiDAR-only cell (PTv3 base, 12 scenes of 25,600 voxels)
+# and of one train encode of the fusion cell (ViT-S/16, 72 images)
+LN_BATCH, LN_VOXELS, LN_IMAGES = 12, 25600, 72
+# kernel vs plain, in bf16 ulps of the plain value (bf16_ulps: the ulp at
+# |value| or at 2**-14, the larger, since near zero the two f32
+# evaluations differ by the f32 rounding of the O(1) terms that cancel)
+LN_ULPS = 1.0
+# dweight and dbias: max |kernel - plain| over max |plain|, f32 sums over
+# up to 307,200 rows in another order
+LN_GRAD_TOL = 1e-5
+LN_KERNELS = r"layer_norm_(fwd|bwd)"
 # K7's device kernels: the refs packed, the scan, the merge of the segments
 K7_KERNELS = r"knn_(pack|kernel|merge)"
 # hold each D = 16 row of check_flash_shape to those kernels' names and
@@ -620,7 +668,6 @@ def run_slice(card):
     import numpy as np
     import torch
     from tpu3dssf_torch.cli import common, main_infer
-    from tpu3dssf_torch.kernels.modules import flash_attention as fa
     from tpu3dssf_torch.train.loop import make_eval_step
     from tpu3dssf_torch.utils import cuda_ms
 
@@ -630,13 +677,14 @@ def run_slice(card):
     metrics = check_graphed_cli(
         "slice main_infer", lambda: main_infer.main(
             ["--config", CONFIG, "--split", "test"]), 2 * n_batches)
-    launches = fa.LAUNCHES
-    if counters()["K7"]:
-        raise AssertionError("the fusion config's modes launched K7")
-    print(f"slice: {launches} kernel launches over {n_batches} batches")
-    if launches != LAUNCHES_PER_BATCH * n_batches:
-        raise AssertionError(f"kernel launched {launches} times, expected "
-                             f"{LAUNCHES_PER_BATCH} x {n_batches}")
+    counts = {k: v for k, v in counters().items() if v}
+    want = {k: v * n_batches for k, v in FRAME_LAUNCHES.items()}
+    launches = counts.get("K1", 0)
+    print(f"slice: launches {counts} over {n_batches} batches (expected "
+          f"{want})")
+    if counts != want:
+        raise AssertionError(f"main_infer launched {counts}, expected "
+                             f"{FRAME_LAUNCHES} x {n_batches}")
     for k, v in metrics.items():
         if not np.isfinite(v).all():
             raise AssertionError(f"metric {k} is not finite: {v}")
@@ -1005,9 +1053,9 @@ def grad_error(got, ref):
 
 
 def counters():
-    """{"K1": launches, ..., "K9": launches}: the package's one list of
-    launch counters (``kernels.modules.COUNTERS``), which the CUDA-graph
-    wrapper keeps too."""
+    """{"K1": launches, ..., "K9": launches, "LN": ..., "LNB": ...}: the
+    package's one list of launch counters (``kernels.modules.COUNTERS``),
+    which the CUDA-graph wrapper keeps too."""
     from tpu3dssf_torch.kernels.modules import launch_counts
     return launch_counts()
 
@@ -1060,8 +1108,8 @@ def run_training(tmp):
         launches = counters()
     finally:
         loop.evaluate_model = evaluate
-    want = {k: TRAIN_LAUNCHES.get(k, 0) * steps for k in launches}
-    want["K1"] += LAUNCHES_PER_BATCH * val_batches
+    want = {k: TRAIN_LAUNCHES.get(k, 0) * steps
+            + FRAME_LAUNCHES.get(k, 0) * val_batches for k in launches}
     print(f"training: {steps} steps + {val_batches} val batches in "
           f"{seconds:.1f} s; launches {launches} (expected {want}); val "
           f"pass K1 {val_k1}")
@@ -1239,8 +1287,8 @@ def time_train_step(card):
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
     for name, (us, c) in top:
         print(f"  {us / 1e3:8.3f} ms {c:6g}x  {name[:100]}")
-    for k, n in TRAIN_LAUNCHES.items():
-        if k != "K1" and not (counts.get(k) == n and device_ms.get(k, 0) > 0):
+    for k, n in STEP_ATTENTION.items():
+        if not (counts.get(k) == n and device_ms.get(k, 0) > 0):
             raise AssertionError(f"profiler: {k} {counts.get(k)} launches, "
                                  f"{device_ms.get(k)} ms per step")
     if n_by_name != want_n:
@@ -1333,7 +1381,7 @@ def check_small_model_grad():
         loss[device] = float(out.total.detach())
         grads[device] = {k: p.grad.detach().float().cpu().flatten()
                          for k, p in model.named_parameters()}
-    if not all(used[k] > 0 for k in ("K2", "K3", "K4", "K5")):
+    if not all(used[k] > 0 for k in ("K2", "K3", "K4", "K5", "LN", "LNB")):
         raise AssertionError(f"small model on the card launched {used}")
     cpu, card = grads["cpu"], grads["cuda"]
     a = torch.cat([cpu[k] for k in cpu])
@@ -2162,7 +2210,7 @@ def run_vitl_frame(card, tmp):
             ["--config", path, "--split", "test"]), 2 * n)
     seconds = time.perf_counter() - t0
     launches = counters()
-    want = {k: VITL_LAUNCHES * n if k == "K1" else 0 for k in launches}
+    want = {k: VITL_FRAME_LAUNCHES.get(k, 0) * n for k in launches}
     bad = {k: v for k, v in metrics.items() if not np.isfinite(v).all()}
     print(f"ViT-L main_infer: {n} batches in {seconds:.1f} s, launches "
           f"{launches} (expected {want})")
@@ -2198,6 +2246,8 @@ def run_vitl_frame(card, tmp):
 
 
 DINOV2_LAUNCHES = 12 + 22   # K1 per batch: ViT-S/14's 12 layers + PTv3
+DINOV2_FRAME_LAUNCHES = {"K1": DINOV2_LAUNCHES,
+                         "LN": VITS_NORMS + PTV3_NORMS}
 
 
 def run_dinov2(card, tmp):
@@ -2222,7 +2272,7 @@ def run_dinov2(card, tmp):
     metrics = check_graphed_cli("dinov2 main_infer", lambda: main_infer.main(
         ["--config", path, "--split", "test"]), 2 * n)
     launches = counters()
-    want = {k: DINOV2_LAUNCHES * n if k == "K1" else 0 for k in launches}
+    want = {k: DINOV2_FRAME_LAUNCHES.get(k, 0) * n for k in launches}
     bad = {k: v for k, v in metrics.items() if not np.isfinite(v).all()}
     print(f"dinov2 main_infer: {n} batches, launches {launches} (expected "
           f"{want})", flush=True)
@@ -2234,7 +2284,7 @@ def run_dinov2(card, tmp):
     frame["graphed"]()          # the first call of each step, and captures
     per_batch = check_graphed_counts("dinov2", frame["eager"],
                                      frame["graphed"],
-                                     {"K1": DINOV2_LAUNCHES})
+                                     dict(DINOV2_FRAME_LAUNCHES))
     outputs = check_graphed_outputs(frame)
     inside, total = time_kernels_in_path(frame["eager"], {"K1": k1_spec(
         DINOV2_LAUNCHES)})
@@ -2265,7 +2315,8 @@ def run_vitl_k8(vit, encode, images):
     tokens = encode(images)
     torch.cuda.synchronize()
     launches = counters()
-    want = {k: VITL_LAYERS if k == "K8" else 0 for k in launches}
+    want = {k: {"K8": VITL_LAYERS, "LN": VITL_NORMS}.get(k, 0)
+            for k in launches}
     err = (tokens.float() - packed.float()).abs().max().item()
     scale = packed.float().abs().max().item()
     agree = dict(max_abs_err=err, max_abs_token=scale, rel_err=err / scale)
@@ -2319,7 +2370,8 @@ def vitl_gradient(vit, vit_cfg, images, packed):
     got = grads()
     torch.cuda.synchronize()
     launches = counters()
-    want = {k: VITL_LAYERS if k in (route, "K9") else 0 for k in launches}
+    want = {k: VITL_LAYERS if k in (route, "K9") else
+            VITL_NORMS if k in ("LN", "LNB") else 0 for k in launches}
 
     def plain_fwd(q, k, v, bias, scale, kernel):
         return fa.flash_attention_lse_reference(q, k, v, bias, scale)
@@ -2401,7 +2453,7 @@ def run_window_path(card, tmp):
             ["--config", path, "--split", "test"]), n)
     seconds = time.perf_counter() - t0
     launches = counters()
-    want = {k: WINDOW_LAUNCHES * n if k == "K6" else 0 for k in launches}
+    want = {k: WINDOW_FRAME_LAUNCHES.get(k, 0) * n for k in launches}
     bad = {k: v for k, v in metrics.items() if not np.isfinite(v).all()}
     print(f"window-48 main_infer: {n} batches in {seconds:.1f} s, launches "
           f"{launches} (expected {want}), overall acc "
@@ -2440,8 +2492,8 @@ def run_window_path(card, tmp):
     loss = float(train_step(state, batch, tokens)["loss"])
     torch.cuda.synchronize()
     step_launches = counters()
-    want = {k: WINDOW_LAUNCHES if k in ("K4", "K5") else 0
-            for k in step_launches}
+    want = {k: WINDOW_LAUNCHES if k in ("K4", "K5") else
+            PTV3_NORMS if k in ("LN", "LNB") else 0 for k in step_launches}
     print(f"window-48 train step: loss {loss:.4f}, launches {step_launches} "
           f"(expected {want})")
     if step_launches != want or not np.isfinite(loss):
@@ -2707,13 +2759,13 @@ def run_graph_paths(card, tmp):
 
     device = torch.device("cuda")
     specs = (
-        ("fusion", CONFIG, {}, {}, {"K1": LAUNCHES_PER_BATCH}),
+        ("fusion", CONFIG, {}, {}, dict(FRAME_LAUNCHES)),
         ("vitl", CONFIG, dict(image_encoder="dinov3_large"), {},
-         {"K1": VITL_LAUNCHES}),
+         dict(VITL_FRAME_LAUNCHES)),
         ("parity", PARITY_CONFIG, {}, {}, dict(PARITY_LAUNCHES)),
         ("window48", LIDAR_CONFIG, {}, dict(
             window_size=WINDOW, voxel_capacity=WINDOW_CAPACITY),
-         {"K6": WINDOW_LAUNCHES}))
+         dict(WINDOW_FRAME_LAUNCHES)))
     rows = {}
     for name, src, train, tpu, want in specs:
         cfg = common.load_config(config_copy(src, tmp, f"{name}_g.yaml",
@@ -3018,8 +3070,7 @@ def run_remat(card, tokens, batch, vit_cfg):
                   f"{row['grad_diff']}; replay {row['ms']:.3f} ms (spread "
                   f"{row['spread']:.3f}), device {row['device_ms']:.3f} ms "
                   f"[{card}]", flush=True)
-            want = (REMAT_LAUNCHES if variant != "none" else
-                    {k: v for k, v in TRAIN_LAUNCHES.items() if k != "K1"})
+            want = REMAT_LAUNCHES.get(variant, STEP_LAUNCHES)
             if launches != want or not bit_exact(*row["grad_diff"]):
                 raise AssertionError(f"remat {variant}: launches {launches} "
                                      f"(expected {want}), gradients "
@@ -3294,7 +3345,8 @@ PACKAGES = ("vits_encode", "parity", "window48", "fusion")
 def check_contract_breaches():
     """Phase 32: each CUDA op fed inputs that break its kernel's contract
     (a wrong dtype, D = 32, a view one element off 16-byte alignment,
-    tables at D = 16, an lse of the wrong shape, knn at k = 9) raises a
+    tables at D = 16, an lse of the wrong shape, knn at k = 9, a LayerNorm
+    row wider than 1024) raises a
     ``RuntimeError`` from its C++ kernel, and no launch is counted.
     Returns {case: the error's first line}."""
     import torch
@@ -3310,6 +3362,7 @@ def check_contract_breaches():
     tables = torch.rand(2, 64, 8, generator=gen).to("cuda")
     lse = torch.zeros(2, 2, 64, device="cuda")
     pts = torch.rand(2, 16, 3, generator=gen).to("cuda")
+    wide = torch.ones(1032, device="cuda")
     cases = {
         "dtype": lambda: ops.packed_attention(qkv.float(), bias, 2, 0.25,
                                               None, None),
@@ -3321,6 +3374,8 @@ def check_contract_breaches():
                                                lse, 0.25, "K9"),
         "knn_k9": lambda: ops.knn(pts, pts, torch.ones(
             2, 16, dtype=torch.bool, device="cuda"), 9),
+        "layer_norm_wide": lambda: ops.layer_norm(bf16(4, 1032), wide, wide,
+                                                  1e-6),
     }
     out = {}
     for name, call in cases.items():
@@ -3718,8 +3773,7 @@ def parallel_infer(mesh, tmp):
     wall = time.perf_counter() - t0
     counts = counters()
     every = all_ranks(mesh, host_sums(local))
-    want = {k: 0 for k in counts}
-    want["K1"] = LAUNCHES_PER_BATCH * batches
+    want = {k: FRAME_LAUNCHES.get(k, 0) * batches for k in counts}
     summed = {k: sum(np.asarray(e[k]) for e in every)
               for k in ("confusion", "correct", "valid")}
     sums_ok = bool(np.array_equal(summed["confusion"], total["confusion"])
@@ -3858,10 +3912,10 @@ def parallel_train(mesh):
         max_param_diff=param_diff, param_limit=DP_PARAM_LRS * lr,
         kernels_vs_plain=held, note=PARALLEL_LABEL)
     rank_print(mesh, "dp_train", record)
-    train = {k: v for k, v in TRAIN_LAUNCHES.items() if k != "K1"}
+    train = STEP_LAUNCHES
     got = {k: v for k, v in dp_run[1].items() if v}
     if (got != train or {k: v for k, v in one_run[1].items() if v} != train
-            or {k: r["calls"] for k, r in held.items()} != train
+            or {k: r["calls"] for k, r in held.items()} != STEP_ATTENTION
             or record["loss_rel_err"] > REL_TOL
             or record["grad_cosine"] < DP_COSINE
             or record["update_cosine"] < DP_COSINE
@@ -3918,6 +3972,7 @@ def parallel_vitl(mesh):
     del vit, encode, full, got, calls
     torch.cuda.empty_cache()
     if (counts["K1"] != VITL_LAYERS or counts["K8"] != 0
+            or counts["LN"] != VITL_NORMS
             or held["calls"] != VITL_LAYERS
             or record["heads"] != [8] or record["channels"] != [512]
             or not record["rope"] or record["rel_err"] > REL_TOL):
@@ -3999,7 +4054,8 @@ def parallel_sp(mesh):
     rank_print(mesh, "sp_block", record)
     fwd = {k: v for k, v in fwd_counts.items() if v}
     grad = {k: v for k, v in grad_counts.items() if v}
-    if (fwd != {"K1": 1} or grad != {"K4": 1, "K5": 1}
+    if (fwd != {"K1": 1, "LN": 2}
+            or grad != {"K4": 1, "K5": 1, "LN": 2, "LNB": 2}
             or {k: r["calls"] for k, r in held.items()}
             != {"K1": 1, "K4": 1, "K5": 1}
             or record["rel_err"] > REL_TOL
@@ -4171,7 +4227,10 @@ def lidar_launches(cfg, intensity_mode=None, devoxelize_mode=None):
     0, K4/K5 else: :func:`train_attention_shapes`) and one K1 in eval; K7
     once per k-NN mode in use (the knn5 intensity transfer, the nearest
     devoxelization), forward only: the nearest gather's backward is a
-    scatter-add. The modes default to the config's."""
+    scatter-add; LN at each LayerNorm (two a block, the embedding's, one a
+    pooling, two an unpooling), and LNB too in a train step. The modes
+    default to the config's."""
+    from tpu3dssf_torch.models.ptv3 import PTv3Config
     modes = ((intensity_mode or cfg.tpu.intensity_mode) == "knn5",
              (devoxelize_mode or cfg.tpu.devoxelize_mode) == "nearest")
     train, blocks = {}, 0
@@ -4179,10 +4238,13 @@ def lidar_launches(cfg, intensity_mode=None, devoxelize_mode=None):
         train[fwd] = train.get(fwd, 0) + n
         train[bwd] = train.get(bwd, 0) + n
         blocks += n
+    p = PTv3Config()
+    norms = 2 * blocks + 1 + 3 * (p.num_stages - 1)
     k7 = sum(modes)
-    train["K7"] = k7
+    train.update(K7=k7, LN=norms, LNB=norms)
     return ({k: v for k, v in train.items() if v},
-            {k: v for k, v in (("K1", blocks), ("K7", k7)) if v})
+            {k: v for k, v in (("K1", blocks), ("K7", k7), ("LN", norms))
+             if v})
 
 
 def hold_knn(what, calls):
@@ -4224,7 +4286,7 @@ def run_lidar_training(card, tmp):
                              train=dict(max_num_epochs=LIDAR_TRAIN_EPOCHS))
     cfg = common.load_config(path)
     per_step, per_batch = lidar_launches(cfg)
-    if (per_step != {"K2": 14, "K3": 14, "K4": 8, "K5": 8, "K7": 2}
+    if (per_step != dict(STEP_LAUNCHES, K7=2)
             or per_batch != PARITY_LAUNCHES):
         raise AssertionError(f"derived launches {per_step} per step, "
                              f"{per_batch} per val batch")
@@ -4295,9 +4357,11 @@ def run_lidar_training(card, tmp):
         k7_calls = capture_calls("knn", lambda: step(state, batch, tokens))
     calls = {k: len(v) for k, v in cap.calls.items() if v}
     calls["K7"] = len(k7_calls)
-    if calls != per_step:
+    # the ops the two captures see: the attention's and K7's
+    want = {k: n for k, n in per_step.items() if k in (*STEP_ATTENTION, "K7")}
+    if calls != want:
         raise AssertionError(f"lidar train step: calls {calls}, expected "
-                             f"{per_step}")
+                             f"{want}")
     held = hold_calls("lidar train step", cap.calls)
     held["K7"] = hold_knn("lidar train step", k7_calls)
     del cap, k7_calls
@@ -4390,7 +4454,8 @@ def run_parity_ab(card, path, ckpt, tmp):
                           lambda: parity_ab.forward(model, batch, tokens))))
         n = {k: v for k, v in (("K1", len(k1_calls)),
                                ("K7", len(k7_calls))) if v}
-        if n != {k: v // batches for k, v in want[name].items()}:
+        if n != {k: v // batches for k, v in want[name].items()
+                 if k in ("K1", "K7")}:
             raise AssertionError(f"parity_ab {name}: calls {n} in a batch")
         held[name] = hold_calls(f"parity_ab {name}", {"K1": k1_calls})
         if k7_calls:
@@ -4471,8 +4536,9 @@ def run_settings_training(card, tmp):
         print(said.getvalue(), end="", flush=True)
     seconds = time.perf_counter() - t0
     launches = {k: v for k, v in counters().items() if v}
-    want = {k: n * steps for k, n in TRAIN_LAUNCHES.items()}
-    want["K1"] += LAUNCHES_PER_BATCH * val_batches
+    want = {k: TRAIN_LAUNCHES.get(k, 0) * steps
+            + FRAME_LAUNCHES.get(k, 0) * val_batches
+            for k in {*TRAIN_LAUNCHES, *FRAME_LAUNCHES}}
     eager = "[graph] train step stays eager" in said.getvalue()
     with open(os.path.join(ckpt, "training_history.json")) as f:
         epoch = json.load(f)["epochs"][0]
@@ -4499,7 +4565,7 @@ def run_settings_training(card, tmp):
         step(state, batch, tokens)
         torch.cuda.synchronize()
     calls = {k: len(v) for k, v in cap.calls.items() if v}
-    if calls != {k: n for k, n in TRAIN_LAUNCHES.items() if k != "K1"}:
+    if calls != STEP_ATTENTION:
         raise AssertionError(f"settings train step: calls {calls}")
     held = hold_calls("settings train step", cap.calls)
     del cap, state, step, encode
@@ -4693,16 +4759,16 @@ def run_graph_settings(card, tmp):
 # K1 per frame (12 ViT-S layers + 22 PTv3 blocks), float and W8A8 alike;
 # the W8A8 ViT-S encode against the float one on the same images, max abs
 # error over max(max |float|, 1) (tests/test_vit.py's limit for JAX's)
-BENCH_FRAME_LAUNCHES = {"K1": LAUNCHES_PER_BATCH}
+BENCH_FRAME_LAUNCHES = dict(FRAME_LAUNCHES)
 W8A8_TOL = 0.05
 # phase 31: launches per replay of each graph of cli/bench_train.py's rows
 # (tokens given: no ViT) and of the lidar-only row's split
 BENCH_TRAIN_LAUNCHES = {
-    "lidar-only": {k: n for k, n in TRAIN_LAUNCHES.items() if k != "K1"},
-    "lidar-only+remat": dict(REMAT_LAUNCHES),
-    "fusion": {k: n for k, n in TRAIN_LAUNCHES.items() if k != "K1"},
-    "fwd": {"K1": LAUNCHES_PER_BATCH - 12},
-    "fwd_bwd": {k: n for k, n in TRAIN_LAUNCHES.items() if k != "K1"}}
+    "lidar-only": dict(STEP_LAUNCHES),
+    "lidar-only+remat": dict(REMAT_LAUNCHES["remat"]),
+    "fusion": dict(STEP_LAUNCHES),
+    "fwd": {"K1": LAUNCHES_PER_BATCH - 12, "LN": PTV3_NORMS},
+    "fwd_bwd": dict(STEP_LAUNCHES)}
 
 
 def checked_int_mm(frame):
@@ -4878,22 +4944,39 @@ ATTRIBUTION_ARGS = ["--r", "2", "--replays", "2", "--warmup", "1"]
 ATTRIBUTION_UNRECORDED = 0.05
 
 
+# LayerNorms a repeat of each piece of the attribution CLIs, by kind (a
+# block's two, a pooling's one, an unpooling's two, the MLP half's one);
+# time_block_glue's by sub-op (its glue runs the norm twice)
+PIECE_NORMS = {"block_fwd": 2, "block_fwd_bwd": 2, "block": 2,
+               "decoder_block": 2, "pool": 1, "pool_fwd_bwd": 1,
+               "unpool": 2, "unpool_fwd_bwd": 2, "full": PTV3_NORMS}
+GLUE_NORMS = {"LayerNorm": 1, "LN+qkv chained": 1, "ALL glue chained": 2}
+
+
 def attribution_launches(row):
-    """The attention launches a row of the attribution CLIs must show per
-    repeat: its SerializedAttention's route at its (N, C, H) for the rows
-    that run attention (``cli.pieces.attention_launches``), K1 per block
-    for the full PTv3 forward, none for every other piece."""
+    """The launches a row of the attribution CLIs must show per repeat: its
+    SerializedAttention's route at its (N, C, H) for the rows that run
+    attention (``cli.pieces.attention_launches``), K1 per block for the
+    full PTv3 forward; LN at each of its LayerNorms (PIECE_NORMS,
+    GLUE_NORMS; the MLP half of a block has one), and LNB at each too
+    where the piece takes a gradient."""
     from tpu3dssf_torch.cli.pieces import attention_launches
     kind = row.get("kind", "")
     grad = kind.endswith("fwd_bwd")
+    out = {}
     if kind in ("block_fwd", "block_fwd_bwd", "attention", "block",
                 "decoder_block") or (kind.startswith("sub_") and
                                      row["sub"].startswith("attn")):
-        return attention_launches(row["C"], row["H"], min(1024, row["N"]),
-                                  grad)
+        out = attention_launches(row["C"], row["H"], min(1024, row["N"]),
+                                 grad)
     if kind == "full":
-        return {"K1": 22}
-    return {}
+        out = {"K1": 22}
+    norms = PIECE_NORMS.get(kind, GLUE_NORMS.get(row.get("op"), 0))
+    if kind.startswith("sub_") and row["sub"] == "mlp":
+        norms = 1
+    if norms:
+        out = dict(out, LN=norms, **({"LNB": norms} if grad else {}))
+    return out
 
 
 def run_attribution(card, tmp):
@@ -4936,8 +5019,7 @@ def run_attribution(card, tmp):
                                  f"time: {unrecorded}")
         if tool == "attr_bwd":
             for name, whole in rec["sums"]["wholes"].items():
-                if whole["launches"] != {k: TRAIN_LAUNCHES[k] for k in (
-                        "K2", "K3", "K4", "K5")} or not whole["ms"] > 0:
+                if whole["launches"] != STEP_LAUNCHES or not whole["ms"] > 0:
                     raise AssertionError(f"attr_bwd {name} step: {whole}")
         summed = {}
         for r in rows:
@@ -4947,11 +5029,12 @@ def run_attribution(card, tmp):
                          device_not_recorded=unrecorded,
                          sums=rec.get("sums"))
         print(f"attribution {tool}: {len(rows)} rows in {seconds:.1f} s, "
-              f"attention launches per repeat summed over the rows "
+              f"launches per repeat summed over the rows "
               f"{summed}, rows without a device time {unrecorded} "
               f"[{card}]", flush=True)
     counts = counters()
-    if any(counts[k] == 0 for k in ("K1", "K2", "K3", "K4", "K5")):
+    if any(counts[k] == 0 for k in ("K1", "K2", "K3", "K4", "K5", "LN",
+                                    "LNB")):
         raise AssertionError(f"attribution CLIs: launches {counts}")
     return out, counts
 
@@ -4959,6 +5042,185 @@ def run_attribution(card, tmp):
 def per_path(rows, key, count):
     """Σ over a kernel's shapes of (calls per batch or step × per call)."""
     return sum(r[count] * r[key] for r in rows)
+
+
+def bf16_ulps(got, want):
+    """The largest |got - want| in bf16 ulps of ``want``, the ulp taken at
+    max(|want|, 2**-14) (see :data:`LN_ULPS`)."""
+    import torch
+    w = want.float()
+    at = torch.clamp(w.abs(), min=2.0 ** -14)
+    ulp = torch.exp2(torch.floor(torch.log2(at)) - 7)
+    return ((got.float() - w).abs() / ulp).max().item()
+
+
+def ptv3_norm_shapes(batch, voxels):
+    """(rows, C, eps) of each LayerNorm call of one PTv3 base forward over
+    ``batch`` scenes of ``voxels`` voxels, in call order: the embedding's;
+    per encoder stage its pooling's (past stage 0) and two a block; per
+    decoder stage its unpooling's two (the coarse rows, then the skip's)
+    and two a block. 57 calls."""
+    from tpu3dssf_torch.models.ptv3 import PTv3Config
+    p = PTv3Config()
+    caps = [batch * c for c in p.capacities(voxels)]
+    eps = 1e-6   # models.layers.LayerNorm's default, flax's
+    calls = [(caps[0], p.enc_channels[0], eps)]
+    for s in range(p.num_stages):
+        calls += [(caps[s], p.enc_channels[s], eps)] * (
+            (s > 0) + 2 * p.enc_depths[s])
+    for d in reversed(range(p.num_stages - 1)):
+        calls.append((caps[d + 1], p.dec_channels[d], eps))
+        calls += [(caps[d], p.dec_channels[d], eps)] * (
+            1 + 2 * p.dec_depths[d])
+    return calls
+
+
+def vit_norm_shapes(images):
+    """(rows, C, eps) of each LayerNorm call of one DINOv3 ViT-S/16 encode
+    of ``images`` images: two a block, then the final norm. 25 calls."""
+    from tpu3dssf_torch.models.vit import dinov3_small
+    v = dinov3_small()
+    rows = images * (v.num_prefix_tokens + v.num_patches)
+    return [(rows, v.hidden_size, v.ln_eps)] * (2 * v.num_layers + 1)
+
+
+def layer_norm_path(name, calls, grad, card):
+    """The LayerNorm calls ``calls`` in order on seeded bf16 inputs, through
+    the port's module (``models.layers.LayerNorm``, bf16, its weight and
+    bias drawn): each distinct shape held to the plain version, the port's
+    LayerNorm before its kernel (``F.layer_norm`` on ``x.float()``, cast
+    back; with ``grad`` its autograd gradient too): y and dx in bf16 ulps,
+    dweight and dbias relative to the largest plain value; the op's mean
+    and rstd against the plain statistics. Then timed: device time per
+    pass over the calls from the profiler, the module's and the plain
+    version's, forward (and with ``grad`` forward and backward) beside the
+    bytes bound; the module's launches counted (LN, and LNB with
+    ``grad``). Raises on a breach."""
+    import torch
+    import torch.nn.functional as F
+    from tpu3dssf_torch.kernels import layer_norm_reference
+    from tpu3dssf_torch.models.layers import LayerNorm
+    from tpu3dssf_torch.utils import profile_kernels
+
+    gen = torch.Generator(device="cuda").manual_seed(36)
+
+    def draw(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, device="cuda", generator=gen) * scale \
+            + shift
+
+    def plain(x, w, b, eps):
+        return F.layer_norm(x.float(), (x.shape[1],), w, b, eps).to(x.dtype)
+
+    def fwd_bwd(norm, x, dy, params):
+        """The gradients of ``norm(x)`` against ``dy`` for x and
+        ``params``."""
+        xg = x.detach().requires_grad_()
+        return torch.autograd.grad(norm(xg), (xg, *params), dy)
+
+    inputs, err = {}, dict(y_ulps=0.0, stats=0.0, dx_ulps=0.0, dwdb=0.0)
+    for rows, C, eps in dict.fromkeys(calls):
+        x = draw(rows, C, scale=2.0, shift=0.5).to(torch.bfloat16)
+        w, b = draw(C, scale=0.2, shift=1.0), draw(C, scale=0.2)
+        dy = draw(rows, C).to(torch.bfloat16)
+        norm = LayerNorm(C, eps, torch.bfloat16).cuda()
+        with torch.no_grad():
+            norm.weight.copy_(w)
+            norm.bias.copy_(b)
+        w, b = (p.detach().clone().requires_grad_() for p in (w, b))
+        inputs[rows, C, eps] = (x, norm, dy, (w, b))
+        with torch.no_grad():
+            got, want = norm(x), plain(x, w, b, eps)
+        err["y_ulps"] = max(err["y_ulps"], bf16_ulps(got, want))
+        stats = torch.ops.tpu3dssf.layer_norm(x, w.detach(), b.detach(), eps)
+        err["stats"] = max(err["stats"], *(
+            (g - v).abs().max().item() / v.abs().max().item()
+            for g, v in zip(stats[1:], layer_norm_reference(
+                x, w.detach(), b.detach(), eps)[1:])))
+        if grad:
+            gg = fwd_bwd(norm, x, dy, (norm.weight, norm.bias))
+            gw = fwd_bwd(lambda xx: plain(xx, w, b, eps), x, dy, (w, b))
+            err["dx_ulps"] = max(err["dx_ulps"], bf16_ulps(gg[0], gw[0]))
+            err["dwdb"] = max(err["dwdb"], *(
+                (g - v).abs().max().item() / v.abs().max().item()
+                for g, v in zip(gg[1:], gw[1:])))
+
+    def module():
+        with torch.no_grad():
+            for c in calls:
+                x, norm, _, _ = inputs[c]
+                norm(x)
+
+    def plain_pass():
+        with torch.no_grad():
+            for c in calls:
+                x, _, _, (w, b) = inputs[c]
+                plain(x, w, b, c[2])
+
+    def module_grad():
+        for c in calls:
+            x, norm, dy, _ = inputs[c]
+            fwd_bwd(norm, x, dy, (norm.weight, norm.bias))
+
+    def plain_grad():
+        for c in calls:
+            x, _, dy, (w, b) = inputs[c]
+            fwd_bwd(lambda xx: plain(xx, w, b, c[2]), x, dy, (w, b))
+
+    def device_ms(fn):
+        _, table, _ = profile_kernels(fn, reps=3)
+        return sum(us for us, _ in table.values()) / 1e3, table
+
+    def launched(fn):
+        reset_counters()
+        fn()
+        torch.cuda.synchronize()
+        return {k: v for k, v in counters().items() if v}
+
+    n = len(calls)
+    launches = launched(module)
+    ms, table = device_ms(module)
+    plain_ms, plain_table = device_ms(plain_pass)
+    nbytes = sum(r * c * 4 + r * 8 + c * 8 for r, c, _ in calls)
+    row = dict(calls=n, launches=launches, ms=ms,
+               bound_ms=nbytes / HBM_BYTES * 1e3, bound_by="bytes",
+               plain_ms=plain_ms, kernel_names=sorted(table),
+               plain_kernels=sum(k for _, k in plain_table.values()),
+               y_max_ulps=err["y_ulps"], stats_max_rel=err["stats"])
+    bad = [k for k in table if not re.search(LN_KERNELS, k)]
+    ok = (launches == {"LN": n} and not bad and err["y_ulps"] <= LN_ULPS
+          and err["stats"] <= 1e-5)
+    if grad:
+        grad_launches = launched(module_grad)
+        grad_ms, grad_table = device_ms(module_grad)
+        grad_plain_ms, _ = device_ms(plain_grad)
+        # the forward's bytes, then the backward's: dy, x, dx (2 bytes an
+        # element each), the statistics, w read, dw and db written
+        grad_bytes = nbytes + sum(r * c * 6 + r * 8 + c * 12
+                                  for r, c, _ in calls)
+        row.update(fwd_bwd_launches=grad_launches, fwd_bwd_ms=grad_ms,
+                   fwd_bwd_bound_ms=grad_bytes / HBM_BYTES * 1e3,
+                   fwd_bwd_plain_ms=grad_plain_ms,
+                   fwd_bwd_kernel_names=sorted(grad_table),
+                   dx_max_ulps=err["dx_ulps"], dwdb_max_rel=err["dwdb"])
+        ok = (ok and grad_launches == {"LN": n, "LNB": n}
+              and err["dx_ulps"] <= LN_ULPS and err["dwdb"] <= LN_GRAD_TOL
+              and all(re.search(LN_KERNELS, k) for k in grad_table))
+    print(f"layer_norm {name}: {json.dumps(row)} [{card}]", flush=True)
+    if not ok:
+        raise AssertionError(f"layer_norm {name}: {row}")
+    return row
+
+
+def run_layer_norm(card):
+    """Phase 36: LN (and LNB at the PTv3 shapes, as a train step runs them)
+    at one eval batch's 57 PTv3 norms and one train encode's 25 ViT-S
+    norms. Returns {path: row}."""
+    return {
+        "ptv3_eval_batch": layer_norm_path(
+            "ptv3_eval_batch", ptv3_norm_shapes(LN_BATCH, LN_VOXELS), True,
+            card),
+        "vits_train_encode": layer_norm_path(
+            "vits_train_encode", vit_norm_shapes(LN_IMAGES), False, card)}
 
 
 def main():
@@ -5036,6 +5298,11 @@ def main():
                 stop_package_compiles(compiles)
             shutil.rmtree(export_tmp, ignore_errors=True)
         mark("25, 32")
+        print("phase_seconds " + json.dumps(seconds))
+        return
+    layer_norm = run_layer_norm(card)
+    mark("36")
+    if sys.argv[1:] == ["--layer-norm"]:    # phase 36 alone
         print("phase_seconds " + json.dumps(seconds))
         return
 
@@ -5401,6 +5668,7 @@ def main():
     print("bench_train " + json.dumps(bench_rows))
     print("dinov2 " + json.dumps(dinov2))
     print("attribution " + json.dumps(attribution))
+    print("layer_norm " + json.dumps(dict(layer_norm, card=card)))
     print("sub_seconds " + json.dumps(SUB_SECONDS))
     print("phase_seconds " + json.dumps(seconds))
     print(json.dumps({"kernels": records}))

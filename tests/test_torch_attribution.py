@@ -55,6 +55,24 @@ def _check_rows(record, names):
         assert r["r"] == 1 and r["launches"] == {}
 
 
+@pytest.mark.parametrize("tiny", [True, False])
+def test_step_launches_count_every_layer_norm_of_the_model(tiny):
+    """The launches the attribution CLIs hold a whole PTv3 forward (and a
+    train step) to take one LN (and one LNB) a LayerNorm module of the
+    model built from the same config."""
+    from tpu3dssf_torch.models.layers import LayerNorm
+    from tpu3dssf_torch.models.ptv3 import PointTransformerV3, PTv3Config
+    cfg = attr_bwd.tiny_config() if tiny else PTv3Config()
+    with torch.device("meta"):
+        norms = sum(isinstance(m, LayerNorm)
+                    for m in PointTransformerV3(cfg).modules())
+    assert attr_bwd.ptv3_norms(cfg) == norms == (12 if tiny else 57)
+    step = attr_bwd.step_launches(cfg, 128 if tiny else 25600)
+    forward = attr_bwd.step_launches(cfg, 128 if tiny else 25600, grad=False)
+    assert step["LN"] == step["LNB"] == forward["LN"] == norms
+    assert "LNB" not in forward
+
+
 def test_attr_bwd_rows_and_sums(tmp_path):
     out = tmp_path / "attr.json"
     rec = attr_bwd.main(TINY + ["--out", str(out)])

@@ -796,7 +796,9 @@ def test_graphed_lidar_train_step_with_knn5_and_nearest(cuda):
     """A small bf16 LiDAR-only model in the parity modes (knn5 intensities,
     nearest devoxelization), K7 inside the captured train step beside
     K2–K5: exact launches per replay (a forward with LSE and a backward a
-    block: K2/K3 at C = 128, K4/K5 at C = 32; K7 twice), and 3 graphed
+    block: K2/K3 at C = 128, K4/K5 at C = 32; K7 twice; LN and LNB at its
+    10 LayerNorms: two a block, the embedding's, the pooling's and the
+    unpooling's two), and 3 graphed
     steps from one state against eager ones, restored in place, every
     parameter held as chip_smoke.py holds them
     (``chip_smoke.hold_train_runs``)."""
@@ -834,7 +836,8 @@ def test_graphed_lidar_train_step_with_knn5_and_nearest(cuda):
     step = make_train_step(CELSLoss(weight=[1.0] * 16))
     g_step = graph.graph_train_step(step)
     g_step(state, batch, tokens)                     # eager call + capture
-    want = {"K2": 1, "K3": 1, "K4": 2, "K5": 2, "K7": 2}
+    want = {"K2": 1, "K3": 1, "K4": 2, "K5": 2, "K7": 2, "LN": 10,
+            "LNB": 10}
     assert _launches(lambda: step(state, batch, tokens)) == want
     assert _launches(lambda: g_step(state, batch, tokens)) == want
     assert _launches(lambda: [g_step(state, batch, tokens)
@@ -1380,9 +1383,15 @@ def test_ops_on_the_card_match_their_cpu_kernels(cuda, D):
                 assert (got[1].cpu() - want[1]).abs().max().item() < 1e-3
 
 
+# a call of the tiny parity model: a K1 a block, K7 a k-NN mode, LN a
+# LayerNorm (two a block, the embedding's, the pooling's, the unpooling's
+# two)
+TINY_PARITY_LAUNCHES = {"K1": 3, "K7": 2, "LN": 10}
+
+
 def _tiny_parity_model(cuda):
-    """A tiny LiDAR-only model in the parity modes on the card (K1 3 and K7
-    2 a call) and its inputs."""
+    """A tiny LiDAR-only model in the parity modes on the card (K1 3, K7 2
+    and LN 10 a call) and its inputs."""
     from tpu3dssf_torch.models import fusion, lidar_only, ptv3
     from tpu3dssf_torch.models.layers import init_weights
 
@@ -1407,7 +1416,7 @@ def _tiny_parity_model(cuda):
 def test_export_round_trip_on_the_card_counts_its_launches(cuda, tmp_path):
     """A tiny LiDAR-only model in the parity modes, exported on the card:
     the loaded program's first call (eager) and its replay each launch
-    K1 3 and K7 2, as the eager model does, and give its output."""
+    K1 3, K7 2 and LN 10, as the eager model does, and give its output."""
     from tpu3dssf_torch.export import export_infer_bytes, load_exported
 
     model, pts, mask = _tiny_parity_model(cuda)
@@ -1416,7 +1425,7 @@ def test_export_round_trip_on_the_card_counts_its_launches(cuda, tmp_path):
     with torch.no_grad():
         eager = [model(pts, mask) for _ in range(2)]
         counts = _launches(lambda: model(pts, mask))
-    assert counts == {"K1": 3, "K7": 2}
+    assert counts == TINY_PARITY_LAUNCHES
     f = load_exported(path.read_bytes())
     outs = []
     for _ in range(2):
@@ -1429,7 +1438,7 @@ def test_export_round_trip_on_the_card_counts_its_launches(cuda, tmp_path):
 
 def test_aoti_package_on_the_card_counts_its_launches(cuda, tmp_path):
     """The same model as an AOTInductor package: loaded in Python, each
-    call launches K1 3 and K7 2 through the C++ ops and gives the eager
+    call launches K1 3, K7 2 and LN 10 through the C++ ops and gives the eager
     output within 2% of its largest value; ``aoti_runner``, a process
     without Python, launches the same and writes the same bits."""
     import json
@@ -1445,8 +1454,8 @@ def test_aoti_package_on_the_card_counts_its_launches(cuda, tmp_path):
     f = load_package(path)
     outs = []
     for _ in range(2):
-        assert _launches(lambda: outs.append(f(pts, mask))) == {"K1": 3,
-                                                               "K7": 2}
+        assert _launches(lambda: outs.append(f(pts, mask))) == \
+            TINY_PARITY_LAUNCHES
     got = outs[0][0] if isinstance(outs[0], (list, tuple)) else outs[0]
     top = eager.float().abs().max().item()
     assert (got.float() - eager.float()).abs().max().item() <= 0.02 * top
@@ -1459,5 +1468,166 @@ def test_aoti_package_on_the_card_counts_its_launches(cuda, tmp_path):
         capture_output=True, text=True, timeout=600)
     assert res.returncode == 0, res.stderr[-3000:]
     line = json.loads(res.stdout.strip().splitlines()[-1])
-    assert line["launches_per_call"] == {"K1": 3, "K7": 2}
+    assert line["launches_per_call"] == TINY_PARITY_LAUNCHES
     assert torch.equal(read_outputs(tmp_path / "out")[0], got.cpu())
+
+
+# --- LayerNorm: LN and its gradient LNB (the port's own kernels) ----------
+
+LN_WIDTHS = (32, 64, 128, 256, 384, 512, 1024)
+# no multiple of a block's rows (64 at C = 32 down to 8 past C = 256)
+LN_ROWS = (1, 257, 3001)
+
+
+def _ln_inputs(rows, C, dtype, cuda, seed=0):
+    """Seeded (x, weight, bias, dy) on the card; x's first row zero, as a
+    padded row is."""
+    g = torch.Generator().manual_seed(seed)
+    x = (torch.randn(rows, C, generator=g) * 2 + 0.5).to(dtype)
+    x[0] = 0.0
+    w = 1 + 0.2 * torch.randn(C, generator=g)
+    b = 0.2 * torch.randn(C, generator=g)
+    dy = torch.randn(rows, C, generator=g).to(dtype)
+    return tuple(t.to(cuda) for t in (x, w, b, dy))
+
+
+@pytest.mark.parametrize("C", LN_WIDTHS)
+def test_layer_norm_within_a_bf16_ulp_of_the_plain_version(cuda, C):
+    """y within chip_smoke.LN_ULPS bf16 ulp of the plain version (the
+    cast, torch's LayerNorm, the cast back), a zero row giving the bias,
+    mean and rstd within 1e-5 of the largest; one LN launch a call."""
+    import chip_smoke
+    from tpu3dssf_torch.kernels import layer_norm_reference
+    from tpu3dssf_torch.kernels.modules import layer_norm as ln
+
+    for rows in LN_ROWS:
+        x, w, b, _ = _ln_inputs(rows, C, torch.bfloat16, cuda)
+        before = ln.LAUNCHES
+        y, mean, rstd = torch.ops.tpu3dssf.layer_norm(x, w, b, 1e-6)
+        torch.cuda.synchronize()
+        assert ln.LAUNCHES == before + 1
+        want = layer_norm_reference(x, w, b, 1e-6)
+        assert y.dtype == torch.bfloat16 and y.shape == x.shape
+        assert chip_smoke.bf16_ulps(y, want[0]) <= chip_smoke.LN_ULPS, rows
+        assert torch.equal(y[0], b.to(torch.bfloat16))
+        for got, ref in zip((mean, rstd), want[1:]):
+            assert got.shape == (rows,)
+            assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+@pytest.mark.parametrize("C", (32, 384, 1024))
+def test_layer_norm_in_f32(cuda, C):
+    from tpu3dssf_torch.kernels import (layer_norm_bwd_reference,
+                                        layer_norm_reference)
+    x, w, b, dy = _ln_inputs(3001, C, torch.float32, cuda)
+    got = torch.ops.tpu3dssf.layer_norm(x, w, b, 1e-5)
+    want = layer_norm_reference(x, w, b, 1e-5)
+    for a, c in zip(got, want):
+        torch.testing.assert_close(a, c, rtol=1e-5, atol=1e-5)
+    grads = torch.ops.tpu3dssf.layer_norm_bwd(dy, x, w, *got[1:])
+    for a, c in zip(grads, layer_norm_bwd_reference(dy, x, w, *got[1:])):
+        assert a.dtype == c.dtype
+        assert (a - c).abs().max() <= 1e-5 * max(1.0, c.abs().max())
+
+
+@pytest.mark.parametrize("C", LN_WIDTHS)
+def test_layer_norm_backward_within_a_bf16_ulp_the_same_bits_twice(cuda, C):
+    """dx within chip_smoke.LN_ULPS bf16 ulp of the plain version's (torch's
+    LayerNorm gradient in f32, dx rounded once), dweight and dbias within
+    chip_smoke.LN_GRAD_TOL of the largest plain value; two launches give
+    the same bits (no atomics: the partials are summed in block order)."""
+    import chip_smoke
+    from tpu3dssf_torch.kernels import layer_norm_bwd_reference
+    from tpu3dssf_torch.kernels.modules import layer_norm as ln
+
+    for rows in LN_ROWS:
+        x, w, b, dy = _ln_inputs(rows, C, torch.bfloat16, cuda, seed=1)
+        _, mean, rstd = torch.ops.tpu3dssf.layer_norm(x, w, b, 1e-6)
+        before = ln.BWD_LAUNCHES
+        got = torch.ops.tpu3dssf.layer_norm_bwd(dy, x, w, mean, rstd)
+        again = torch.ops.tpu3dssf.layer_norm_bwd(dy, x, w, mean, rstd)
+        torch.cuda.synchronize()
+        assert ln.BWD_LAUNCHES == before + 2
+        assert all(torch.equal(a, c) for a, c in zip(got, again))
+        want = layer_norm_bwd_reference(dy, x, w, mean, rstd)
+        assert got[0].dtype == torch.bfloat16
+        assert chip_smoke.bf16_ulps(got[0], want[0]) <= chip_smoke.LN_ULPS
+        for g, r in zip(got[1:], want[1:]):
+            assert g.shape == (C,) and g.dtype == torch.float32
+            assert ((g - r).abs().max()
+                    <= chip_smoke.LN_GRAD_TOL * r.abs().max()), rows
+
+
+def test_layer_norm_backward_blocks_follow_rows_and_width_alone(cuda):
+    """The backward's split into blocks (hence its sum order) is a function
+    of rows and C; no rows gives zero gradients; a C off the kernel's
+    widths and a misaligned x raise."""
+    plan = torch.ops.tpu3dssf_cuda.layer_norm_bwd_plan
+    for rows, C, step in ((307200, 32, 64), (204840, 384, 8), (3001, 64, 32)):
+        blocks, per = plan(rows, C)
+        assert plan(rows, C) == [blocks, per]
+        assert per % step == 0 and blocks <= 512
+        assert (blocks - 1) * per < rows <= blocks * per
+    x, w, b, dy = _ln_inputs(1, 64, torch.bfloat16, cuda)
+    y, mean, rstd = torch.ops.tpu3dssf.layer_norm(x[:0], w, b, 1e-6)
+    dx, dw, db = torch.ops.tpu3dssf.layer_norm_bwd(dy[:0], x[:0], w,
+                                                   mean, rstd)
+    assert y.shape == dx.shape == (0, 64)
+    assert not dw.any() and not db.any()
+    with pytest.raises(RuntimeError, match="C a multiple of 8"):
+        torch.ops.tpu3dssf.layer_norm(x[:, :60].contiguous(), w[:60],
+                                      b[:60], 1e-6)
+    buf = torch.zeros(1 + 64 * 3, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="16-byte aligned"):
+        torch.ops.tpu3dssf.layer_norm(buf[1:].view(3, 64), w, b, 1e-6)
+
+
+def test_graphed_fusion_frame_takes_every_norm_through_the_kernel(cuda):
+    """A fusion frame at ViT-S and PTv3 base depth on small inputs, its
+    encode and its forward each one graph: 25 and 57 LN launches a replay,
+    as many ``layer_norm_fwd_kernel`` nodes, no torch LayerNorm node; the
+    counters carry 82 a frame through replays."""
+    import dataclasses
+    from tpu3dssf_torch.cli.common import (HostDataPipeline,
+                                           SyntheticNuScenes, batch_to_device)
+    from tpu3dssf_torch.kernels import modules
+    from tpu3dssf_torch.models import fusion, ptv3, vit as vit_mod
+    from tpu3dssf_torch.models.layers import init_weights
+    from tpu3dssf_torch.train import graph
+    from tpu3dssf_torch.train.loop import make_image_encode_fn
+
+    bf16 = torch.bfloat16
+    vcfg = dataclasses.replace(vit_mod.dinov3_small(), image_size=(64, 96),
+                               dtype=bf16)
+    vit = init_weights(vit_mod.VisionTransformer(vcfg), 0).to(cuda).eval()
+    cfg = fusion.PipelineConfig(
+        fusion=fusion.FusionConfig(patch_tok_dim=vcfg.hidden_size,
+                                   patch_size=vcfg.patch_size,
+                                   encoder_size=vcfg.image_size,
+                                   output_dim=16, dtype=bf16),
+        ptv3=ptv3.PTv3Config(dtype=bf16), voxel_size=0.4,
+        voxel_capacity=1024)
+    model = init_weights(fusion.SegmentationPipeline(cfg), 1).to(cuda).eval()
+    data = SyntheticNuScenes(num_samples=1, num_points=3000,
+                             image_hw=(90, 160), seed=3)
+    host = next(iter(HostDataPipeline(data, batch_size=1,
+                                      point_capacity=3072)))
+    images = torch.as_tensor(host.pop("images")).to(cuda)
+    batch = batch_to_device(host, cuda)
+    encode = graph.graphed(make_image_encode_fn(vit, vcfg.image_size, bf16),
+                           "encode", nodes=True)
+    labels = graph.graphed(torch.inference_mode()(_labels_step), "labels",
+                           nodes=True)
+    labels(model, batch, encode(images))            # eager, then captured
+    for g, want in ((encode, 25), (labels, 57)):
+        (captured,) = g.graphs.values()
+        assert captured.launches["LN"] == want
+        assert captured.count_nodes("layer_norm_fwd_kernel") == want
+        assert captured.count_nodes("vectorized_layer_norm") == 0
+    before = modules.launch_counts()
+    for _ in range(2):
+        labels(model, batch, encode(images))
+    torch.cuda.synchronize()
+    after = modules.launch_counts()
+    assert after["LN"] - before["LN"] == 2 * (25 + 57)
+    assert after["LNB"] == before["LNB"]

@@ -6,9 +6,10 @@ Here the host compiler builds the schema library (importing
 ``tpu3dssf_torch.kernels`` does) and ``aoti_runner``; the CUDA library is
 built only where nvcc and a card are (tests/test_torch_cuda.py,
 chip_smoke.py), so its command lines are checked without running them. The
-seven ops' schemas are held to the ones the Python ``custom_op``
-declarations gave them before the ops moved to C++ (the table below), so
-that artifacts and callers see the same ops.
+seven attention and k-NN ops' schemas are held to the ones the Python
+``custom_op`` declarations gave them before the ops moved to C++ (the table
+below), so that artifacts and callers see the same ops; the two LayerNorm
+ops were defined in C++ from the start.
 """
 
 import ast
@@ -25,7 +26,8 @@ from tpu3dssf_torch.kernels.modules import flash_attention as fa
 from tpu3dssf_torch.kernels.modules import knn
 from tpu3dssf_torch.kernels.modules import window_attention as wa
 
-# the schemas of the ops as Python custom ops declared them
+# the schemas of the ops as Python custom ops declared them (the LayerNorm
+# ops' as ops_schema.cpp declares them)
 SCHEMAS = {
     "packed_attention": "tpu3dssf::packed_attention(Tensor qkv, Tensor "
     "key_bias, SymInt heads, float? q_scale, Tensor? rope_cos, Tensor? "
@@ -45,6 +47,10 @@ SCHEMAS = {
     "str kernel) -> (Tensor, Tensor, Tensor)",
     "knn": "tpu3dssf::knn(Tensor queries, Tensor refs, Tensor ref_mask, "
     "SymInt k) -> (Tensor, Tensor)",
+    "layer_norm": "tpu3dssf::layer_norm(Tensor x, Tensor weight, Tensor "
+    "bias, float eps) -> (Tensor, Tensor, Tensor)",
+    "layer_norm_bwd": "tpu3dssf::layer_norm_bwd(Tensor dy, Tensor x, Tensor "
+    "weight, Tensor mean, Tensor rstd) -> (Tensor, Tensor, Tensor)",
 }
 NVCC = "/usr/local/cuda/bin/nvcc"   # a path for the command lines only
 KERNELS_DIR = Path(_build.__file__).parent

@@ -41,7 +41,7 @@ from tpu3dssf_torch.export import (compile_infer_package, export_infer_bytes,
                                    load_exported, load_package, package_ops)
 from tpu3dssf_torch.kernels import modules
 from tpu3dssf_torch.models import fusion, lidar_only
-from tpu3dssf_torch.models.layers import init_weights
+from tpu3dssf_torch.models.layers import LayerNorm, init_weights
 from tpu3dssf_torch.models.ptv3 import PTv3Config
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -119,6 +119,19 @@ def _op_nodes(blob):
                   if str(n.target).startswith("tpu3dssf."))
 
 
+def _norms(model):
+    """The LayerNorm modules of ``model``: each runs as one
+    ``tpu3dssf::layer_norm`` op."""
+    return sum(isinstance(m, LayerNorm) for m in model.modules())
+
+
+def _all_nodes(blob):
+    import io
+    program = torch.export.load(io.BytesIO(blob))
+    return [str(n.target) for n in program.graph.nodes
+            if n.op == "call_function"]
+
+
 def test_export_roundtrip_equals_eager(tiny, tmp_path):
     path = tmp_path / "model.pt2"
     path.write_bytes(tiny["blob"])
@@ -128,8 +141,20 @@ def test_export_roundtrip_equals_eager(tiny, tmp_path):
     assert modules.launch_counts() == before       # CPU: plain versions
     torch.testing.assert_close(got, tiny["eager"], rtol=0, atol=0)
     # window 16: every PTv3 block (2 encoder, 1 decoder) on the window
-    # route, one K6 op each
-    assert _op_nodes(tiny["blob"]) == ["tpu3dssf.attention.default"] * 3
+    # route, one K6 op each; every LayerNorm one LN op
+    assert _norms(tiny["model"]) == 10
+    assert _op_nodes(tiny["blob"]) == (["tpu3dssf.attention.default"] * 3
+                                       + ["tpu3dssf.layer_norm.default"] * 10)
+
+
+def test_export_holds_a_layer_norm_op_for_every_norm_and_no_torch_one(tiny):
+    """The tiny pipeline's program: each LayerNorm one
+    ``tpu3dssf::layer_norm`` node on its rows, none of torch's LayerNorm
+    and no cast around it."""
+    nodes = _all_nodes(tiny["blob"])
+    assert nodes.count("tpu3dssf.layer_norm.default") == _norms(tiny["model"])
+    assert not [n for n in nodes if "layer_norm" in n
+                and not n.startswith("tpu3dssf.")]
 
 
 def test_export_agrees_with_jax_export(tiny):
@@ -155,8 +180,11 @@ def test_parity_mode_model_exports_with_its_knn_op():
         want = model(*args)
     torch.testing.assert_close(load_exported(blob)(*args), want, rtol=0,
                                atol=0)
-    # knn5 and nearest; the window-128 blocks at C in {16, 32} take K1
+    # knn5 and nearest; the window-128 blocks at C in {16, 32} take K1;
+    # every LayerNorm one LN op
     assert _op_nodes(blob) == (["tpu3dssf.knn.default"] * 2
+                               + ["tpu3dssf.layer_norm.default"]
+                               * _norms(model)
                                + ["tpu3dssf.packed_attention.default"] * 3)
 
 
@@ -253,7 +281,10 @@ def test_cli_writes_a_package_that_loads(tmp_path, monkeypatch, capsys):
     cpu = torch.device("cpu")
     model, args = export_model.pipeline_args(
         cfg, common.batch_to_device(batch, cpu), cpu)
-    assert package_ops(out) == ["tpu3dssf::packed_attention"] * 3
+    kept = package_ops(out)
+    assert [op for op in kept if op != "tpu3dssf::layer_norm"] == [
+        "tpu3dssf::packed_attention"] * 3
+    assert kept.count("tpu3dssf::layer_norm") == _norms(model)
     with torch.no_grad():
         want = model(*args)
     torch.testing.assert_close(load_package(out)(*args), want, rtol=0,
@@ -272,7 +303,10 @@ def test_cli_refuses_to_fall_back_to_cpu(tmp_path):
 
 def test_package_keeps_the_ops_and_loads_without_model_code(tiny, package,
                                                             tmp_path):
-    assert package_ops(package) == ["tpu3dssf::attention"] * 3
+    kept = package_ops(package)
+    assert [op for op in kept if op != "tpu3dssf::layer_norm"] == [
+        "tpu3dssf::attention"] * 3
+    assert kept.count("tpu3dssf::layer_norm") == _norms(tiny["model"])
     torch.save({"args": tiny["args"]}, tmp_path / "io.pt")
     code = (
         "import sys, torch\n"

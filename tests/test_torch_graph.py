@@ -284,14 +284,17 @@ def test_host_op_recorder_sees_what_it_looks_for():
 
 def test_counter_registry_names_every_launch_counter():
     names = {(m, n) for m, n in modules.COUNTERS.values()}
-    for m in ("flash_attention", "window_attention", "knn"):
+    for m in ("flash_attention", "window_attention", "knn", "layer_norm"):
         module = getattr(modules, m)
         counters = {n for n in dir(module) if n.endswith("LAUNCHES")}
         assert counters == {n for mm, n in names if mm == m}, m
     before = modules.launch_counts()
+    assert set(before) == set(modules.COUNTERS)
     try:
-        modules.set_launch_counts({"K4": before["K4"] + 5})
-        assert modules.launch_counts() == dict(before, K4=before["K4"] + 5)
+        modules.set_launch_counts({"K4": before["K4"] + 5,
+                                   "LN": before["LN"] + 2})
+        assert modules.launch_counts() == dict(
+            before, K4=before["K4"] + 5, LN=before["LN"] + 2)
     finally:
         modules.set_launch_counts(before)
 

@@ -112,10 +112,11 @@ def test_the_package_registers_seven_ops_with_three_kernels_each():
     """CPU and fake kernels here, on every op; the CUDA kernels in the C++
     library's ``TORCH_LIBRARY_IMPL(tpu3dssf, CUDA, ...)``, which a machine
     without a card never loads: no other CUDA kernel stands in for them."""
-    assert set(ops.KERNELS) == set(OPS)
+    # and the two LayerNorm ops (tests/test_torch_layer_norm.py)
+    assert set(ops.KERNELS) == {*OPS, "layer_norm", "layer_norm_bwd"}
     assert sorted(k for ks in ops.KERNELS.values() for k in ks) == sorted(
         ["K1", "K1", "K2", "K3", "K4", "K4", "K5", "K5", "K6", "K7", "K8",
-         "K8", "K9"])
+         "K8", "K9", "LN", "LNB"])
     from torch._library.simple_registry import singleton
     from tpu3dssf_torch.kernels import _build
     source = (_build.CSRC_DIR / _build.CUDA_OPS_SOURCE).read_text()
@@ -129,7 +130,7 @@ def test_the_package_registers_seven_ops_with_three_kernels_each():
         assert f'm.impl("{name}", &{name});' in cuda_impl
         assert torch._C._dispatch_has_kernel_for_dispatch_key(
             qual, "CUDA") == _build.cuda_library_loaded()
-    assert cuda_impl.count("m.impl(") == len(OPS)
+    assert cuda_impl.count("m.impl(") == len(ops.KERNELS)
 
 
 class _Ops(TorchDispatchMode):

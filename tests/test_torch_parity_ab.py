@@ -519,9 +519,12 @@ def test_chip_smoke_derives_the_lidar_launches(src):
     """chip_smoke's launches of the LiDAR-only model, derived from the
     model (phases 27-28), against a count of its blocks by stage: a
     forward with LSE and a backward per block (K2/K3 at C = 128...512,
-    K4/K5 at C = 32, 64), one K1 per block in eval, one K7 per k-NN mode."""
+    K4/K5 at C = 32, 64), one K1 per block in eval, one K7 per k-NN mode;
+    and against a count of the LayerNorm modules of the model built from
+    the same config: one LN each, and one LNB each in a train step."""
     import chip_smoke as cs
-    from tpu3dssf_torch.models.ptv3 import PTv3Config
+    from tpu3dssf_torch.models.layers import LayerNorm
+    from tpu3dssf_torch.models.ptv3 import PointTransformerV3, PTv3Config
 
     cfg = common.load_config(os.path.join(ROOT, src))
     p = PTv3Config()
@@ -529,16 +532,21 @@ def test_chip_smoke_derives_the_lidar_launches(src):
         zip(p.dec_channels, p.dec_depths))
     big = sum(d for c, d in channels if c % 128 == 0)
     small = sum(d for c, d in channels if c % 128)
+    with torch.device("meta"):
+        norms = sum(isinstance(m, LayerNorm)
+                    for m in PointTransformerV3(p).modules())
     k7 = int(cfg.tpu.intensity_mode == "knn5") + int(
         cfg.tpu.devoxelize_mode == "nearest")
     step, batch = cs.lidar_launches(cfg)
-    want = {"K2": big, "K3": big, "K4": small, "K5": small, "K7": k7}
+    want = {"K2": big, "K3": big, "K4": small, "K5": small, "K7": k7,
+            "LN": norms, "LNB": norms}
     assert step == {k: v for k, v in want.items() if v}
-    assert batch == {k: v for k, v in (("K1", big + small), ("K7", k7)) if v}
-    assert (big, small) == (14, 8)
-    per_variant = {"default": {"K1": 22},
-                   "devox-parity": {"K1": 22, "K7": 1},
-                   "full-parity": {"K1": 22, "K7": 2}}
+    assert batch == {k: v for k, v in (("K1", big + small), ("K7", k7),
+                                       ("LN", norms)) if v}
+    assert (big, small, norms) == (14, 8, cs.PTV3_NORMS)
+    per_variant = {"default": {"K1": 22, "LN": norms},
+                   "devox-parity": {"K1": 22, "K7": 1, "LN": norms},
+                   "full-parity": {"K1": 22, "K7": 2, "LN": norms}}
     for name, modes in parity_ab.VARIANTS.items():
         assert cs.lidar_launches(cfg, *modes)[1] == per_variant[name]
 

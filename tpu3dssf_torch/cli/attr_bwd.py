@@ -103,7 +103,8 @@ def mlp_parameters(blk):
 def run_blocks(p, cfg, n0, batch, rng):
     """Per-stage blocks, then the sub-blocks at each distinct stage
     shape."""
-    from tpu3dssf_torch.cli.pieces import attention_launches, fwd_bwd, no_grad
+    from tpu3dssf_torch.cli.pieces import (attention_launches, fwd_bwd,
+                                           layer_norm_launches, no_grad, plus)
     from tpu3dssf_torch.models.ptv3 import PTv3Block
     done = set()
     for name, n, C, H, W, depth in stages(cfg, n0):
@@ -115,31 +116,35 @@ def run_blocks(p, cfg, n0, batch, rng):
         shape = dict(stage=name, N=n, C=C, H=H)
         p.time(f"{name} block fwd", no_grad(
             lambda xx: blk(xx, perm, inv, mask)), x, depth=depth,
-            attention=attention_launches(C, H, w, False), kind="block_fwd",
-            **shape)
+            launches=plus(attention_launches(C, H, w, False),
+                          layer_norm_launches(2, False)),
+            kind="block_fwd", **shape)
         p.time(f"{name} block fwd+bwd",
                lambda xx: block_fwd_bwd(blk, xx, perm, inv, mask), x,
-               depth=depth, attention=attention_launches(C, H, w, True),
+               depth=depth, launches=plus(attention_launches(C, H, w, True),
+                                          layer_norm_launches(2, True)),
                kind="block_fwd_bwd", **shape)
         if (n, C, H) in done:
             continue
         done.add((n, C, H))
-        for label, fn, params, attn in (
+        # label, piece, its parameters, its attention, its LayerNorms
+        for label, fn, params, attn, norms in (
                 ("attn(perm)", lambda xx: blk.attn(xx, perm, inv, mask),
-                 blk.attn.parameters, True),
+                 blk.attn.parameters, True, 0),
                 ("attn(none)", lambda xx: blk.attn(xx, None, None, mask),
-                 blk.attn.parameters, True),
+                 blk.attn.parameters, True, 0),
                 ("cpe", lambda xx: blk.cpe(xx, None, None, mask),
-                 blk.cpe.parameters, False),
-                ("mlp", mlp(blk), lambda: mlp_parameters(blk), False)):
+                 blk.cpe.parameters, False, 0),
+                ("mlp", mlp(blk), lambda: mlp_parameters(blk), False, 1)):
             for grad in (False, True):
                 kind = "fwd+bwd" if grad else "fwd"
                 run = ((lambda xx, fn=fn, params=params:
                         fwd_bwd(fn, params(), [xx])) if grad
                        else no_grad(fn))
                 p.time(f"{name} {label} {kind}", run, x,
-                       attention=(attention_launches(C, H, w, grad)
-                                  if attn else None),
+                       launches=plus(
+                           attention_launches(C, H, w, grad) if attn else {},
+                           layer_norm_launches(norms, grad)),
                        kind=f"sub_{'fwd_bwd' if grad else 'fwd'}",
                        sub=label, **shape)
 
@@ -193,7 +198,7 @@ def pool_inputs(p, rng, batch, n):
 
 def run_pooling(p, cfg, n0, batch, rng):
     """Pooling s-1 → s and unpooling d+1 → d at every level."""
-    from tpu3dssf_torch.cli.pieces import fwd_bwd, no_grad
+    from tpu3dssf_torch.cli.pieces import fwd_bwd, layer_norm_launches, no_grad
     from tpu3dssf_torch.models.ptv3 import (SerializedPooling,
                                             SerializedUnpooling)
     caps = cfg.capacities(n0)
@@ -208,10 +213,12 @@ def run_pooling(p, cfg, n0, batch, rng):
             return pool(xx, grid, mask, out_cap)[0]
 
         info = dict(kind="pool", N=n, out=out_cap, C=cout)
-        p.time(f"pool{s} ({n}->{out_cap}) fwd", no_grad(pooled), x, **info)
+        p.time(f"pool{s} ({n}->{out_cap}) fwd", no_grad(pooled), x,
+               launches=layer_norm_launches(1, False), **info)
         p.time(f"pool{s} ({n}->{out_cap}) fwd+bwd",
                lambda xx, pooled=pooled, pool=pool: fwd_bwd(
                    pooled, pool.parameters(), [xx]), x,
+               launches=layer_norm_launches(1, True),
                **dict(info, kind="pool_fwd_bwd"))
     for d in range(cfg.num_stages - 1):
         nf, nc = caps[d], caps[d + 1]
@@ -228,10 +235,12 @@ def run_pooling(p, cfg, n0, batch, rng):
             return unpool(a, b, parent, ok, ok)
 
         info = dict(kind="unpool", N=nf, coarse=nc, C=cd)
-        p.time(f"unpool{d} ({nc}->{nf}) fwd", no_grad(up), xc, skip, **info)
+        p.time(f"unpool{d} ({nc}->{nf}) fwd", no_grad(up), xc, skip,
+               launches=layer_norm_launches(2, False), **info)
         p.time(f"unpool{d} ({nc}->{nf}) fwd+bwd",
                lambda a, b, up=up, unpool=unpool: fwd_bwd(
                    up, unpool.parameters(), [a, b]), xc, skip,
+               launches=layer_norm_launches(2, True),
                **dict(info, kind="unpool_fwd_bwd"))
 
 
@@ -301,12 +310,21 @@ def run_adamw(p, cfg, voxels):
     del state, model
 
 
+def ptv3_norms(cfg):
+    """The LayerNorms of one PTv3 forward: two a block, the embedding's,
+    one a pooling and two an unpooling."""
+    return (2 * (sum(cfg.enc_depths) + sum(cfg.dec_depths)) + 1
+            + 3 * (cfg.num_stages - 1))
+
+
 def step_launches(cfg, n0, grad=True):
-    """The attention launches of every block of one PTv3 forward at ``n0``
-    points (with ``grad``: a train step's, each forward with LSE and its
-    backward; :func:`~tpu3dssf_torch.cli.pieces.attention_launches`)."""
-    from tpu3dssf_torch.cli.pieces import attention_launches
-    out = {}
+    """The launches of one PTv3 forward at ``n0`` points (with ``grad``: a
+    train step's, each forward with LSE and its backward): every block's
+    attention (:func:`~tpu3dssf_torch.cli.pieces.attention_launches`) and
+    every LayerNorm (:func:`ptv3_norms`)."""
+    from tpu3dssf_torch.cli.pieces import (attention_launches,
+                                           layer_norm_launches)
+    out = layer_norm_launches(ptv3_norms(cfg), grad)
     for _, n, C, H, W, depth in stages(cfg, n0):
         for k, v in attention_launches(C, H, min(W, n), grad).items():
             out[k] = out.get(k, 0) + v * depth

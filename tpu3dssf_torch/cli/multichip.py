@@ -87,10 +87,16 @@ GRAD_LEAF_TOL, UPDATE_LEAF_TOL = 0.05, 0.2
 FAULTS = ("no_all_reduce", "mean")
 LR, WEIGHT_DECAY = 1e-3, 1e-2          # the JAX dry run's AdamW
 # kernel launches per scene-batch of the full flagship train step (K2/K3
-# at the C >= 128 blocks, K4/K5 at C = 32/64) and of its eval forward
-TRAIN_LAUNCHES = {"K2": 14, "K3": 14, "K4": 8, "K5": 8}
-EVAL_LAUNCHES = {"K1": 22}
+# at the C >= 128 blocks, K4/K5 at C = 32/64; LN and LNB at PTv3's 57
+# LayerNorms: two a block, the embedding's, one a pooling, two an
+# unpooling) and of its eval forward
+PTV3_NORMS = 2 * 22 + 1 + 4 + 2 * 4
+TRAIN_LAUNCHES = {"K2": 14, "K3": 14, "K4": 8, "K5": 8, "LN": PTV3_NORMS,
+                  "LNB": PTV3_NORMS}
+EVAL_LAUNCHES = {"K1": 22, "LN": PTV3_NORMS}
+# ViT-L/16: its layers (K1 each), its LayerNorms (two a layer, the last)
 VITL_LAYERS = 24
+VITL_NORMS = 2 * VITL_LAYERS + 1
 # the TP ViT-L's LayerScale. At DINOv3's random-init 1e-5 the blocks add
 # less than a bf16 ulp to the tokens, and TP = 2 read 0.0 against the
 # unsharded encode with K1 sound and 0.06% with its scale 25% high: blind.
@@ -550,7 +556,7 @@ def tp_phase(mesh, sizes, vit=None, images=None, check=True):
         ok = record["rel_err"] <= REL_TOL and bool(torch.isfinite(
             got.float()).all())
         if device.type == "cuda":
-            ok = ok and counts == {"K1": VITL_LAYERS}
+            ok = ok and counts == {"K1": VITL_LAYERS, "LN": VITL_NORMS}
         if not ok:
             raise AssertionError(f"multichip TP ViT: {record}")
     del vit
@@ -633,8 +639,8 @@ def sp_phase(mesh, sizes, block_state=None, x=None, mask=None, check=True):
               and [p2p["forward"], p2p["forward_backward"]]
               == p2p["expected"])
         if device.type == "cuda":
-            ok = (ok and fwd_counts == {"K1": 1}
-                  and counts == {"K2": 1, "K3": 1})
+            ok = (ok and fwd_counts == {"K1": 1, "LN": 2}
+                  and counts == {"K2": 1, "K3": 1, "LN": 2, "LNB": 2})
         if not ok:
             raise AssertionError(f"multichip SP block: {record}")
     return record, got, g

@@ -19,10 +19,11 @@ includes (spread over the ``r`` repeats). Each row also holds:
   spread of the replays;
 * the host seconds the piece took to capture, time and profile;
 * the ``tpu3dssf::`` kernel launches per repeat, from the launch counts of
-  the capture, held to the attention launches the piece must make
+  the capture, held to the launches the piece must make: its attention's
   (:func:`attention_launches`, the route of
-  :func:`tpu3dssf_torch.models.ptv3.attention_route`; none for a piece
-  without attention), and the D = 16 attention kernels among the
+  :func:`tpu3dssf_torch.models.ptv3.attention_route`) and its LayerNorms'
+  (:func:`layer_norm_launches`), none for a piece with neither; and the
+  D = 16 attention kernels among the
   captured graph's kernel nodes per repeat, held to those launches (one
   forward kernel a K1, K2, K4 or K6 launch, one backward kernel a K3 or
   K5). A count that differs raises.
@@ -66,6 +67,21 @@ def attention_launches(channels, heads, window, grad):
         return ({"K2": 1, "K3": 1} if route == "packed"
                 else {"K4": 1, "K5": 1})
     return {"K6": 1} if route == "window" else {"K1": 1}
+
+
+def layer_norm_launches(norms, grad):
+    """The launches of ``norms`` LayerNorm calls: LN each, and LNB each
+    with a gradient."""
+    return {k: norms for k in (("LN", "LNB") if grad else ("LN",)) if norms}
+
+
+def plus(*counts):
+    """The sum of launch counts, each {kernel: launches}."""
+    out = {}
+    for c in counts:
+        for k, n in c.items():
+            out[k] = out.get(k, 0) + n
+    return out
 
 
 def fwd_bwd(fn, params, inputs):
@@ -174,14 +190,14 @@ class Pieces:
         from tpu3dssf_torch.models.layers import init_weights
         return init_weights(m, seed).to(self.device)
 
-    def time(self, name, fn, *args, r=None, depth=1, attention=None,
+    def time(self, name, fn, *args, r=None, depth=1, launches=None,
              **info):
         """Time ``fn(*args)`` as one piece (the module docstring); its row
         also holds ``depth`` (the times it runs in a step) and ``info``.
-        ``attention``: the attention launches of one call of ``fn`` (None:
+        ``launches``: the kernel launches of one call of ``fn`` (None:
         none). Returns the row."""
         r = self.r if r is None else r
-        want = dict(attention or {})
+        want = dict(launches or {})
 
         def repeated(*a):
             for _ in range(r):

@@ -7,8 +7,8 @@
 At every stage's (N, C) = (25600, 32), (13312, 64), (7168, 128),
 (4096, 256), (2048, 512) and batch ``--batch`` (the script's ``GLUE_B``,
 default 1), bf16, each sub-op timed as a CUDA graph of ``--r`` repeats
-(:mod:`tpu3dssf_torch.cli.pieces`), in µs: the block's ``LayerNorm`` (the
-port's three kernels: the cast to f32, the norm, the cast back); the qkv
+(:mod:`tpu3dssf_torch.cli.pieces`), in µs: the block's ``LayerNorm`` (one
+kernel, LN: :mod:`tpu3dssf_torch.kernels.layer_norm`); the qkv
 ``Dense`` (C → 3C, with its per-call weight cast); the serialization
 gather (``permutation_gather``) of the 3C projection and of a C row; the
 proj ``Dense`` with its residual; the GELU MLP; the residual add with the
@@ -45,7 +45,8 @@ def glue(ln, qkv, proj, mlp_in, mlp_out, x, perm, inv, mask):
 
 def main(argv=None):
     import torch.nn.functional as F
-    from tpu3dssf_torch.cli.pieces import Pieces, arguments, no_grad
+    from tpu3dssf_torch.cli.pieces import (Pieces, arguments,
+                                           layer_norm_launches, no_grad)
     from tpu3dssf_torch.models.layers import Dense, LayerNorm
     from tpu3dssf_torch.serialization import permutation_gather
 
@@ -72,23 +73,25 @@ def main(argv=None):
         with torch.no_grad():
             q3 = qkv(x)
         info = dict(N=N, C=C)
-        for name, fn, args_ in (
-                ("LayerNorm", ln, (x,)),
-                ("qkv dense (C->3C)", qkv, (x,)),
+        # name, sub-op, its arguments, its LayerNorms
+        for name, fn, args_, norms in (
+                ("LayerNorm", ln, (x,), 1),
+                ("qkv dense (C->3C)", qkv, (x,), 0),
                 ("row gather 3C", lambda q: permutation_gather(q, perm, inv),
-                 (q3,)),
+                 (q3,), 0),
                 ("row gather C", lambda a: permutation_gather(a, perm, inv),
-                 (x,)),
-                ("proj dense + residual", lambda a: a + proj(a), (x,)),
+                 (x,), 0),
+                ("proj dense + residual", lambda a: a + proj(a), (x,), 0),
                 ("mlp in+gelu+out", lambda a: mlp_out(F.gelu(
-                    mlp_in(a), approximate="tanh")), (x,)),
+                    mlp_in(a), approximate="tanh")), (x,), 0),
                 ("residual+mask", lambda a, c: (a + c) * mask[..., None],
-                 (x, x)),
-                ("LN+qkv chained", lambda a: qkv(ln(a)), (x,)),
+                 (x, x), 0),
+                ("LN+qkv chained", lambda a: qkv(ln(a)), (x,), 1),
                 ("ALL glue chained", lambda a: glue(
                     ln, qkv, proj, mlp_in, mlp_out, a, perm, inv, mask),
-                 (x,))):
-            p.time(f"N={N} C={C} {name}", no_grad(fn), *args_, op=name,
+                 (x,), 2)):
+            p.time(f"N={N} C={C} {name}", no_grad(fn), *args_,
+                   launches=layer_norm_launches(norms, False), op=name,
                    **info)
     return p.record(config=dict(batch=B, shapes=[list(s) for s in shapes]))
 

@@ -38,7 +38,8 @@ N0, WINDOW = 25600, 1024
 def main(argv=None):
     from tpu3dssf_torch.cli.attr_bwd import stages, step_launches, tiny_config
     from tpu3dssf_torch.cli.pieces import (Pieces, arguments,
-                                           attention_launches, no_grad)
+                                           attention_launches,
+                                           layer_norm_launches, no_grad, plus)
     from tpu3dssf_torch.models.ptv3 import (SERIALIZATION_ORDERS, PTv3Block,
                                             PTv3Config, PointTransformerV3,
                                             SerializedCPE, SerializedPooling,
@@ -79,12 +80,13 @@ def main(argv=None):
             km = torch.ones((B * W, K), dtype=torch.bool, device=p.device)
             p.time(f"{name} window_attn N={N} C={C} h={H}", no_grad(
                 lambda qq, km=km, H=H: windowed_attention(qq, km, H)), q,
-                depth=depth, attention=one, kind="attention", **shape)
+                depth=depth, launches=one, kind="attention", **shape)
         perm, inv = _serialize_perms(grid, mask, ("z", "z-trans"))["z-trans"]
         blk = p.module(PTv3Block(C, H, window, cfg.mlp_ratio, dtype=p.dtype))
         p.time(f"{name} full block N={N} C={C}", no_grad(
             lambda xx, blk=blk, perm=perm, inv=inv, mask=mask:
-            blk(xx, perm, inv, mask)), x, depth=depth, attention=one,
+            blk(xx, perm, inv, mask)), x, depth=depth,
+            launches=plus(one, layer_norm_launches(2, False)),
             kind="block" if encoder else "decoder_block", **shape)
         if encoder:
             p.time(f"{name} serialize 4 orders N={N}", lambda g, mask=mask:
@@ -100,7 +102,8 @@ def main(argv=None):
         pool = p.module(SerializedPooling(c_in, c_out, dtype=p.dtype))
         p.time(f"pool{s} {n_in}->{n_out} C={c_out}", no_grad(
             lambda a, g, pool=pool, m=ones(n_in), o=n_out: pool(a, g, m, o)),
-            x, grid, kind="pool", N=n_in, out=n_out, C=c_out)
+            x, grid, launches=layer_norm_launches(1, False), kind="pool",
+            N=n_in, out=n_out, C=c_out)
 
     for d in range(cfg.num_stages - 1):
         n_f, c_f, n_c = caps[d], cfg.dec_channels[d], caps[d + 1]
@@ -113,7 +116,8 @@ def main(argv=None):
         up = p.module(SerializedUnpooling(c_c, c_s, c_f, dtype=p.dtype))
         p.time(f"unpool{d} {n_c}->{n_f} C={c_f}", no_grad(
             lambda a, b, up=up, parent=parent, m=ones(n_f):
-            up(a, b, parent, m, m)), xc, sk, kind="unpool", N=n_f,
+            up(a, b, parent, m, m)), xc, sk,
+            launches=layer_norm_launches(2, False), kind="unpool", N=n_f,
             coarse=n_c, C=c_f)
 
     for s in sorted({0, min(3, cfg.num_stages - 1)}):
@@ -133,7 +137,7 @@ def main(argv=None):
     grid = p.tensor(rng.integers(0, 512, (B, caps[0], 3)).astype(np.int32))
     p.time(f"FULL PTv3 ({caps[0]})", no_grad(
         lambda f, g, m=ones(caps[0]): model(f, g, m)[0]), feat, grid,
-        attention=step_launches(cfg, n0, grad=False), kind="full")
+        launches=step_launches(cfg, n0, grad=False), kind="full")
 
     attn = p.weighted(lambda r: r.get("kind") == "attention")
     enc = p.weighted(lambda r: r.get("kind") == "block")

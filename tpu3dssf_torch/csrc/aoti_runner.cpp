@@ -19,7 +19,8 @@
 //   5. runs it twice more to warm up, then CALLS times, each call timed on
 //      the host's clock up to a synchronisation of the device;
 //   6. prints one JSON line: {"outputs": n, "launches_per_call": {"K1": n,
-//      ...}, "call_ms": [...], "median_ms": m}.
+//      ..., "LN": n}, "call_ms": [...], "median_ms": m}, a kernel with no
+//      launch left out.
 // It includes no CUDA header, and links libtorch but not libpython.
 
 #include <ATen/ATen.h>
@@ -41,7 +42,10 @@
 
 namespace {
 
-constexpr int kKernels = 9;  // K1 ... K9
+// the CUDA library's counters, in its order (ops_cuda.cpp's kCounters)
+constexpr const char* kCounters[] = {"K1", "K2", "K3", "K4", "K5", "K6",
+                                     "K7", "K8", "K9", "LN", "LNB"};
+constexpr int kKernels = sizeof(kCounters) / sizeof(kCounters[0]);
 using ReadCounts = void (*)(int64_t*);
 
 const std::map<std::string, at::ScalarType>& dtypes() {
@@ -161,7 +165,7 @@ int main(int argc, char** argv) {
     bool first = true;
     for (int k = 0; k < kKernels; ++k) {
       if (after[k] == before[k]) continue;
-      std::printf("%s\"K%d\": %lld", first ? "" : ", ", k + 1,
+      std::printf("%s\"%s\": %lld", first ? "" : ", ", kCounters[k],
                   static_cast<long long>(after[k] - before[k]));
       first = false;
     }

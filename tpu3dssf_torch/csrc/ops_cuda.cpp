@@ -1,17 +1,20 @@
 // The CUDA kernels of the tpu3dssf:: operators (ops_schema.cpp defines
-// them), and the launch counters of the nine TPU kernels they serve.
+// them), and the launch counters of the nine TPU kernels they serve and of
+// the port's own LayerNorm kernels (LN, its gradient LNB).
 //
 // Each kernel checks the contract of the Hopper kernel it launches and
 // raises through TORCH_CHECK on a breach, before anything is allocated,
 // launched or counted; it takes its outputs and scratch from PyTorch's
 // allocator on the inputs' card, launches the kernel's C entry point on
 // PyTorch's current stream of that card, raises where the launch returns
-// an error, and then adds one to the counter of the TPU kernel it served.
+// an error, and then adds one to the counter of the kernel it served.
 // Nothing falls back to a plain version. The entry points:
 //   * fa_forward_bf16 (flash_attention_packed.cu): K1 (and its RoPE
 //     branch), K2, K4, K6, K8;
 //   * fa_backward_bf16 (flash_attention_packed_bwd.cu): K3, K5, K9;
-//   * knn_plan and knn_f32 (knn.cu): K7.
+//   * knn_plan and knn_f32 (knn.cu): K7;
+//   * layer_norm_fwd, layer_norm_bwd_plan and layer_norm_bwd
+//     (layer_norm.cu): LN, LNB.
 // q, k, v, the output and the gradients go to them as separate pointers
 // with their (batch, token, head) strides, so the packed (B, N, 3C) layout
 // is one stride set and (B, N, H, D) views are others: nothing is repacked.
@@ -57,19 +60,34 @@ int knn_f32(const void* queries, const void* refs, const void* ref_mask,
             void* out_d, void* out_i, void* packed, void* unfoldable,
             void* part_d, void* part_i, int B, int Q, int R, int k,
             int blocks, long long partial, void* stream);
+int layer_norm_fwd(const void* x, const void* w, const void* b, void* y,
+                   void* mean, void* rstd, long long rows, int C, float eps,
+                   int bf16, void* stream);
+int layer_norm_bwd_plan(long long rows, int C, long long* plan);
+int layer_norm_bwd(const void* dy, const void* x, const void* w,
+                   const void* mean, const void* rstd, void* dx, void* dw,
+                   void* db, void* part_w, void* part_b, long long rows, int C,
+                   int bf16, void* stream);
 }
 
 namespace {
 
 using at::Tensor;
 
-constexpr int kKernels = 9;  // K1 ... K9
+// the counters, in the order of launch_counts(): the TPU kernels, then the
+// port's own
+constexpr const char* kCounters[] = {"K1", "K2", "K3", "K4", "K5", "K6",
+                                     "K7", "K8", "K9", "LN", "LNB"};
+constexpr int kKernels = sizeof(kCounters) / sizeof(kCounters[0]);
 std::atomic<int64_t> g_launches[kKernels];
 
 constexpr int kMaxK = 8;  // knn's largest k (knn.cu)
 constexpr const char* kPacked = "flash_attention_packed";
 
-void count(const std::string& kernel) { g_launches[kernel[1] - '1']++; }
+void count(const std::string& kernel) {
+  for (int i = 0; i < kKernels; ++i)
+    if (kernel == kCounters[i]) g_launches[i]++;
+}
 
 // Error messages are put together as strings, with no stream: built with
 // g++ 13 against torch 2.11 on an H100 host, an integer inserted into a
@@ -468,6 +486,118 @@ std::tuple<Tensor, Tensor> knn(const Tensor& queries_, const Tensor& refs_,
   return {dist, idx};
 }
 
+// LayerNorm's contract: a contiguous (rows, C) bf16 or f32 x with C a
+// multiple of 8 from 16 to 1024, contiguous f32 (C,) vectors, one card,
+// 16-byte-aligned data.
+constexpr int64_t kMinLayerNormC = 16;    // layer_norm.cu's 2 lanes * 8
+constexpr int64_t kMaxLayerNormC = 1024;  // layer_norm.cu's 32 * 4 * 8
+
+void check_aligned(const char* op, const char* what, const Tensor& t) {
+  TORCH_CHECK(reinterpret_cast<uintptr_t>(t.data_ptr()) % 16 == 0,
+              cat(op, ": ", what, "'s data must be 16-byte aligned"));
+}
+
+void check_layer_norm(const Tensor& x,
+                      std::initializer_list<std::pair<const char*, Tensor>>
+                          vectors) {
+  TORCH_CHECK(x.device().is_cuda(),
+              cat("layer_norm: no kernel for device ", x.device()));
+  TORCH_CHECK(x.scalar_type() == at::kBFloat16 ||
+                  x.scalar_type() == at::kFloat,
+              cat("layer_norm: x must be bfloat16 or float32, got ",
+                  x.scalar_type()));
+  TORCH_CHECK(x.dim() == 2 && x.size(1) % 8 == 0 &&
+                  x.size(1) >= kMinLayerNormC && x.size(1) <= kMaxLayerNormC,
+              cat("layer_norm: x must be (rows, C) with C a multiple of 8 "
+                  "from ", kMinLayerNormC, " to ", kMaxLayerNormC, ", got ",
+                  shape(x.sizes())));
+  TORCH_CHECK(x.is_contiguous(), cat("layer_norm: x must be contiguous"));
+  check_aligned("layer_norm", "x", x);
+  const int64_t C = x.size(1);
+  for (const auto& [what, v] : vectors) {
+    TORCH_CHECK(v.device() == x.device() && v.scalar_type() == at::kFloat &&
+                    v.sizes() == at::IntArrayRef({C}) && v.is_contiguous(),
+                cat("layer_norm: ", what, " must be a contiguous float32 ",
+                    shape({C}), " tensor on ", x.device(), ", got ",
+                    v.scalar_type(), " ", shape(v.sizes()), " on ",
+                    v.device()));
+    check_aligned("layer_norm", what, v);
+  }
+}
+
+std::tuple<Tensor, Tensor, Tensor> layer_norm_forward(const Tensor& x,
+                                                      const Tensor& weight,
+                                                      const Tensor& bias,
+                                                      double eps) {
+  check_layer_norm(x, {{"weight", weight}, {"bias", bias}});
+  const int64_t rows = x.size(0), C = x.size(1);
+  c10::cuda::CUDAGuard guard(x.device());
+  Tensor y = at::empty_like(x);
+  const auto f32 = x.options().dtype(at::kFloat);
+  Tensor mean = at::empty({rows}, f32), rstd = at::empty({rows}, f32);
+  const int err = layer_norm_fwd(
+      x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
+      mean.data_ptr(), rstd.data_ptr(), rows, C, static_cast<float>(eps),
+      x.scalar_type() == at::kBFloat16, stream_of(x));
+  TORCH_CHECK(err == 0, cat("layer_norm: kernel launch failed with "
+                            "cudaError_t ", err, " (rows=", rows, ", C=", C,
+                            ")"));
+  count("LN");
+  return {y, mean, rstd};
+}
+
+// layer_norm_bwd_plan's (blocks, rows a block) for rows x C
+std::vector<int64_t> layer_norm_bwd_blocks(int64_t rows, int64_t C) {
+  long long plan[2];
+  TORCH_CHECK(layer_norm_bwd_plan(rows, static_cast<int>(C), plan) == 0,
+              cat("layer_norm backward: no plan for rows=", rows, ", C=", C));
+  return {plan[0], plan[1]};
+}
+
+std::tuple<Tensor, Tensor, Tensor> layer_norm_backward(const Tensor& dy,
+                                                       const Tensor& x,
+                                                       const Tensor& weight,
+                                                       const Tensor& mean,
+                                                       const Tensor& rstd) {
+  check_layer_norm(x, {{"weight", weight}});
+  TORCH_CHECK(dy.device() == x.device() &&
+                  dy.scalar_type() == x.scalar_type() &&
+                  dy.sizes() == x.sizes() && dy.is_contiguous(),
+              cat("layer_norm backward: dy must be a contiguous ",
+                  x.scalar_type(), " ", shape(x.sizes()), " tensor on ",
+                  x.device(), ", got ", dy.scalar_type(), " ",
+                  shape(dy.sizes()), " on ", dy.device()));
+  check_aligned("layer_norm backward", "dy", dy);
+  const int64_t rows = x.size(0), C = x.size(1);
+  for (const auto& [what, v] : {std::pair<const char*, Tensor>{"mean", mean},
+                                {"rstd", rstd}}) {
+    TORCH_CHECK(v.device() == x.device() && v.scalar_type() == at::kFloat &&
+                    v.sizes() == at::IntArrayRef({rows}) && v.is_contiguous(),
+                cat("layer_norm backward: ", what, " must be a contiguous "
+                    "float32 ", shape({rows}), " tensor on ", x.device(),
+                    ", got ", v.scalar_type(), " ", shape(v.sizes()), " on ",
+                    v.device()));
+  }
+  c10::cuda::CUDAGuard guard(x.device());
+  const auto plan = layer_norm_bwd_blocks(rows, C);
+  const auto f32 = x.options().dtype(at::kFloat);
+  Tensor dx = at::empty_like(x);
+  Tensor dw = at::empty({C}, f32), db = at::empty({C}, f32);
+  // one f32 partial row of dw and of db a block, summed in block order
+  Tensor part_w = at::empty({plan[0], C}, f32);
+  Tensor part_b = at::empty({plan[0], C}, f32);
+  const int err = layer_norm_bwd(
+      dy.data_ptr(), x.data_ptr(), weight.data_ptr(), mean.data_ptr(),
+      rstd.data_ptr(), dx.data_ptr(), dw.data_ptr(), db.data_ptr(),
+      part_w.data_ptr(), part_b.data_ptr(), rows, C,
+      x.scalar_type() == at::kBFloat16, stream_of(x));
+  TORCH_CHECK(err == 0, cat("layer_norm backward: kernel launch failed with "
+                            "cudaError_t ", err, " (rows=", rows, ", C=", C,
+                            ")"));
+  count("LNB");
+  return {dx, dw, db};
+}
+
 // --- tpu3dssf_cuda:: the counters and the sources' constants ----------------
 
 std::vector<int64_t> launch_counts() {
@@ -478,8 +608,8 @@ std::vector<int64_t> launch_counts() {
 
 void set_launch_counts(at::IntArrayRef counts) {
   TORCH_CHECK(counts.size() == kKernels,
-              cat("set_launch_counts: ", kKernels, " counts (K1 ... K9), got ",
-                  counts.size()));
+              cat("set_launch_counts: ", kKernels,
+                  " counts (K1 ... K9, LN, LNB), got ", counts.size()));
   for (int i = 0; i < kKernels; ++i) g_launches[i] = counts[i];
 }
 
@@ -498,7 +628,8 @@ int64_t constant(c10::string_view name_) {
 }  // namespace
 
 extern "C" {
-// counts[0..8] = the launches of K1 ... K9 made in this process
+// counts[0..10] = the launches of K1 ... K9, LN and LNB made in this
+// process
 void tpu3dssf_read_launch_counts(int64_t* counts) {
   for (int i = 0; i < kKernels; ++i) counts[i] = g_launches[i].load();
 }
@@ -515,11 +646,15 @@ TORCH_LIBRARY_IMPL(tpu3dssf, CUDA, m) {
   m.impl("attention_lse", &attention_lse);
   m.impl("attention_bwd", &attention_bwd);
   m.impl("knn", &knn);
+  m.impl("layer_norm", &layer_norm_forward);
+  m.impl("layer_norm_bwd", &layer_norm_backward);
 }
 
 TORCH_LIBRARY(tpu3dssf_cuda, m) {
   m.def("launch_counts() -> int[]", &launch_counts);
   m.def("set_launch_counts(int[] counts) -> ()", &set_launch_counts);
   m.def("knn_plan(int B, int Q, int R, int k) -> int[]", &plan);
+  m.def("layer_norm_bwd_plan(int rows, int C) -> int[]",
+        &layer_norm_bwd_blocks);
   m.def("constant(str name) -> int", &constant);
 }

@@ -1,7 +1,8 @@
 // The port's operators, tpu3dssf::*: their schemas, and nothing else.
 //
-// This file is the one place where the seven operators that carry the nine
-// TPU kernels (K1-K9) are defined. It holds no kernel and no CUDA, so a
+// This file is the one place where the port's operators are defined: the
+// seven that carry the nine TPU kernels (K1-K9) and the two of its own
+// LayerNorm kernels, which replace no TPU kernel. It holds no kernel and no CUDA, so a
 // host C++ compiler builds it on any machine (tpu3dssf_torch/kernels/
 // _build.py, at the first import of tpu3dssf_torch.kernels), and a process
 // that loads it with torch.ops.load_library (or dlopen) knows the
@@ -56,6 +57,14 @@ TORCH_LIBRARY(tpu3dssf, m) {
   m.def(
       "knn(Tensor queries, Tensor refs, Tensor ref_mask, SymInt k) -> "
       "(Tensor, Tensor)");
+  // LayerNorm over the last dimension of (rows, C): (y, mean, rstd)
+  m.def(
+      "layer_norm(Tensor x, Tensor weight, Tensor bias, float eps) -> "
+      "(Tensor, Tensor, Tensor)");
+  // its gradient: (dx, dweight, dbias)
+  m.def(
+      "layer_norm_bwd(Tensor dy, Tensor x, Tensor weight, Tensor mean, "
+      "Tensor rstd) -> (Tensor, Tensor, Tensor)");
 }
 
 namespace {

@@ -15,6 +15,12 @@ from tpu3dssf_torch.kernels.flash_attention import (
     mha_reference,
     pick_head_group,
 )
+from tpu3dssf_torch.kernels.layer_norm import (
+    LayerNormFunction,
+    layer_norm,
+    layer_norm_bwd_reference,
+    layer_norm_reference,
+)
 from tpu3dssf_torch.kernels.window_attention import (
     WindowAttentionPacked,
     window_attention,
@@ -26,6 +32,7 @@ from tpu3dssf_torch.kernels import knn, ops  # noqa: F401  (registers the ops)
 __all__ = [
     "FlashAttention",
     "FlashAttentionPacked",
+    "LayerNormFunction",
     "WindowAttentionPacked",
     "flash_attention",
     "flash_attention_bwd_reference",
@@ -34,6 +41,9 @@ __all__ = [
     "flash_attention_packed_bwd_reference",
     "flash_attention_packed_lse_reference",
     "flash_attention_packed_reference",
+    "layer_norm",
+    "layer_norm_bwd_reference",
+    "layer_norm_reference",
     "mha_reference",
     "pick_head_group",
     "window_attention",

@@ -6,7 +6,7 @@ version and torch's C++ ABI flag, so an edited source, another torch or
 another ABI rebuilds and an unchanged one is reused:
 
 * the schema library (``csrc/ops_schema.cpp``, the host C++ compiler): the
-  seven ``tpu3dssf::`` operators' schemas, and ``tpu3dssf_host::dq_scratch``
+  ``tpu3dssf::`` operators' schemas, and ``tpu3dssf_host::dq_scratch``
   (``csrc/dq_scratch.h``, the backward's scratch sizing that the CUDA
   library shares). :mod:`tpu3dssf_torch.kernels.ops` builds and loads it at import, on any
   machine, before it registers their CPU and fake kernels;
@@ -45,7 +45,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "tpu3dssf_torch"
 KERNEL_SOURCES = ("flash_attention_packed.cu", "flash_attention_packed_bwd.cu",
-                  "knn.cu")
+                  "knn.cu", "layer_norm.cu")
 SCHEMA_SOURCE = "ops_schema.cpp"
 CUDA_OPS_SOURCE = "ops_cuda.cpp"
 RUNNER_SOURCE = "aoti_runner.cpp"

@@ -13,16 +13,18 @@ one::
 Each name is looked up when it is first asked for, so the kernel modules
 may use this one too.
 
-:data:`COUNTERS` is the one list of the launch counters, by the TPU kernel
-each counts (K1–K9), with the name each kernel module gives its counter
-(``fa.LAUNCHES`` reads K1). The counts live in the CUDA library
-(``csrc/ops_cuda.cpp``), whose ops' CUDA kernels add a launch where they
-launch, wherever that library is loaded (``ops`` loads it at import where
-a card is present); elsewhere, where nothing launches, they are Python
-integers here. :func:`launch_counts` reads them, :func:`set_launch_counts`
-writes them (the CUDA-graph wrapper of :mod:`tpu3dssf_torch.train.graph`
-puts them back after a capture and adds a capture's counts on every
-replay).
+:data:`COUNTERS` is the one list of the launch counters, by the kernel
+each counts, with the name each kernel module gives its counter: the nine
+TPU kernels (K1–K9; ``fa.LAUNCHES`` reads K1), then the port's LayerNorm,
+which replaces no TPU kernel (LN, read as ``layer_norm.LAUNCHES``, and its
+gradient LNB, ``layer_norm.BWD_LAUNCHES``). The counts live in the CUDA
+library (``csrc/ops_cuda.cpp``, in this order), whose ops' CUDA kernels add
+a launch where they launch, wherever that library is loaded (``ops`` loads
+it at import where a card is present); elsewhere, where nothing launches,
+they are Python integers here. :func:`launch_counts` reads them,
+:func:`set_launch_counts` writes them (the CUDA-graph wrapper of
+:mod:`tpu3dssf_torch.train.graph` puts them back after a capture and adds a
+capture's counts on every replay).
 """
 
 from __future__ import annotations
@@ -31,10 +33,10 @@ import importlib
 
 import torch
 
-_MODULES = ("flash_attention", "window_attention", "knn")
+_MODULES = ("flash_attention", "window_attention", "knn", "layer_norm")
 __all__ = list(_MODULES)
 
-# TPU kernel -> (module, name of its launch counter)
+# kernel -> (module, name of its launch counter)
 COUNTERS = {
     "K1": ("flash_attention", "LAUNCHES"),
     "K2": ("flash_attention", "LSE_LAUNCHES"),
@@ -45,6 +47,8 @@ COUNTERS = {
     "K7": ("knn", "LAUNCHES"),
     "K8": ("flash_attention", "FLASH_LAUNCHES"),
     "K9": ("flash_attention", "FLASH_BWD_LAUNCHES"),
+    "LN": ("layer_norm", "LAUNCHES"),
+    "LNB": ("layer_norm", "BWD_LAUNCHES"),
 }
 
 
@@ -64,14 +68,15 @@ def _in_cuda_library() -> bool:
 
 
 def launch_counts() -> dict:
-    """{"K1": launches, ..., "K9": launches} made in this process."""
+    """{"K1": launches, ..., "K9": launches, "LN": ..., "LNB": ...} made in
+    this process."""
     if _in_cuda_library():
         return dict(zip(COUNTERS, torch.ops.tpu3dssf_cuda.launch_counts()))
     return dict(_COUNTS)
 
 
 def set_launch_counts(counts: dict):
-    """Set the counters named in ``counts`` ({"K1": n, ...})."""
+    """Set the counters named in ``counts`` ({"K1": n, ..., "LN": n})."""
     now = launch_counts()
     for k, n in counts.items():
         if k not in COUNTERS:

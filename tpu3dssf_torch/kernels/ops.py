@@ -1,8 +1,9 @@
 """The port's CUDA kernels as PyTorch operators: ``tpu3dssf::*``.
 
-Seven operators carry the nine TPU kernels (K1–K9). Where two TPU kernels
-share an operator, it takes the one it counts as its ``kernel`` argument
-(operator: TPU kernels):
+Seven operators carry the nine TPU kernels (K1–K9), and two the port's own
+LayerNorm kernels, which replace no TPU kernel. Where two TPU kernels share
+an operator, it takes the one it counts as its ``kernel`` argument
+(operator: kernels):
 
 * ``tpu3dssf::packed_attention``: K1 (with tables its RoPE branch);
 * ``tpu3dssf::packed_attention_lse``: K1 (its RoPE branch), K2 or K4;
@@ -10,7 +11,9 @@ share an operator, it takes the one it counts as its ``kernel`` argument
 * ``tpu3dssf::attention``: K6 or K8;
 * ``tpu3dssf::attention_lse``: K4 or K8;
 * ``tpu3dssf::attention_bwd``: K5 or K9;
-* ``tpu3dssf::knn``: K7.
+* ``tpu3dssf::knn``: K7;
+* ``tpu3dssf::layer_norm``: LN (:mod:`tpu3dssf_torch.kernels.layer_norm`);
+* ``tpu3dssf::layer_norm_bwd``: LNB, its gradient.
 
 They are defined once, in C++ (``csrc/ops_schema.cpp``, built with the host
 compiler and loaded here before anything is registered on them). Each has
@@ -22,8 +25,8 @@ three kernels, and the dispatcher picks one by the device of its tensors:
   checks the kernel's contract, data pointers' alignment included, and
   raises a ``RuntimeError`` on a breach; it takes outputs and scratch from
   PyTorch's allocator, launches on PyTorch's current stream, raises where
-  the launch fails, and then adds one to the C++ counter of the TPU kernel
-  it served (:mod:`tpu3dssf_torch.kernels.modules` reads them). So a
+  the launch fails, and then adds one to the C++ counter of the kernel it
+  served (:mod:`tpu3dssf_torch.kernels.modules` reads them). So a
   program that ``torch.export`` saved, or an AOTInductor package, counts
   its launches as eager code does, in a Python process or in one without
   Python (``csrc/aoti_runner.cpp``). Where the CUDA library fails to build,
@@ -40,8 +43,8 @@ three kernels, and the dispatcher picks one by the device of its tensors:
 Outputs never alias inputs. Importing :mod:`tpu3dssf_torch.kernels`
 registers every op; that, and ``torch``, is all a loaded artifact needs.
 The autograd rules (``FlashAttentionPacked``, ``FlashAttention``,
-``WindowAttentionPacked``) stay ``torch.autograd.Function`` s around the
-ops.
+``WindowAttentionPacked``, ``LayerNormFunction``) stay
+``torch.autograd.Function`` s around the ops.
 """
 
 from __future__ import annotations
@@ -51,11 +54,12 @@ import torch
 from tpu3dssf_torch.kernels import _build
 from tpu3dssf_torch.kernels.modules import flash_attention as fa
 from tpu3dssf_torch.kernels.modules import knn as knn_module
+from tpu3dssf_torch.kernels.modules import layer_norm as ln
 from tpu3dssf_torch.kernels.modules import window_attention as wa
 
 _build.load_schema_library()   # the ops' schemas, before any kernel
 
-# op -> the TPU kernels it may count as
+# op -> the kernels it may count as
 KERNELS = {
     "packed_attention": ("K1",),
     "packed_attention_lse": ("K1", "K2", "K4"),
@@ -64,6 +68,8 @@ KERNELS = {
     "attention_lse": ("K4", "K8"),
     "attention_bwd": ("K5", "K9"),
     "knn": ("K7",),
+    "layer_norm": ("LN",),
+    "layer_norm_bwd": ("LNB",),
 }
 # the wrapper each (B, N, H, D) kernel serves, as the checks name it in
 # their errors
@@ -275,6 +281,43 @@ def _(queries, refs, ref_mask, k):
     B, Q, _ = queries.shape
     return (queries.new_empty((B, Q, k), dtype=torch.float32),
             queries.new_empty((B, Q, k), dtype=torch.int32))
+
+
+# --- LN, LNB: LayerNorm and its gradient ------------------------------------
+
+@torch.library.impl("tpu3dssf::layer_norm", "cpu")
+def layer_norm(x, weight, bias, eps):
+    """LayerNorm of a (rows, C) ``x`` over C with f32 ``weight`` and
+    ``bias``: (y in x's dtype, mean (rows,) f32, rstd (rows,) f32); see
+    :func:`~tpu3dssf_torch.kernels.layer_norm.layer_norm`."""
+    y, mean, rstd = ln.layer_norm_reference(x, weight, bias, eps)
+    return y.contiguous(), mean.contiguous(), rstd.contiguous()
+
+
+@torch.library.register_fake("tpu3dssf::layer_norm")
+def _(x, weight, bias, eps):
+    if _on_cuda(x):
+        ln.check_layout(x, (("weight", weight), ("bias", bias)))
+    rows = x.shape[:-1].numel()
+    return (x.new_empty(x.shape), x.new_empty((rows,), dtype=torch.float32),
+            x.new_empty((rows,), dtype=torch.float32))
+
+
+@torch.library.impl("tpu3dssf::layer_norm_bwd", "cpu")
+def layer_norm_bwd(dy, x, weight, mean, rstd):
+    """The gradient of :func:`layer_norm` from its mean and rstd: (dx in
+    x's dtype, dweight f32, dbias f32)."""
+    return tuple(g.contiguous() for g in ln.layer_norm_bwd_reference(
+        dy, x, weight, mean, rstd))
+
+
+@torch.library.register_fake("tpu3dssf::layer_norm_bwd")
+def _(dy, x, weight, mean, rstd):
+    if _on_cuda(x):
+        ln.check_layout(x, (("weight", weight),))
+        ln.check_stats(dy, x, mean, rstd)
+    return (x.new_empty(x.shape), weight.new_empty(weight.shape),
+            weight.new_empty(weight.shape))
 
 
 def _cuda_library():

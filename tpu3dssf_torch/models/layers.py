@@ -4,7 +4,8 @@
   the product computed in the module's compute dtype.
 * :class:`LayerNorm` — ``flax.linen.LayerNorm``: statistics and the affine
   map in float32, the result cast to the compute dtype; epsilon defaults
-  to flax's 1e-6 (PyTorch's default is 1e-5).
+  to flax's 1e-6 (PyTorch's default is 1e-5). One kernel on a card
+  (:func:`tpu3dssf_torch.kernels.layer_norm.layer_norm`).
 * :func:`init_weights` — a seeded random init that mirrors flax's
   initializers (lecun-normal kernels, zero biases, unit LayerNorm scales),
   drawn from one ``torch.Generator`` in module registration order.
@@ -17,6 +18,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from tpu3dssf_torch.kernels.layer_norm import layer_norm
 
 # std of a standard normal truncated to [-2, 2]; flax divides by it
 _TRUNC_STD = 0.87962566103423978
@@ -59,7 +62,12 @@ class Dense(nn.Linear):
 
 
 class LayerNorm(nn.Module):
-    """flax LayerNorm: f32 statistics, output in ``dtype``."""
+    """flax LayerNorm: f32 statistics, output in ``dtype``.
+
+    The rows go to the op ``tpu3dssf::layer_norm`` in the input's dtype
+    where that is ``dtype`` (the kernel rounds once, to it), else in f32
+    with the result cast to ``dtype``; on the CPU this is
+    ``F.layer_norm(x.float(), ...).to(dtype)`` bit for bit."""
 
     def __init__(self, features, eps=1e-6, dtype=torch.float32):
         super().__init__()
@@ -69,9 +77,11 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x):
-        y = F.layer_norm(x.float(), self.weight.shape, self.weight,
-                         self.bias, self.eps)
-        return y.to(self.dtype)
+        if x.dtype != self.dtype:
+            x = x.float()
+        y = layer_norm(x.reshape(-1, x.shape[-1]).contiguous(),
+                       self.weight.float(), self.bias.float(), self.eps)
+        return y.reshape(x.shape).to(self.dtype)
 
     @torch.no_grad()
     def reset_parameters(self, generator=None):
